@@ -1,0 +1,137 @@
+"""Time build variants of the port's stencil kernels on one NVIDIA GPU.
+
+    python3 scripts/kernel_variants.py [--variants NAME,NAME,...]
+
+Each variant builds ``src/repro_torch/kernels/csrc`` with ``-D`` overrides
+of the kernels' tuning macros (all variants compile at once), prints its
+``ptxas`` register and spill counts, holds its kernels against the plain
+torch version at atol 5e-6 (rtol 0), and times them at the main path's
+shapes: one step of 2d5pt on 8192x8192 (``stencil_baseline_step``),
+``stencil_perks`` on 8192x8192 for 100 steps at the planner's cached rows,
+and ``stencil_resident`` on 3072x1152 for 1000 steps. The variants are
+timed in turn, twice over (A B C ... A B C ...), in one process on one
+card, so they can be compared with each other. Prints one JSON line per
+variant and round, then the card's name and power limit. Exits non-zero
+without a CUDA device or if a kernel disagrees with its plain version.
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ATOL = 5e-6
+#: name -> -D overrides (empty: the shipped kernels)
+VARIANTS = {
+    "shipped": (),
+    "perks_stream_rows_1": ("-DPERKS_STREAM_ROWS=1",),
+    "perks_stream_rows_8": ("-DPERKS_STREAM_ROWS=8",),
+    "step_stream_rows_4": ("-DSTEP_STREAM_ROWS=4",),
+    "threads_512": ("-DPERKS_THREADS=512", "-DPERKS_CELLS_PER_THREAD=40"),
+    "threads_512_cells_20": ("-DPERKS_THREADS=512",
+                             "-DPERKS_CELLS_PER_THREAD=20"),
+    "cells_16": ("-DPERKS_CELLS_PER_THREAD=16",),
+    "cells_10": ("-DPERKS_CELLS_PER_THREAD=10",),
+}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def spills(log: str) -> dict:
+    """Largest register count and spill-store bytes over the instances."""
+    regs, stores = 0, 0
+    for ln in log.splitlines():
+        if "Used" in ln and "registers" in ln:
+            regs = max(regs, int(ln.split("Used")[1].split()[0]))
+        if "spill stores" in ln:
+            stores = max(stores, int(ln.split("bytes spill stores")[0]
+                                     .split(",")[-1].strip()))
+    return {"max_registers": regs, "max_spill_store_bytes": stores}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch import StencilProblem, plan
+    from repro_torch.kernels import _build, ops, ref, stencil2d
+    from repro_torch.kernels.common import get_spec
+
+    names = args.variants.split(",")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(lambda n: _build.build_all(extra=VARIANTS[n]), names))
+    for n in names:
+        log = "\n".join(_build.build_log(s, VARIANTS[n]).read_text()
+                        for s in _build.SOURCES)
+        print(json.dumps({"variant": n, "flags": VARIANTS[n], **spills(log)}))
+
+    spec = get_spec("2d5pt")
+    rng = np.random.default_rng(0)
+    big = torch.from_numpy(rng.standard_normal((8192, 8192), dtype=np.float32)).cuda()
+    small = torch.from_numpy(rng.standard_normal((3072, 1152), dtype=np.float32)).cuda()
+    rows = plan(StencilProblem(big, spec, 100)).cached_rows
+    want = {"step": ref.stencil_step(big, spec),
+            "perks": ref.stencil_run(big, spec, 100),
+            "resident": ref.stencil_run(small, spec, 1000)}
+    runs = {
+        "step": lambda: ops.stencil_baseline_step(big, spec=spec),
+        "perks": lambda: ops.stencil_perks(big, spec=spec, steps=100,
+                                           cached_rows=rows),
+        "resident": lambda: ops.stencil_resident(small, spec=spec, steps=1000),
+    }
+    shipped_cells = stencil2d.PERKS_MAX_ROW_CELLS
+    bad = []
+    for rnd in range(args.rounds):
+        for n in names:
+            _build.EXTRA_FLAGS = VARIANTS[n]
+            lib = _build.load("stencil_perks")
+            stencil2d.PERKS_MAX_ROW_CELLS = lib.stencil_perks_max_row_cells()
+            line = {"variant": n, "round": rnd, "perks_cached_rows": rows}
+            for k, fn in runs.items():
+                if rnd == 0:
+                    err = (fn() - want[k]).abs().max().item()
+                    line[f"{k}_max_abs_err"] = err
+                    if not err <= ATOL:
+                        bad.append(f"{n} {k}: {err}")
+                line[f"{k}_ms"] = cuda_ms(fn, 20 if k == "step" else 5)
+            print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    stencil2d.PERKS_MAX_ROW_CELLS = shipped_cells
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True)
+    print(card.stdout.strip().splitlines()[0])
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

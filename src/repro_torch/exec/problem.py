@@ -1,0 +1,151 @@
+"""The ``Problem`` protocol: what a workload exposes to the executor — the
+port of ``repro/exec/problem.py`` (single-instance surface; the batching
+surface comes with the batching slice).
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+import zlib
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache_policy import CacheableArray
+
+
+def _dtype_name(a) -> str:
+    dtype = getattr(a, "dtype", None)
+    if dtype is None:
+        return type(a).__name__
+    return str(dtype).replace("torch.", "")
+
+
+def operand_fingerprint(*operands) -> str:
+    """Content digest of solver operands, for cache-safe problem names.
+
+    Folds each operand's shape/dtype plus up to 16 evenly spaced element
+    values into one crc32, as the reference does; dtypes are named as numpy
+    names them, so equal data gives the same digest in both packages.
+    Opaque callables contribute their identity. A device tensor transfers
+    at most 16 elements.
+    """
+    h = zlib.crc32(b"operands")
+    for a in operands:
+        if a is None:
+            h = zlib.crc32(b"|none", h)
+            continue
+        if callable(a) and not hasattr(a, "shape"):
+            h = zlib.crc32(f"|fn:{id(a):x}".encode(), h)
+            continue
+        shape = tuple(int(d) for d in getattr(a, "shape", ()))
+        h = zlib.crc32(repr((shape, _dtype_name(a))).encode(), h)
+        sample = _sample_elements(a, shape)
+        if sample is not None:
+            h = zlib.crc32(np.ascontiguousarray(sample).tobytes(), h)
+    return f"{h:08x}"
+
+
+def _sample_elements(a, shape, k: int = 16):
+    """Up to ``k`` evenly spaced elements of a concrete array as a host
+    ndarray; None for anything else."""
+    size = int(np.prod(shape)) if shape else 1
+    if size == 0:
+        return None
+    idx = np.linspace(0, size - 1, num=min(k, size)).astype(np.int64)
+    if isinstance(a, np.ndarray):
+        return a.reshape(-1)[idx]
+    if isinstance(a, torch.Tensor) and a.device.type != "meta":
+        return a.reshape(-1)[torch.from_numpy(idx).to(a.device)].cpu().numpy()
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloSpec:
+    """How a problem shards over one mesh axis (distributed tier).
+
+    ``axis`` is the array axis that row-partitions; ``halo`` is how many
+    rows of neighbour data ONE step needs; ``partitions`` lists the
+    row-repacking strategies the problem supports.
+    """
+
+    axis: int = 0
+    halo: int = 0
+    partitions: tuple[str, ...] = ("rows",)
+
+
+class Problem(abc.ABC):
+    """One iterative workload, described for the PERKS executor.
+
+    Adapters provide the four abstract pieces; the tier hooks
+    ``run_resident``/``run_distributed`` raise by default, and ``supports``
+    reports which tiers a problem runs.
+    """
+
+    kind: str = "generic"
+    name: str = "problem"
+    n_steps: int = 0
+    batch: int = 1
+
+    @abc.abstractmethod
+    def initial_state(self) -> Any:
+        """The state fed to the first step."""
+
+    @abc.abstractmethod
+    def step_fn(self) -> Callable[[Any, Any], Any]:
+        """The step function ``(state, out) -> state`` (one iteration,
+        written into ``out``; see ``repro_torch.core.perks``)."""
+
+    @abc.abstractmethod
+    def cacheable_arrays(self, *, fuse_steps: int = 1) -> Sequence[CacheableArray]:
+        """The arrays/regions a cache plan may keep on chip (paper §III-B)."""
+
+    @abc.abstractmethod
+    def oracle(self) -> Any:
+        """Reference result after ``n_steps`` (plain torch, host-loop order)."""
+
+    def finalize(self, state: Any) -> Any:
+        """Map the final loop state to the user-facing result."""
+        return state
+
+    def on_sync(self) -> Optional[Callable[[Any, int], bool]]:
+        """Host-sync callback for chunked execution; returning True stops
+        early. None = run all steps."""
+        return None
+
+    def halo_spec(self) -> Optional[HaloSpec]:
+        """Partition description for the distributed tier (None = cannot
+        shard)."""
+        return None
+
+    def domain_bytes(self) -> int:
+        """Total bytes of the per-step working set."""
+        return sum(a.bytes for a in self.cacheable_arrays())
+
+    def with_precision(self, precision: str) -> "Problem":
+        """A copy of this problem running under ``precision``; only
+        'uniform' exists in the port so far."""
+        if precision == "uniform":
+            return self
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support precision="
+            f"{precision!r}")
+
+    def run_resident(self, plan) -> Any:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the resident tier")
+
+    def run_distributed(self, plan, mesh) -> Any:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the distributed tier")
+
+    def supports(self, tier: str) -> bool:
+        """Which Plan tiers this problem can execute."""
+        if tier in ("host_loop", "device_loop"):
+            return True
+        if tier == "resident":
+            return type(self).run_resident is not Problem.run_resident
+        if tier == "distributed":
+            return type(self).run_distributed is not Problem.run_distributed
+        return False

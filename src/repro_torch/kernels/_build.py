@@ -1,0 +1,162 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with
+``ctypes``.
+
+Each ``.cu`` file becomes its own shared library with a plain C interface,
+compiled for ``sm_90a`` at first use (never at import) into ``build/kernels``
+at the root of the checkout. A library's file name carries a digest of its
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. ``build_all`` starts one ``nvcc`` per source at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: library name -> its CUDA source in csrc/
+SOURCES = {
+    "stencil_step": "stencil_step.cu",
+    "stencil_perks": "stencil_perks.cu",
+}
+HEADERS = ("stencil_common.cuh",)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: ``-D`` overrides of the kernels' tuning macros (``PERKS_THREADS``,
+#: ``PERKS_CELLS_PER_THREAD``, ``PERKS_STREAM_ROWS``, ``STEP_STREAM_ROWS``)
+#: that ``load`` uses,
+#: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
+#: for the shipped kernels.
+EXTRA_FLAGS: tuple[str, ...] = ()
+
+MAX_POINTS = 32
+MAX_RADIUS = 8
+
+
+class StencilArgs(ctypes.Structure):
+    """Mirror of ``struct StencilArgs`` in ``csrc/stencil_common.cuh``."""
+
+    _fields_ = [
+        ("H", ctypes.c_int), ("D1", ctypes.c_int), ("D2", ctypes.c_int),
+        ("P", ctypes.c_int), ("ndim", ctypes.c_int), ("r", ctypes.c_int),
+        ("npts", ctypes.c_int),
+        ("d0", ctypes.c_int * MAX_POINTS),
+        ("dc", ctypes.c_int * MAX_POINTS),
+        ("w", ctypes.c_float * MAX_POINTS),
+    ]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+
+#: C signatures: library -> {function: (restype, argtypes)}
+_SIGNATURES = {
+    "stencil_step": {
+        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _P]),
+    },
+    "stencil_perks": {
+        "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, _I, _I, _I,
+                                      _I, _I, _P]),
+        "stencil_perks_max_ctas": (_I, [_I, _I, _IP]),
+        "stencil_perks_smem": (_I, [_I, _IP, _IP]),
+        "stencil_perks_max_row_cells": (_I, []),
+    },
+}
+
+#: (library name, EXTRA_FLAGS) -> the loaded library
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str, extra: tuple[str, ...] | None = None) -> Path:
+    """Where library ``name`` built with ``extra`` flags (default
+    ``EXTRA_FLAGS``) lives."""
+    extra = EXTRA_FLAGS if extra is None else extra
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
+    for f in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None, extra: tuple[str, ...] | None = None
+              ) -> dict[str, float]:
+    """Compile every library in ``names`` (default: all) that is not built
+    yet with ``extra`` flags (default ``EXTRA_FLAGS``), one ``nvcc`` per
+    source, all started together. Returns each compiled library's build
+    seconds; raises ``RuntimeError`` with the compiler's output if one
+    fails. ``ptxas -v`` output is kept beside each library (``build_log``)."""
+    extra = EXTRA_FLAGS if extra is None else extra
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n, extra).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n, extra)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    seconds, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        seconds[n] = time.perf_counter() - t0
+        build_log(n, extra).write_text(log)
+        if p.returncode != 0:
+            failed.append(f"{n} (nvcc exit {p.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str, extra: tuple[str, ...] | None = None) -> Path:
+    """The compiler's output for library ``name`` as last built."""
+    return library_path(name, extra).with_suffix(".log")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get((name, EXTRA_FLAGS))
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (res, args) in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.restype = res
+            f.argtypes = args
+        _loaded[(name, EXTRA_FLAGS)] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {err}")

@@ -63,3 +63,10 @@ def dist_run():
     JSON-over-stdout protocol). New distributed tests take this fixture
     instead of re-implementing the spawn."""
     return run_multi_device
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); such a test "
+        "skips, with its reason, where torch finds no CUDA device")

@@ -1,0 +1,69 @@
+"""The port stands alone: ``repro_torch`` imports neither jax nor anything of
+the reference package, and its entry points run on the card unless the
+caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+(?:jax|repro)(?:\.|\s|,|$)|from\s+(?:jax|repro)(?:\.|\s))",
+    re.M)
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core.perks\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.stencil3d\n"
+        "import repro_torch.exec.planner, repro_torch.core.perf_model\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_source_has_no_jax_or_reference_import():
+    files = sorted(PORT.rglob("*.py"))
+    assert files
+    offenders = [str(f.relative_to(REPO)) for f in files
+                 if _FORBIDDEN.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_scan_pattern_catches_the_forbidden_forms():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.kernels import common", "import repro.exec",
+                 "    from repro import obs"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.exec import plan",
+                 "import jaxlib_free_name_torch"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import StencilProblem
+    from repro_torch.convert import domain_from_numpy
+    from repro_torch.kernels.common import get_spec
+    x = np.zeros((16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StencilProblem(x, get_spec("2d5pt"), 3)
+    with pytest.raises(RuntimeError):
+        domain_from_numpy(x)
+    p = StencilProblem(x, get_spec("2d5pt"), 3, device="cpu")
+    assert p.x.device.type == "cpu"
