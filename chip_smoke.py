@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's stencil main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's stencil and conjugate-gradient paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,17 +7,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print the build seconds;
-2. hold each kernel against its plain torch version on the card, at
-   atol 5e-6, rtol 0: all 13 Table-III specs at a moderate size, then each
-   kernel at the main path's full shapes, with its time, its plain
+2. hold each stencil kernel against its plain torch version on the card,
+   at atol 5e-6, rtol 0: all 13 Table-III specs at a moderate size, then
+   each kernel at the stencil path's full shapes, with its time, its plain
    version's time and (for the one-step kernel) a cuDNN convolution's;
-3. the main path, with every launch counter set to 0 just before and read
-   just after: ``StencilProblem`` -> ``plan`` -> ``execute`` for 2d5pt at
-   8192x8192 f32 (100 steps; partial caching, ``stencil_perks``) and at
-   3072x1152 f32 (1000 steps; whole domain cached, ``stencil_resident``),
-   then every tier by hand; each result against the plain version;
-4. each tier's median time, cells/s and effective bandwidth;
-5. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+3. the stencil path, with every launch counter set to 0 just before and
+   read just after: ``StencilProblem`` -> ``plan`` -> ``execute`` for
+   2d5pt at 8192x8192 f32 (100 steps; partial caching, ``stencil_perks``)
+   and at 3072x1152 f32 (1000 steps; whole domain cached,
+   ``stencil_resident``), then every tier by hand; each result against the
+   plain version;
+4. each stencil tier's median time, cells/s and effective bandwidth;
+5. the CG kernels against their plain versions: every SPD registry entry
+   at its own size (50 iterations of ``cg_fused``, VEC and MIX), then each
+   kernel at the CG path's full shapes with its time, its plain version's
+   and (for the SpMVs) one cuSPARSE call's;
+6. the CG path, with every launch counter set to 0 just before and read
+   just after: ``CGProblem`` -> ``plan`` -> ``execute`` and every offered
+   tier by hand, 100 iterations each, on cg-small (``poisson2d(512)``,
+   ELL), cg-large (``poisson2d(1024)``, ELL) and cg-sell
+   (``fem_variable_band(2**20)`` as SELL-32-256 through ``from_matvec``);
+   each x against a float64 plain run;
+7. each CG tier's median time, per-iteration time and effective bandwidth
+   against the planner's prediction;
+8. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it prints no result and exits non-zero.
@@ -35,6 +49,31 @@ import numpy as np
 import torch
 
 ATOL = 5e-6              # the reference's kernel bound (tests/test_deep_blocking.py)
+# The SpMVs against their plain version: the reference's SpMV bound
+# (tests/test_kernels_linalg.py) plus a relative term, for the order of
+# summation.
+SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-5
+# cg_fused and the CG tiers against the plain version at moderate size: the
+# reference's fused-CG bound (tests/test_kernels_linalg.py) on x and rr.
+CG_RTOL, CG_ATOL = 1e-3, 1e-5
+# At full size after 100 iterations rounding grows with n, so x is held
+# against a float64 plain run: its distance may be at most twice the
+# float32 plain version's distance plus X64_REL * ||x_64||. At moderate size
+# every entry is held so, and the entries below also at CG_RTOL/CG_ATOL
+# against the float32 plain run. graph_powerlaw_8k is not among them: two
+# float32 plain runs that differ only in the order of their dot products'
+# sums already differ by about 2e-4 in x after 50 iterations there, so
+# no float32 kernel with its own reduction order meets that
+# bound on it; the moderate phase prints that spread for every entry.
+X64_REL = 1e-5
+CG_F32_CLOSE = ("poisson2d_small", "poisson2d_16k", "poisson3d_16",
+                "fem_band_8k", "graph_regular_4k", "rand_shift_16k")
+CG_ITERS = 100
+CG_CELLS = [  # (cell, generator, size): the CG path's three shapes
+    ("cg-small", "poisson2d", 512),             # n = 2^18, A wholly on chip
+    ("cg-large", "poisson2d", 1024),            # n = 2^20, A partly on chip
+    ("cg-sell", "fem_variable_band", 2**20),    # SELL-32-256, loop tiers
+]
 HBM_BW = 3.35e12         # H100 SXM device memory, bytes/s (NVIDIA data sheet)
 FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 SEED = 0
@@ -42,7 +81,7 @@ MAIN = [  # (spec, shape, n_steps, what caching the plan must choose)
     ("2d5pt", (8192, 8192), 100, "partial"),
     ("2d5pt", (3072, 1152), 1000, "whole"),
 ]
-KERNELS = {
+STENCIL_KERNELS = {
     "stencil_perks": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
                       "src/repro/kernels/stencil2d.py:203"),
     "stencil_resident": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
@@ -50,18 +89,35 @@ KERNELS = {
     "stencil_baseline_step": ("src/repro_torch/kernels/csrc/stencil_step.cu",
                               "src/repro/kernels/stencil2d.py:566"),
 }
+CG_KERNELS = {
+    "spmv_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
+                 "src/repro/kernels/spmv_ell.py:38"),
+    "spmv_sell": ("src/repro_torch/kernels/csrc/spmv_sell.cu",
+                  "src/repro/kernels/spmv_sell.py:65"),
+    "cg_fused": ("src/repro_torch/kernels/csrc/cg_fused.cu",
+                 "src/repro/kernels/cg_fused.py:104"),
+}
 
 FAILS: list[str] = []
 
 
-def check(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    err = (got - want).abs().max().item()
-    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) \
-        and err <= ATOL
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` against ``want``; a FAIL unless every
+    element lies within atol + rtol * |want| and all are finite."""
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+          and bool((diff <= atol + rtol * want.double().abs()).all()))
     print(f"  {what}: max_abs_err={err!r} {'ok' if ok else 'FAIL'}")
     if not ok:
         FAILS.append(what)
     return err
+
+
+def check(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The stencil bound: atol ATOL, rtol 0."""
+    return check_close(what, got, want, 0.0, ATOL)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -104,6 +160,307 @@ def conv_step(spec, x):
     return lambda: torch.nn.functional.conv2d(x[None, None], w)
 
 
+def check_x64(what: str, x: torch.Tensor, x32: torch.Tensor,
+              x64: torch.Tensor) -> float:
+    """Distance of ``x`` from the float64 plain run, held to twice the
+    float32 plain run's distance plus X64_REL * ||x64||; returns the max
+    abs error against the float32 plain run."""
+    d = torch.linalg.vector_norm(x.double() - x64).item()
+    d32 = torch.linalg.vector_norm(x32.double() - x64).item()
+    limit = 2 * d32 + X64_REL * torch.linalg.vector_norm(x64).item()
+    ok = (x.shape == x64.shape and bool(torch.isfinite(x).all())
+          and d <= limit)
+    err = (x - x32).abs().max().item()
+    print(f"  {what}: |x-x64|={d!r} |x32-x64|={d32!r} limit={limit!r} "
+          f"max_abs_err_vs_f32={err!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILS.append(what)
+    return err
+
+
+def cg_bound(n: int, slots: int, iters: int,
+             streamed_bytes: float) -> tuple[float, str]:
+    """Least time for ``iters`` CG iterations (ms, which): the bytes the
+    kernel must move at the device-memory rate — A, b read once, x and rr
+    written once, plus the A bytes no CTA can hold streamed again each
+    later iteration — or the float32 operations (2 per stored slot for the
+    SpMV, 10 per row for the two dots and three axpys) at the peak rate."""
+    moved = slots * 8 + n * 4 + n * 4 + 4 + max(0, iters - 1) * streamed_bytes
+    t_bytes = moved / HBM_BW
+    t_ops = iters * (2 * slots + 10 * n) / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmv_bound(n_in: int, n_out: int, slots: int,
+               table_bytes: int) -> tuple[float, str]:
+    """Least time for one SpMV (ms, which): its stored slots (8 B each),
+    its tables and x read once, y written once; or 2 float32 operations
+    per stored slot."""
+    t_bytes = (slots * 8 + table_bytes + 4 * n_in + 4 * n_out) / HBM_BW
+    t_ops = 2 * slots / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cusparse_mv(csr, x):
+    """One cuSPARSE CSR matrix-vector product of the same matrix (the
+    yardstick for the SpMV kernels; the port never calls it)."""
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.indices.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.data).cuda(), size=csr.shape)
+    return lambda: a @ x
+
+
+def cg_phases(rng):
+    """Phases 5-7: the CG kernels against their plain versions, the CG path
+    counted, the CG tiers timed. Returns (errors, timing, launches) by
+    kernel name."""
+    from repro_torch import CGProblem, Plan, execute, plan
+    from repro_torch.core import perks
+    from repro_torch.exec import plan_candidates
+    from repro_torch.exec.adapters import CG_STEP_LAUNCHES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.solvers.cg import SellOperator
+    from repro_torch.sparse import generate, symmetric_names
+    from repro_torch.sparse.generate import fem_variable_band, poisson2d
+
+    def vec(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+
+    def plain_cg(matvec, b, iters, dot=torch.dot):
+        state = (torch.zeros_like(b), b, b, dot(b, b))
+        for _ in range(iters):
+            state = ref.cg_iteration_matvec(state, matvec, dot=dot)
+        return state[0], state[3]
+
+    def blocked_dot(a, b):
+        """A float32 dot in another order: 1024-wide rows, then their sums."""
+        prod = a * b
+        pad = torch.nn.functional.pad(prod, (0, -prod.shape[0] % 1024))
+        return pad.view(-1, 1024).sum(1).sum()
+
+    errs = {k: 0.0 for k in CG_KERNELS}
+
+    def keep(k, e):
+        errs[k] = max(errs[k], e)
+
+    # -- 5. kernels against their plain versions -------------------------------
+    print("[cg kernels] every SPD registry entry; cg_fused 50 iterations")
+    for name in symmetric_names():
+        csr = generate(name)
+        n = csr.shape[0]
+        ell = csr.to_ell()
+        data = torch.from_numpy(ell.data).cuda()
+        cols = torch.from_numpy(ell.cols).cuda()
+        x, b = vec(n), vec(n)
+        keep("spmv_ell", check_close(
+            f"{name} spmv_ell", ops.spmv(data, cols, x),
+            ref.spmv_ell(data, cols, x), SPMV_RTOL, SPMV_ATOL))
+        for c, sigma in ((8, 64), (32, 256)):
+            op = SellOperator.from_matrix(csr.to_sell(c=c, sigma=sigma))
+            args = (op.data, op.cols, op.slice_offsets, op.slice_k, x)
+            keep("spmv_sell", check_close(
+                f"{name} spmv_sell c={c}",
+                ops.spmv_sell(*args, c=c, k_max=op.k_max),
+                ref.spmv_sell(*args, c=c, k_max=op.k_max),
+                SPMV_RTOL, SPMV_ATOL))
+        wx, wrr = ref.cg_run(data, cols, b, 50)
+        x64, rr64 = ref.cg_run(data.double(), cols, b.double(), 50)
+        bx, _ = plain_cg(lambda p: ref.spmv_ell(data, cols, p), b, 50,
+                         dot=blocked_dot)
+        print(f"  {name}: two float32 plain runs, dot orders apart: "
+              f"max|dx|={(bx - wx).abs().max().item()!r}")
+        for policy, resident in (("VEC", False), ("MIX", True)):
+            gx, grr = ops.cg(data, cols, b, iters=50,
+                             resident_matrix=resident)
+            if name in CG_F32_CLOSE:
+                keep("cg_fused", check_close(
+                    f"{name} cg_fused {policy} x", gx, wx, CG_RTOL, CG_ATOL))
+                check_close(f"{name} cg_fused {policy} rr", grr[0], wrr,
+                            CG_RTOL, CG_ATOL)
+            keep("cg_fused", check_x64(f"{name} cg_fused {policy} x", gx,
+                                       wx, x64))
+            check_x64(f"{name} cg_fused {policy} rr", grr[0], wrr, rr64)
+
+    # -- the CG path's cells ------------------------------------------------------
+    cells = []
+    for cell, build, size in CG_CELLS:
+        t0 = time.perf_counter()
+        csr = (poisson2d if build == "poisson2d" else fem_variable_band)(size)
+        n = csr.shape[0]
+        b = rng.standard_normal(n).astype(np.float32)
+        if cell == "cg-sell":
+            sell = csr.to_sell(c=32, sigma=256)
+            op = SellOperator.from_matrix(sell)
+            problem = CGProblem.from_matvec(op.matvec, b, CG_ITERS,
+                                            matrix=op.matrix)
+            d64 = op.data.double()
+
+            def mv32(p, op=op):
+                return ref.spmv_sell(op.data, op.cols, op.slice_offsets,
+                                     op.slice_k, p, c=op.c,
+                                     k_max=op.k_max)[op.positions]
+
+            def mv64(p, op=op, d64=d64):
+                return ref.spmv_sell(d64, op.cols, op.slice_offsets,
+                                     op.slice_k, p, c=op.c,
+                                     k_max=op.k_max)[op.positions]
+
+            slots, streamed = sell.stored, sell.stored * 8
+        else:
+            op = None
+            ell = csr.to_ell()
+            problem = CGProblem.from_ell(ell.data, ell.cols, b, CG_ITERS,
+                                         matrix=csr)
+            d64 = problem.data.double()
+
+            def mv32(p, problem=problem):
+                return ref.spmv_ell(problem.data, problem.cols, p)
+
+            def mv64(p, problem=problem, d64=d64):
+                return ref.spmv_ell(d64, problem.cols, p)
+
+            slots, streamed = ell.data.size, ell.data.size * 8
+        x32, rr32 = plain_cg(mv32, problem.b, CG_ITERS)
+        x64, rr64 = plain_cg(mv64, problem.b.double(), CG_ITERS)
+        torch.cuda.synchronize()
+        best = plan(problem)
+        print(f"[cg] {cell}: n={n} nnz={csr.nnz} stored slots={slots} "
+              f"rr32={rr32.item()!r} rr64={rr64.item()!r} set-up "
+              f"{time.perf_counter() - t0:.1f} s; plan "
+              f"{best.to_json(indent=None)}")
+        cells.append(dict(cell=cell, csr=csr, op=op, problem=problem,
+                          best=best, x32=x32, x64=x64, slots=slots,
+                          streamed=streamed))
+    small, large, sellc = cells
+
+    # -- 5b. each kernel at the CG path's full shapes -----------------------------
+    print("[cg kernels] main-path shapes")
+    timing = {}
+    pl, x = large["problem"], large["problem"].b
+    keep("spmv_ell", check_close(
+        "spmv_ell cg-large", ops.spmv(pl.data, pl.cols, x),
+        ref.spmv_ell(pl.data, pl.cols, x), SPMV_RTOL, SPMV_ATOL))
+    n_l = x.shape[0]
+    timing["spmv_ell"] = dict(
+        ms=cuda_ms(lambda: ops.spmv(pl.data, pl.cols, x), 20),
+        plain_ms=cuda_ms(lambda: ref.spmv_ell(pl.data, pl.cols, x), 10),
+        bound=spmv_bound(n_l, n_l, large["slots"], 0),
+        library_ms=cuda_ms(cusparse_mv(large["csr"], x), 20))
+    op, xs = sellc["op"], sellc["problem"].b
+    args = (op.data, op.cols, op.slice_offsets, op.slice_k, xs)
+    keep("spmv_sell", check_close(
+        "spmv_sell cg-sell", ops.spmv_sell(*args, c=op.c, k_max=op.k_max),
+        ref.spmv_sell(*args, c=op.c, k_max=op.k_max), SPMV_RTOL, SPMV_ATOL))
+    n_slices = op.slice_k.shape[0]
+    timing["spmv_sell"] = dict(
+        ms=cuda_ms(lambda: ops.spmv_sell(*args, c=op.c, k_max=op.k_max), 20),
+        plain_ms=cuda_ms(lambda: ref.spmv_sell(*args, c=op.c,
+                                               k_max=op.k_max), 5),
+        bound=spmv_bound(xs.shape[0], n_slices * op.c, sellc["slots"],
+                         8 * n_slices),
+        library_ms=cuda_ms(cusparse_mv(sellc["csr"], xs), 20))
+    for c in (small, large):
+        p, best = c["problem"], c["best"]
+        rows = p.resident_matrix_rows(best)
+        run = lambda: ops.cg(p.data, p.cols, p.b, iters=CG_ITERS,
+                             matrix_rows=rows)
+        gx, _ = run()
+        keep("cg_fused", check_x64(
+            f"cg_fused {c['cell']} {best.policy} matrix_rows={rows}", gx,
+            c["x32"], c["x64"]))
+        n = p.b.shape[0]
+        uncached = c["streamed"] * (n - rows) / n
+        t = dict(ms=cuda_ms(run, 5),
+                 plain_ms=cuda_ms(lambda: ref.cg_run(p.data, p.cols, p.b,
+                                                     CG_ITERS), 3),
+                 bound=cg_bound(n, c["slots"], CG_ITERS, uncached),
+                 library_ms=None)
+        print(f"  cg_fused {c['cell']}: {json.dumps(t)}")
+        if c is large:
+            timing["cg_fused"] = t
+
+    # -- 6. the CG path, counted ---------------------------------------------------
+    print("[cg path] counters set to 0")
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    for c in cells:
+        problem, best = c["problem"], c["best"]
+        runs = ([best] + plan_candidates(problem)
+                + [Plan(tier="device_loop")])   # the second: a replay
+        for p in runs:
+            replay = p.tier == "device_loop" and perks.graph_cached(
+                problem.step_fn(), problem.initial_state(), CG_ITERS)
+            before = ops.launch_counts()
+            x, rr = execute(problem, p)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()
+                     if v != before[k]}
+            e = check_x64(f"execute {c['cell']} {p.tier} {p.policy} "
+                          f"replay={replay} launches={delta}", x, c["x32"],
+                          c["x64"])
+            keep("cg_fused" if p.tier == "resident" else
+                 ("spmv_sell" if c is sellc else "spmv_ell"), e)
+            if replay and delta:
+                FAILS.append(f"device_loop replay on {c['cell']} launched "
+                             f"{delta}")
+    launches = ops.launch_counts()
+    print(f"[cg path] launches {json.dumps(launches)}")
+    for k in CG_KERNELS:
+        if launches[k] == 0:
+            FAILS.append(f"{k} was not launched on the CG path")
+    for c, frac in ((small, "whole"), (large, "partial")):
+        best = c["best"]
+        a = next((d for d in best.cache if d.name == "A"), None)
+        whole = a is not None and a.cached_bytes == a.total_bytes
+        if not (best.tier == "resident" and best.policy == "MIX"
+                and a is not None and whole == (frac == "whole")):
+            FAILS.append(f"{c['cell']} plan is not MIX with {frac} A: {best}")
+    if sellc["best"].tier == "resident":
+        FAILS.append("cg-sell planned the resident tier")
+
+    # -- 7. CG tier timing (not counted) ---------------------------------------------
+    print("[cg tiers] median ms over 3 runs (the device loop's graph kept "
+          "after the first, which is timed alone as first_ms)")
+    for c in cells:
+        problem = c["problem"]
+        n = problem.b.shape[0]
+        tiers = {}
+        for p in plan_candidates(problem):
+            first = None
+            if p.tier == "device_loop":
+                perks.clear_graphs()
+                first = cuda_ms(lambda: execute(problem, p), 0)
+            ms = cuda_ms(lambda: execute(problem, p), 3)
+            rows = (problem.resident_matrix_rows(p) if p.tier == "resident"
+                    else 0)
+            streamed = c["streamed"] * (n - rows) / n
+            tiers[f"{p.tier}/{p.policy}"] = ms
+            print("  " + json.dumps(dict(
+                cell=c["cell"], tier=p.tier, policy=p.policy,
+                matrix_rows=rows, ms=ms, first_ms=first,
+                us_per_iter=1e3 * ms / CG_ITERS,
+                predicted_us_per_iter=1e6 * p.predicted_s / CG_ITERS,
+                streamed_A_bytes_per_iter=streamed,
+                effective_GBps=streamed * CG_ITERS / (ms / 1e3) / 1e9,
+                predicted_ms=1e3 * p.predicted_s)))
+        print(f"  {c['cell']}: planner chose {c['best'].tier}/"
+              f"{c['best'].policy} (no graph kept); fastest measured: "
+              f"{min(tiers, key=tiers.get)}; planner now: "
+              f"{plan(problem).tier}")
+        perks.clear_graphs()
+    tiny = poisson2d(8).to_ell()
+    tp = CGProblem.from_ell(tiny.data, tiny.cols, vec(64), 1000)
+    per_iter = cuda_ms(lambda: execute(tp, Plan(tier="host_loop")), 3)
+    print(f"[cg tiers] host_loop on poisson2d(8), 1000 iterations: "
+          f"{per_iter / 1000 * 1e3!r} us per iteration, "
+          f"{per_iter / 1000 * 1e3 / CG_STEP_LAUNCHES!r} us per launch "
+          f"({CG_STEP_LAUNCHES} launches a step)")
+    return errs, timing, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -136,7 +493,7 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln))
 
     # -- 2. kernels against their plain versions ----------------------------------
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in STENCIL_KERNELS}
     print("[kernels] all specs, moderate size, 7 steps (odd)")
     for name, spec in BENCHMARKS.items():
         shape = (256, 384) if spec.ndim == 2 else (48, 40, 56)
@@ -220,9 +577,9 @@ def main() -> int:
                 FAILS.append(f"device_loop replay on {shape} launched {delta}")
     launches = ops.launch_counts()
     print(f"[main path] launches {json.dumps(launches)}")
-    for k, v in launches.items():
-        if v == 0:
-            FAILS.append(f"{k} was not launched on the main path")
+    for k in STENCIL_KERNELS:
+        if launches[k] == 0:
+            FAILS.append(f"{k} was not launched on the stencil path")
     b_big, b_small = (best for _, best, _ in main_inputs)
     H_big, H_small = MAIN[0][1][0], MAIN[1][1][0]
     if not (b_big.tier == "resident" and 0 < b_big.cached_rows < H_big):
@@ -266,15 +623,20 @@ def main() -> int:
     print(f"[tiers] host_loop on 64x64, 1000 steps: {per_launch / 1000 * 1e3!r} "
           f"us per step (launch overhead)")
 
-    # -- 5. report -------------------------------------------------------------------
+    # -- 5-7. the CG path ------------------------------------------------------------
+    cg_errs, cg_timing, cg_launches = cg_phases(rng)
+
+    # -- 8. report -------------------------------------------------------------------
     kernels = []
-    for k, (source, replaces) in KERNELS.items():
-        t = timing[k]
-        kernels.append(dict(
-            name=k, route="cuda", source=source, replaces=replaces,
-            launches=launches[k], max_abs_err=errs[k], ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-            bound_by=t["bound"][1], library_ms=t["library_ms"]))
+    for table, e, tm, ln in ((STENCIL_KERNELS, errs, timing, launches),
+                             (CG_KERNELS, cg_errs, cg_timing, cg_launches)):
+        for k, (source, replaces) in table.items():
+            t = tm[k]
+            kernels.append(dict(
+                name=k, route="cuda", source=source, replaces=replaces,
+                launches=ln[k], max_abs_err=e[k], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1], library_ms=t["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, ``sm_90a``).
 
 The JAX package ``repro`` is the reference and this package imports none of
-it. The stencil main path::
+it. The stencil and conjugate-gradient paths::
 
     from repro_torch import StencilProblem, plan, execute
     from repro_torch.kernels.common import get_spec
@@ -10,9 +10,20 @@ it. The stencil main path::
     problem = StencilProblem(x, get_spec("2d5pt"), n_steps=100)  # on "cuda"
     y = execute(problem, plan(problem))
 
+    from repro_torch import CGProblem
+    from repro_torch.solvers.cg import load_dataset, load_matrix, load_sell
+
+    data, cols = load_dataset("poisson2d_small")              # on "cuda"
+    problem = CGProblem.from_ell(data, cols, b, 100,
+                                 matrix=load_matrix("poisson2d_small"))
+    x, rr = execute(problem, plan(problem))
+    op = load_sell("fem_band_8k")                             # SELL-C-σ
+    problem = CGProblem.from_matvec(op.matvec, b, 100, matrix=op.matrix)
+    x, rr = execute(problem, plan(problem))                   # loop tiers
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the plain torch versions of the kernels run.
 """
-from repro_torch.exec import Plan, StencilProblem, execute, plan
+from repro_torch.exec import CGProblem, Plan, StencilProblem, execute, plan
 
-__all__ = ["Plan", "StencilProblem", "execute", "plan"]
+__all__ = ["CGProblem", "Plan", "StencilProblem", "execute", "plan"]

@@ -1,11 +1,12 @@
 """Carry the reference package's objects into the port without importing
-the reference: specs by duck typing, plans through their JSON schema,
-domains through numpy."""
+the reference: specs and sparse operators by duck typing, plans through
+their JSON schema, domains through numpy."""
 from __future__ import annotations
 
 import json
 from typing import Any, Union
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
@@ -35,3 +36,33 @@ def domain_from_numpy(a: Any, device: _device.DeviceLike = None) -> torch.Tensor
     tensor on ``device`` (default ``"cuda"``; raises without a card unless
     ``device="cpu"``)."""
     return _device.as_domain(a, _device.resolve(device))
+
+
+def ell_from_reference(ell: Any, device: _device.DeviceLike = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ELL planes ``(data, cols)`` as tensors on ``device`` (default
+    ``"cuda"``) from the reference's ``EllMatrix`` (anything with ``.data``
+    and ``.cols``) or a ``(data, cols)`` pair of arrays (e.g. from
+    ``repro.solvers.cg.load_dataset`` or ``spmv_ell.poisson2d_ell``)."""
+    data, cols = (ell.data, ell.cols) if hasattr(ell, "cols") else ell
+    dev = _device.resolve(device)
+    return (_device.as_domain(np.array(data), dev),
+            _device.as_domain(np.array(cols), dev))
+
+
+def sell_from_reference(sell: Any, device: _device.DeviceLike = None):
+    """A port ``SellOperator`` on ``device`` from the reference's
+    ``SellMatrix`` (anything with ``.perm`` and ``.row_positions()``) or
+    its device ``SellOperator`` (anything with ``.positions``)."""
+    from repro_torch.solvers.cg import SellOperator
+    if not hasattr(sell, "positions"):
+        return SellOperator.from_matrix(sell, device)
+    dev = _device.resolve(device)
+
+    def put(a):
+        return _device.as_domain(np.array(a), dev)   # a copy jax cannot hold
+
+    return SellOperator(put(sell.data), put(sell.cols),
+                        put(sell.slice_offsets), put(sell.slice_k),
+                        put(sell.positions), int(sell.c), int(sell.k_max),
+                        int(sell.n_rows), matrix=sell.matrix)

@@ -1,4 +1,4 @@
-"""The PERKS caching policy (paper §III-B): the stencil part of
+"""The PERKS caching policy (paper §III-B): the stencil and CG parts of
 ``repro/core/cache_policy.py``, copied so the port imports nothing of the
 reference.
 
@@ -9,10 +9,17 @@ Regions of a stencil shard, by what caching them saves per step:
   2. data read by neighbours (the boundary): one load — the store must
      still reach device memory;
   3. halo data owned by neighbours: nothing; never cached.
+
+For multi-array solvers (CG) arrays are ranked by traffic saved per byte
+cached: the residual r (3 loads + 1 store per element per iteration)
+outranks the matrix A (1 load). ``plan_caching`` is the reference's greedy
+fractional knapsack on that density (the paper's §VI-G3: "a simple greedy
+approach ... gives mostly the best performance").
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +46,72 @@ class CacheableArray:
         if self.inter_block_dep:
             return self.loads_per_step
         return self.loads_per_step + self.stores_per_step
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheAssignment:
+    array: CacheableArray
+    cached_bytes: int
+
+    @property
+    def fraction(self) -> float:
+        return self.cached_bytes / self.array.bytes if self.array.bytes else 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    assignments: tuple[CacheAssignment, ...]
+    budget_bytes: int
+
+    @property
+    def cached_bytes(self) -> int:
+        return sum(a.cached_bytes for a in self.assignments)
+
+    @property
+    def traffic_saved_per_step(self) -> float:
+        """Total device-memory bytes avoided per time step under this plan."""
+        return sum(
+            a.cached_bytes * a.array.traffic_saved_per_byte()
+            for a in self.assignments
+        )
+
+    def fraction_of(self, name: str) -> float:
+        for a in self.assignments:
+            if a.array.name == name:
+                return a.fraction
+        return 0.0
+
+
+def plan_caching(
+    arrays: Sequence[CacheableArray],
+    budget_bytes: int,
+    *,
+    reserve_bytes: int = 0,
+) -> CachePlan:
+    """Greedy fractional-knapsack cache plan (the paper's policy).
+
+    ``reserve_bytes`` holds back on-chip memory the kernel itself needs.
+    Arrays are divisible (any prefix can be cached), so the greedy order by
+    traffic saved per byte is optimal; ties keep the caller's order.
+    """
+    budget = max(0, budget_bytes - reserve_bytes)
+    ranked = [
+        a
+        for _, _, a in sorted(
+            (-a.traffic_saved_per_byte(), i, a)
+            for i, a in enumerate(arrays)
+            if a.traffic_saved_per_byte() > 0.0
+        )
+    ]
+    assignments = []
+    remaining = budget
+    for arr in ranked:
+        take = min(arr.bytes, remaining)
+        if take <= 0:
+            break
+        assignments.append(CacheAssignment(arr, take))
+        remaining -= take
+    return CachePlan(tuple(assignments), budget)
 
 
 def stencil_arrays(
@@ -90,3 +163,30 @@ def gm_bytes_fused(
     uncached = max(0, domain_bytes - cached_bytes)
     overlap = 2 * radius * t * row_bytes if uncached else 0
     return passes * (2.0 * uncached + overlap) + 2.0 * cached_bytes
+
+
+def cg_arrays(n_rows: int, nnz: int, dtype_bytes: int,
+              index_bytes: int = 4) -> list[CacheableArray]:
+    """Cacheable arrays of the PERKS conjugate-gradient solver (§III-B2).
+
+    Per CG iteration the residual r is read by the dot products and the
+    axpy updates (3 loads) and written once; p, x and Ap alike; the matrix
+    A is read once and never written. All are listed so the planner can
+    fill the remaining budget with A the way Fig. 9's MIX does.
+    """
+    vec = n_rows * dtype_bytes
+    return [
+        CacheableArray("r", vec, 3.0, 1.0),
+        CacheableArray("p", vec, 3.0, 1.0),
+        CacheableArray("x", vec, 1.0, 1.0),
+        CacheableArray("Ap", vec, 2.0, 1.0),
+        CacheableArray("A", nnz * (dtype_bytes + index_bytes), 1.0, 0.0),
+    ]
+
+
+def cg_arrays_for(matrix) -> list[CacheableArray]:
+    """``cg_arrays`` from a sparse container (COO/CSR/ELL/SELL, of either
+    package), duck-typed on ``shape``/``nnz``/``data.dtype``. Uses the
+    container's **true** nnz: for padded formats the planner must rank A by
+    the bytes it really streams, not the zero-filled slots."""
+    return cg_arrays(matrix.shape[0], matrix.nnz, matrix.data.dtype.itemsize)

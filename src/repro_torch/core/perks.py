@@ -20,19 +20,21 @@ loop lives:
     kept on chip; kernel-specific, so the problem's ``run_resident`` hook
     implements it (``repro_torch.kernels``).
 
-A step function here is ``step_fn(state, out) -> state``: it writes the
-next state into ``out`` (which never aliases ``state``) and returns it.
-Where JAX donates buffers, these runners ping-pong two buffers they
-allocate themselves; the first step reads the caller's tensor, so the
-caller's tensor is never written. Every tier runs the same step function,
-so the loop tiers agree bit for bit.
+A state is a tensor or a tuple of tensors (CG's is ``(x, r, p, rr)``). A
+step function here is ``step_fn(state, out) -> state``: it writes the next
+state into ``out`` (buffers like ``state``, never aliasing it) and returns
+it; an element it cannot write in place (a reduction's fresh result) it
+may return as a new tensor instead. Where JAX donates buffers, these
+runners ping-pong two sets of buffers they allocate themselves; the first
+step reads the caller's tensors, so they are never written. Every tier
+runs the same step function, so the loop tiers agree bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import enum
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -67,26 +69,44 @@ class PerksConfig:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
 
 
-StepFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-Runner = Callable[[torch.Tensor], torch.Tensor]
+State = Union[torch.Tensor, tuple[torch.Tensor, ...]]
+StepFn = Callable[[State, State], State]
+Runner = Callable[[State], State]
 
 
-def _buffers(x: torch.Tensor) -> list[torch.Tensor]:
-    return [torch.empty_like(x), torch.empty_like(x)]
+def _tensors(x: State) -> tuple[torch.Tensor, ...]:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _each(fn, x: State) -> State:
+    """``fn`` applied to the tensor ``x`` or to every element of it."""
+    return tuple(fn(t) for t in x) if isinstance(x, tuple) else fn(x)
+
+
+def _clone(x: State) -> State:
+    return _each(torch.Tensor.clone, x)
+
+
+def _buffers(x: State) -> list[State]:
+    return [_each(torch.empty_like, x), _each(torch.empty_like, x)]
+
+
+def _device(x: State) -> torch.device:
+    return _tensors(x)[0].device
 
 
 def host_loop(
     step_fn: StepFn,
     n_steps: int,
     *,
-    on_sync: Optional[Callable[[torch.Tensor, int], bool]] = None,
+    on_sync: Optional[Callable[[State, int], bool]] = None,
 ) -> Runner:
     """Baseline execution: one launch per time step. ``on_sync(state, k)``,
     if given, is evaluated after each step; returning True stops early."""
 
     def run(x):
         if n_steps == 0:
-            return x.clone()
+            return _clone(x)
         bufs = _buffers(x)
         cur = x
         for k in range(n_steps):
@@ -98,20 +118,21 @@ def host_loop(
     return run
 
 
-def capture(step_fn: StepFn, x: torch.Tensor, n_steps: int
-            ) -> tuple[torch.cuda.CUDAGraph, list[torch.Tensor], torch.Tensor]:
-    """Capture ``n_steps`` launches of ``step_fn`` on the CUDA tensor ``x``
+def capture(step_fn: StepFn, x: State, n_steps: int
+            ) -> tuple[torch.cuda.CUDAGraph, list[State], State]:
+    """Capture ``n_steps`` launches of ``step_fn`` on the CUDA state ``x``
     into a CUDA graph: one warm-up step on a side stream first (its result
-    is discarded), both ping-pong buffers allocated before capture. Returns
-    the graph, the two buffers (the graph writes them, so they must live as
-    long as it does) and the one its last step writes (the second when
-    ``n_steps`` is even); nothing has run until the graph is replayed."""
+    is discarded), both sets of ping-pong buffers allocated before capture.
+    Returns the graph, the buffers (the graph writes them, so they must
+    live as long as it does) and the state its last step writes; nothing
+    has run until the graph is replayed."""
     bufs = _buffers(x)
-    side = torch.cuda.Stream(device=x.device)
-    side.wait_stream(torch.cuda.current_stream(x.device))
+    dev = _device(x)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         step_fn(x, bufs[0])
-    torch.cuda.current_stream(x.device).wait_stream(side)
+    torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         cur = x
@@ -120,25 +141,26 @@ def capture(step_fn: StepFn, x: torch.Tensor, n_steps: int
     return graph, bufs, cur
 
 
-#: Captured device loops, least recently used first: (step function,
-#: input address, shape, dtype, device, steps) -> ``capture``'s result. A
-#: graph reads its input from the captured address, so a hit is any tensor
-#: of that shape and type at that address, whatever it holds now.
+#: Captured device loops, least recently used first: (step function, each
+#: input tensor's address, shape and dtype, device, steps) -> ``capture``'s
+#: result. A graph reads its input from the captured addresses, so a hit is
+#: any state of those shapes and types at those addresses, whatever it
+#: holds now.
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
-#: Graphs kept at once; each holds two buffers the size of its domain.
+#: Graphs kept at once; each holds two buffers the size of its state.
 GRAPH_CACHE_SIZE = 4
 
 
-def _graph_key(step_fn: StepFn, x: torch.Tensor, n_steps: int) -> tuple:
-    return (step_fn, x.data_ptr(), tuple(x.shape), x.dtype, x.device,
-            n_steps)
+def _graph_key(step_fn: StepFn, x: State, n_steps: int) -> tuple:
+    return (step_fn, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                           for t in _tensors(x)), _device(x), n_steps)
 
 
-def graph_cached(step_fn: StepFn, x: torch.Tensor, n_steps: int) -> bool:
+def graph_cached(step_fn: StepFn, x: State, n_steps: int) -> bool:
     """Whether ``device_loop(step_fn, n_steps)(x)`` would replay a kept
     graph rather than capture one (always False off the card)."""
-    return x.device.type == "cuda" and _graph_key(step_fn, x,
-                                                  n_steps) in _GRAPHS
+    return _device(x).type == "cuda" and _graph_key(step_fn, x,
+                                                    n_steps) in _GRAPHS
 
 
 def clear_graphs() -> None:
@@ -163,8 +185,9 @@ def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
 
     def run(x):
         if n_steps == 0:
-            return x.clone()
-        if x.device.type != "cuda":
+            return _clone(x)
+        dev = _device(x)
+        if dev.type != "cuda":
             bufs = _buffers(x)
             cur = x
             for k in range(n_steps):
@@ -173,7 +196,7 @@ def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
         if not keep:
             graph, _, out = capture(step_fn, x, n_steps)
             graph.replay()
-            torch.cuda.current_stream(x.device).synchronize()
+            torch.cuda.current_stream(dev).synchronize()
             return out
         key = _graph_key(step_fn, x, n_steps)
         entry = _GRAPHS.get(key)
@@ -181,13 +204,13 @@ def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
             entry = capture(step_fn, x, n_steps)
             _GRAPHS[key] = entry
             if len(_GRAPHS) > GRAPH_CACHE_SIZE:
-                torch.cuda.synchronize(x.device)   # no replay still reads it
+                torch.cuda.synchronize(dev)   # no replay still reads it
                 _GRAPHS.popitem(last=False)
         else:
             _GRAPHS.move_to_end(key)
         graph, _, out = entry
         graph.replay()
-        return out.clone()
+        return _clone(out)
 
     return run
 
@@ -197,7 +220,7 @@ def chunked_loop(
     n_steps: int,
     *,
     sync_every: int,
-    on_sync: Optional[Callable[[torch.Tensor, int], bool]] = None,
+    on_sync: Optional[Callable[[State, int], bool]] = None,
 ) -> Runner:
     """PERKS with periodic host synchronisation: ``sync_every`` steps per
     dispatch (a ``device_loop`` whose graph is not kept: each chunk starts
@@ -209,7 +232,7 @@ def chunked_loop(
 
     def run(x):
         if n_steps == 0:
-            return x.clone()
+            return _clone(x)
         cur, done = x, 0
         while done < n_steps:
             chunk = min(sync_every, n_steps - done)
@@ -227,7 +250,7 @@ def persistent(
     n_steps: int,
     config: PerksConfig = PerksConfig(),
     *,
-    on_sync: Optional[Callable[[torch.Tensor, int], bool]] = None,
+    on_sync: Optional[Callable[[State, int], bool]] = None,
 ) -> Runner:
     """Build a runner for ``n_steps`` applications of ``step_fn`` under the
     requested loop tier (RESIDENT is the problem's own hook)."""

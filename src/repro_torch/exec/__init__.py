@@ -2,20 +2,28 @@
 
     Problem  ->  plan()/plan_candidates()  ->  execute()
 
-* :class:`StencilProblem` (``adapters.py``) — the paper's stencil workload.
+* :class:`StencilProblem`, :class:`CGProblem` (``adapters.py``) — the
+  paper's stencil and conjugate-gradient workloads.
 * :class:`Plan` (``plan.py``) — how to run, with the reference's JSON
   schema.
 * :func:`plan` (``planner.py``) — ranks host_loop / device_loop / resident
   candidates with the paper's performance model on the H100.
 * :func:`execute` (``executor.py``) — the single dispatch path.
 """
-from repro_torch.exec.adapters import StencilProblem, fusion_schedule
+from repro_torch.exec.adapters import (
+    CGProblem,
+    StencilProblem,
+    fused_block_rows,
+    fusion_schedule,
+    operator_fingerprint,
+)
 from repro_torch.exec.executor import execute, honors_on_sync
 from repro_torch.exec.plan import SCHEDULES, TIERS, CacheDecision, Plan
-from repro_torch.exec.planner import plan, plan_candidates
+from repro_torch.exec.planner import cg_policy, plan, plan_candidates
 from repro_torch.exec.problem import HaloSpec, Problem, operand_fingerprint
 
 __all__ = [
+    "CGProblem",
     "CacheDecision",
     "HaloSpec",
     "Plan",
@@ -23,10 +31,13 @@ __all__ = [
     "SCHEDULES",
     "StencilProblem",
     "TIERS",
+    "cg_policy",
     "execute",
+    "fused_block_rows",
     "fusion_schedule",
     "honors_on_sync",
     "operand_fingerprint",
+    "operator_fingerprint",
     "plan",
     "plan_candidates",
 ]

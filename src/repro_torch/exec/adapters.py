@@ -1,20 +1,50 @@
-"""Problem adapters: the stencil described for the executor — the stencil
-part of ``repro/exec/adapters.py``.
+"""Problem adapters: the stencil and conjugate gradient described for the
+executor — the single-device part of ``repro/exec/adapters.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.cache_policy import CacheableArray, stencil_shard_arrays
-from repro_torch.exec.problem import HaloSpec, Problem
+from repro_torch.core.cache_policy import (
+    CacheableArray,
+    cg_arrays,
+    cg_arrays_for,
+    stencil_shard_arrays,
+)
+from repro_torch.exec.plan import PRECISIONS
+from repro_torch.exec.precision import dot_for
+from repro_torch.exec.problem import HaloSpec, Problem, operand_fingerprint
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.common import StencilSpec
+
+
+def operator_fingerprint(data, cols, matrix, matvec) -> str:
+    """Operand fingerprint of one sparse operator, preferring content (ELL
+    planes, then the exact container's values) over identity (an opaque
+    matvec callable), as the reference computes it: folded into CG problem
+    ``name``s so two same-size problems over different operators never
+    alias."""
+    if data is not None:
+        return operand_fingerprint(data, cols)
+    if matrix is not None:
+        return operand_fingerprint(getattr(matrix, "data", None))
+    return operand_fingerprint(matvec)
+
+
+def _operand_sig(a):
+    """id + shape/dtype of one shared operand (batch-key component)."""
+    if a is None:
+        return None
+    shape = getattr(a, "shape", None)
+    return (id(a), None if shape is None else tuple(shape),
+            str(getattr(a, "dtype", None)))
 
 
 def fusion_schedule(steps: int, fuse_steps: int) -> list[tuple[int, int]]:
@@ -105,3 +135,189 @@ class StencilProblem(Problem):
                                   cached_rows=cached_rows,
                                   sub_rows=plan.sub_rows,
                                   fuse_steps=plan.fuse_steps)
+
+
+# =============================================================================
+# Conjugate gradient
+# =============================================================================
+
+def fused_block_rows(n: int, cap: int = 512) -> int:
+    """Largest power-of-two block size <= cap dividing n: the reference's
+    streamed fused kernel takes whole row blocks. Plans carry it as
+    ``block_rows``; the CUDA kernel does not need it."""
+    bm = 1
+    while bm * 2 <= cap and n % (bm * 2) == 0:
+        bm *= 2
+    return bm
+
+
+#: Launches of one CG step on the card, its SpMV counted as one: the SpMV,
+#: two dots, two ``_safe_div``s of five operations each (abs, compare,
+#: divide, the zero's fill, where), and three axpys of two operations each
+#: (``kernels.ref.cg_iteration_matvec``). The SELL operator's matvec is two
+#: launches (the kernel and the row-order gather), which this count takes
+#: as one. The planner charges the host loop this many dispatches per
+#: step; ``tests/test_torch_cg.py`` counts the operators one step
+#: dispatches against it.
+CG_STEP_LAUNCHES = 19
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CGProblem(Problem):
+    """Conjugate gradient on an SPD operator.
+
+    Two operator forms: ELL planes (``data``/``cols``, needed for the fused
+    resident kernel) and/or an opaque ``matvec`` callable (e.g.
+    ``solvers.cg.SellOperator.matvec``), which takes precedence in the loop
+    tiers. ``matrix`` may carry any sparse container so the cache planner
+    ranks A by its **true** nnz rather than padded slots.
+
+    ``b``, ``data`` and ``cols`` are tensors or anything numpy takes; they
+    are moved to ``device``, which defaults to ``"cuda"`` (without a card
+    the constructor raises unless ``device="cpu"``). The result of
+    ``execute`` is ``(x, rr)``, rr = ||r||^2 as a 0-dim tensor.
+    """
+
+    b: torch.Tensor
+    n_steps: int
+    data: Optional[torch.Tensor] = None
+    cols: Optional[torch.Tensor] = None
+    matvec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    matrix: Any = None
+    tol: Optional[float] = None
+    precision: str = "uniform"
+    device: Optional[_device.DeviceLike] = None
+
+    kind = "cg"
+
+    def __post_init__(self):
+        if self.matvec is None and self.data is None:
+            raise ValueError("CGProblem needs ELL planes (data, cols) or a "
+                             "matvec callable")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, "
+                             f"got {self.precision!r}")
+        dev = _device.resolve(self.device)
+        object.__setattr__(self, "device", dev)
+        b = _device.as_domain(self.b, dev)
+        object.__setattr__(self, "b", b)
+        if self.data is not None:
+            object.__setattr__(self, "data",
+                               _device.as_domain(self.data, dev))
+            object.__setattr__(self, "cols",
+                               _device.as_domain(self.cols, dev))
+        # the initial state and the tol threshold are made once, so the
+        # device loop's kept graph (core.perks, keyed by the state's
+        # addresses) is found again on the next execute, and planning reads
+        # no tensor
+        rr0 = torch.dot(b, b)
+        object.__setattr__(self, "_state0", (torch.zeros_like(b), b, b, rr0))
+        object.__setattr__(self, "_thresh", None if self.tol is None
+                           else self.tol * rr0)
+
+    @classmethod
+    def from_ell(cls, data, cols, b, iters: int, *, matrix=None,
+                 tol: Optional[float] = None,
+                 device: _device.DeviceLike = None) -> "CGProblem":
+        return cls(b=b, n_steps=iters, data=data, cols=cols, matrix=matrix,
+                   tol=tol, device=device)
+
+    @classmethod
+    def from_matvec(cls, matvec, b, iters: int, *, matrix=None,
+                    tol: Optional[float] = None,
+                    device: _device.DeviceLike = None) -> "CGProblem":
+        return cls(b=b, n_steps=iters, matvec=matvec, matrix=matrix, tol=tol,
+                   device=device)
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        fp = operator_fingerprint(self.data, self.cols, self.matrix,
+                                  self.matvec)
+        return f"cg_n{self.b.shape[0]}_{fp}"
+
+    # -- protocol -------------------------------------------------------------
+
+    def initial_state(self):
+        return self._state0
+
+    @functools.cached_property
+    def _step(self):
+        dot = dot_for(self.precision)
+        if self.matvec is not None:
+            mv = self.matvec
+        else:
+            mv = functools.partial(kops.spmv, self.data, self.cols)
+        return lambda s, out: kref.cg_iteration_matvec(s, mv, dot=dot,
+                                                       out=out)
+
+    def step_fn(self):
+        return self._step
+
+    def finalize(self, state):
+        return state[0], state[3]
+
+    def convergence(self):
+        # relative residual: ||r_k||^2 < tol * ||b||^2, read on the host
+        # only at sync points (core.perks.chunked_loop's on_sync)
+        if self.tol is None:
+            return None
+        return (lambda s, th: s[3] < th), self._thresh
+
+    def cacheable_arrays(self, *, fuse_steps: int = 1) -> Sequence[CacheableArray]:
+        if self.matrix is not None:
+            return cg_arrays_for(self.matrix)
+        n = self.b.shape[0]
+        nnz = self.data.numel() if self.data is not None else 0
+        return cg_arrays(n, nnz, self.b.element_size())
+
+    def oracle(self):
+        if self.data is None:
+            raise NotImplementedError("CG oracle needs ELL planes")
+        return kref.cg_run(self.data, self.cols, self.b, self.n_steps)
+
+    def halo_spec(self) -> HaloSpec:
+        return HaloSpec(axis=0, halo=0, partitions=("rows", "nnz"))
+
+    def with_precision(self, precision: str) -> "CGProblem":
+        if precision == self.precision:
+            return self
+        return dataclasses.replace(self, precision=precision)
+
+    def batch_key(self) -> tuple:
+        # instances share one batch iff they solve against the same
+        # operator with the same iteration budget (the batching slice)
+        fp = operator_fingerprint(self.data, self.cols, self.matrix,
+                                  self.matvec)
+        return ("cg", fp, _operand_sig(self.data), _operand_sig(self.cols),
+                id(self.matvec), id(self.matrix), tuple(self.b.shape),
+                str(self.b.dtype), self.n_steps, self.tol, self.precision)
+
+    # -- tiers ----------------------------------------------------------------
+
+    def run_resident(self, plan):
+        """The fused kernel (``kernels.cg_fused``): VEC streams A, MIX/MAT
+        keep the share of A the plan's ``"A"`` cache entry names (all of A
+        when the plan has none)."""
+        if self.data is None:
+            raise NotImplementedError(
+                "fused CG kernel needs ELL planes (matvec-only problem)")
+        if self.precision != "uniform":
+            raise NotImplementedError(
+                "mixed precision is a loop-tier dimension (the fused "
+                "kernel reduces in storage dtype)")
+        x, rr = kops.cg(self.data, self.cols, self.b, iters=self.n_steps,
+                        block_rows=plan.block_rows or 256,
+                        matrix_rows=self.resident_matrix_rows(plan))
+        return x, rr[0]
+
+    def resident_matrix_rows(self, plan) -> int:
+        """Rows of A the fused kernel keeps on chip under ``plan``: none
+        for VEC (and IMP), for MIX/MAT the share of the plan's ``"A"``
+        cache entry, all of A when the plan has no such entry."""
+        n = self.b.shape[0]
+        if (plan.policy or "MIX") not in ("MAT", "MIX"):
+            return 0
+        a = next((c for c in plan.cache if c.name == "A"), None)
+        if a is None or a.cached_bytes >= a.total_bytes:
+            return n
+        return n * a.cached_bytes // a.total_bytes

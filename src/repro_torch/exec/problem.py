@@ -109,10 +109,21 @@ class Problem(abc.ABC):
         """Map the final loop state to the user-facing result."""
         return state
 
+    def convergence(self) -> Optional[tuple[Callable[[Any, Any], Any], Any]]:
+        """Convergence contract ``(pred, params)``: ``pred(state, params)``
+        returns a boolean tensor (True = converged) computed on the device;
+        None = no convergence check (run all steps)."""
+        return None
+
     def on_sync(self) -> Optional[Callable[[Any, int], bool]]:
         """Host-sync callback for chunked execution; returning True stops
-        early. None = run all steps."""
-        return None
+        early. None = run all steps. Defaults to evaluating
+        :meth:`convergence` (one device-to-host read per sync point)."""
+        conv = self.convergence()
+        if conv is None:
+            return None
+        pred, params = conv
+        return lambda state, k: bool(pred(state, params))
 
     def halo_spec(self) -> Optional[HaloSpec]:
         """Partition description for the distributed tier (None = cannot

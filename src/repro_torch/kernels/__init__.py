@@ -3,6 +3,11 @@
 - ``stencil2d``/``stencil3d`` — PERKS stencils: a cooperative persistent
   CUDA kernel with the time loop inside and rows cached in shared memory,
   and the one-step kernel of the loop tiers (sources in ``csrc/``).
+- ``spmv_ell``/``spmv_sell`` — the CG loop tiers' SpMVs for ELL planes and
+  for SELL-C-σ operators.
+- ``cg_fused`` — PERKS conjugate gradient: a cooperative persistent CUDA
+  kernel with the iteration loop inside and the vectors (and part or all
+  of the matrix) in shared memory.
 
 ``ops.py`` holds the keyword wrappers and launch counters; ``ref.py`` the
 plain torch versions every kernel is held against.

@@ -9,6 +9,7 @@ never loaded. ``build_all`` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -24,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "stencil_step": "stencil_step.cu",
     "stencil_perks": "stencil_perks.cu",
+    "spmv_ell": "spmv_ell.cu",
+    "spmv_sell": "spmv_sell.cu",
+    "cg_fused": "cg_fused.cu",
 }
 HEADERS = ("stencil_common.cuh",)
 
@@ -72,6 +78,18 @@ _SIGNATURES = {
         "stencil_perks_max_ctas": (_I, [_I, _I, _IP]),
         "stencil_perks_smem": (_I, [_I, _IP, _IP]),
         "stencil_perks_max_row_cells": (_I, []),
+    },
+    "spmv_ell": {
+        "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _P]),
+    },
+    "spmv_sell": {
+        "spmv_sell_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    },
+    "cg_fused": {
+        "cg_fused_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P]),
+        "cg_fused_max_ctas": (_I, [_I, _IP]),
+        "cg_fused_smem": (_I, [_IP, _IP]),
     },
 }
 
@@ -160,3 +178,27 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+def is_cpu(x: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor (the wrapper runs the plain version), False
+    for a CUDA tensor (it launches the kernel); raises for anything else."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"{what} kernels take CPU or CUDA tensors, got "
+                     f"{x.device}")
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def on_device(x: torch.Tensor):
+    """Make ``x``'s card the current device for the launch (a no-op when
+    it already is, which saves the loop tiers a device switch per step)."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)

@@ -1,0 +1,127 @@
+"""PERKS conjugate gradient on Hopper: the port of
+``repro/kernels/cg_fused.py``.
+
+``cg_fused(data, cols, b, iters=)`` runs ``iters`` textbook CG iterations
+for A x = b from x0 = 0 (A in ELL format) in ONE cooperative persistent
+launch (``csrc/cg_fused.cu``) and returns (x, rr), rr = ||r||^2 of shape
+(1,). Each CTA owns a contiguous range of rows and keeps x, r, p and Ap of
+those rows in shared memory for the whole launch; the matrix is:
+
+* ``resident_matrix=False`` — streamed from device memory every iteration
+  (the paper's VEC policy);
+* ``resident_matrix=True`` — kept in shared memory (MIX/MAT), its leading
+  ``matrix_rows`` rows (default all) split evenly over the CTAs, the rest
+  streamed. On the H100 a large A does not fit beside the vectors, so
+  ``matrix_rows < n`` is the H100 form of MIX (the planner's
+  ``matrix_fraction``).
+
+A plan that asks more shared memory than a CTA holds raises ``ValueError``
+with the capacity. A CPU tensor runs the plain torch version
+(``ref.cg_run``); a CUDA tensor launches the kernel or raises — there is no
+fallback. ``block_rows`` is the reference's streaming tile, accepted for
+its signature and not used. The wrapper counts its launches in
+``launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.kernels.spmv_ell import check_ell, check_vector
+
+#: Bytes of shared memory per owned row for x, r, p and Ap (float32).
+VECTOR_BYTES_PER_ROW = 16
+#: Bytes of shared memory per cached slot of A (float32 value, int32 column).
+MATRIX_BYTES_PER_SLOT = 8
+
+
+def layout(n: int, k: int, ctas: int, matrix_rows: int) -> tuple[int, int, int]:
+    """``(rows per CTA, cached A rows per CTA, dynamic shared memory bytes)``
+    for ``n`` rows of ``k`` slots over ``ctas`` CTAs with ``matrix_rows``
+    rows of A kept on chip in all."""
+    stride = -(-n // ctas)
+    ca = min(stride, -(-matrix_rows // ctas))
+    smem = VECTOR_BYTES_PER_ROW * stride + MATRIX_BYTES_PER_SLOT * k * ca
+    return stride, ca, smem
+
+
+def smem_limit(lib) -> int:
+    """Dynamic shared memory one CTA of the built kernel may take: the
+    card's opt-in per-block maximum less the kernel's static shared
+    memory, both asked of the card and of the kernel."""
+    optin, static = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.cg_fused_smem(ctypes.byref(optin), ctypes.byref(static)),
+                 "cg_fused_smem")
+    return optin.value - static.value
+
+
+def cg_fused(
+    data: torch.Tensor,
+    cols: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    iters: int,
+    resident_matrix: bool = True,
+    block_rows: int = 256,
+    matrix_rows: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``iters`` CG iterations for A x = b in one launch; returns (x, rr)."""
+    check_ell(data, cols, "cg_fused")
+    check_vector(b, data, "cg_fused")
+    n, k = data.shape
+    if b.shape[0] != n:
+        raise ValueError(f"cg_fused: b has {b.shape[0]} rows, A has {n}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if not resident_matrix:
+        matrix_rows = 0
+    elif matrix_rows is None:
+        matrix_rows = n
+    if not 0 <= matrix_rows <= n:
+        raise ValueError(f"matrix_rows={matrix_rows} outside [0, {n}]")
+    if _build.is_cpu(data, "cg_fused"):
+        x, rr = ref.cg_run(data, cols, b, iters)
+        return x, rr.reshape(1)
+    if n == 0:
+        raise ValueError("cg_fused: empty system")
+    lib = _build.load("cg_fused")
+    with _build.on_device(data):
+        sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+        limit = smem_limit(lib)
+        stride, ca, smem = layout(n, k, sms, matrix_rows)
+        if smem > limit:
+            vec = VECTOR_BYTES_PER_ROW * stride
+            rows_cap = max(0, (limit - vec) // (MATRIX_BYTES_PER_SLOT * k))
+            raise ValueError(
+                f"cg_fused cannot hold this plan: {n} rows over {sms} CTAs "
+                f"give each CTA {stride} rows, whose x, r, p and Ap take "
+                f"{vec} B of shared memory, and {ca} cached rows of A take "
+                f"{MATRIX_BYTES_PER_SLOT * k * ca} B more; a CTA has "
+                f"{limit} B, so the kernel holds at most "
+                f"{sms * (limit // VECTOR_BYTES_PER_ROW)} rows of vectors "
+                f"and, at this n, at most {sms * min(rows_cap, stride)} "
+                f"rows of A")
+        grid = ctypes.c_int()
+        _build.check(lib.cg_fused_max_ctas(smem, ctypes.byref(grid)),
+                     "cg_fused_max_ctas")
+        if grid.value < sms:
+            raise ValueError(f"cg_fused needs {sms} co-resident CTAs with "
+                             f"{smem} B each; the card runs {grid.value}")
+        x = torch.empty_like(b)
+        rr = torch.empty(1, dtype=b.dtype, device=b.device)
+        p_glob = torch.empty_like(b)
+        partials = torch.empty(2 * sms, dtype=b.dtype, device=b.device)
+        err = lib.cg_fused_launch(
+            data.data_ptr(), cols.data_ptr(), b.data_ptr(), x.data_ptr(),
+            rr.data_ptr(), p_glob.data_ptr(), partials.data_ptr(), n, k,
+            iters, stride, ca, sms, smem, _build.stream())
+    _build.check(err, "cg_fused_launch")
+    cg_fused.launches += 1
+    return x, rr
+
+
+cg_fused.launches = 0

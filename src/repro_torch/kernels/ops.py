@@ -1,9 +1,9 @@
-"""Public keyword wrappers for the stencil kernels, as in
-``repro/kernels/ops.py``.
+"""Public keyword wrappers for the port's kernels, as in
+``repro/kernels/ops.py``: the stencils, the ELL and SELL-C-σ SpMVs and the
+fused conjugate gradient.
 
-Each call dispatches on the tensor's device (``stencil2d.py``): a CUDA
-tensor launches the hand-written kernel or raises, a CPU tensor runs the
-plain torch version. ``launch_counts``/``reset_launch_counts`` read and
+Each call dispatches on the tensor's device: a CUDA tensor launches the
+hand-written kernel or raises, a CPU tensor runs the plain torch version. ``launch_counts``/``reset_launch_counts`` read and
 zero the kernels' launch counters.
 """
 from __future__ import annotations
@@ -12,6 +12,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cg_fused as _cg
+from repro_torch.kernels import spmv_ell as _spmv
+from repro_torch.kernels import spmv_sell as _sell
 from repro_torch.kernels import stencil2d as _s2d
 from repro_torch.kernels.common import StencilSpec
 
@@ -20,6 +23,9 @@ KERNELS = {
     "stencil_perks": _s2d.stencil_perks,
     "stencil_resident": _s2d.stencil_resident,
     "stencil_baseline_step": _s2d.stencil_baseline_step,
+    "spmv_ell": _spmv.spmv_ell,
+    "spmv_sell": _sell.spmv_sell,
+    "cg_fused": _cg.cg_fused,
 }
 
 
@@ -42,6 +48,33 @@ def stencil_baseline_step(x: torch.Tensor, *, spec: StencilSpec,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One non-persistent stencil step (the loop tiers' kernel)."""
     return _s2d.stencil_baseline_step(x, spec, sub_rows=sub_rows, out=out)
+
+
+def spmv(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+         block_rows: int = 256) -> torch.Tensor:
+    """ELL SpMV, y = A @ x (the loop tiers' SpMV for ELL planes)."""
+    return _spmv.spmv_ell(data, cols, x, block_rows=block_rows)
+
+
+def spmv_sell(data: torch.Tensor, cols: torch.Tensor,
+              slice_offsets: torch.Tensor, slice_k: torch.Tensor,
+              x: torch.Tensor, *, c: int, k_max: int) -> torch.Tensor:
+    """SELL-C-σ SpMV. Returns the permuted padded result; gather with
+    ``SellMatrix.row_positions()`` to restore row order."""
+    return _sell.spmv_sell(data, cols, slice_offsets, slice_k, x, c=c,
+                           k_max=k_max)
+
+
+def cg(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor, *,
+       iters: int, resident_matrix: bool = True, block_rows: int = 256,
+       matrix_rows: Optional[int] = None
+       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PERKS conjugate gradient: the whole iteration loop in one launch;
+    ``matrix_rows`` of A (default all, when ``resident_matrix``) stay on
+    chip."""
+    return _cg.cg_fused(data, cols, b, iters=iters,
+                        resident_matrix=resident_matrix,
+                        block_rows=block_rows, matrix_rows=matrix_rows)
 
 
 def launch_counts() -> dict[str, int]:

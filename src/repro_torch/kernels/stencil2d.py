@@ -26,7 +26,6 @@ cached rows wider than one CTA can hold.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -100,15 +99,6 @@ def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
             f"(sub_rows >= radius*fuse_steps = {r * min(fuse_steps, steps)})")
 
 
-def _is_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"stencil kernels take CPU or CUDA tensors, got "
-                     f"{x.device}")
-
-
 def _check_cuda(x: torch.Tensor, spec: StencilSpec) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"the CUDA stencil kernels take float32, got "
@@ -143,18 +133,6 @@ def stencil_args(spec: StencilSpec, shape: tuple[int, ...]) -> _build.StencilArg
     return a
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _on(x: torch.Tensor):
-    """Make ``x``'s card the current device for the launch (a no-op when
-    it already is, which saves the loop tiers a device switch per step)."""
-    if x.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x.device)
-
-
 # -- the persistent kernel ----------------------------------------------------
 
 def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
@@ -167,7 +145,7 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
     H, r = x.shape[0], spec.radius
     row_cells = math.prod(x.shape[1:])
     row_bytes = row_cells * x.element_size()
-    with _on(x):
+    with _build.on_device(x):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         optin, static = ctypes.c_int(), ctypes.c_int()
         _build.check(lib.stencil_perks_smem(spec.npoints, ctypes.byref(optin),
@@ -202,7 +180,7 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
         err = lib.stencil_perks_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
             stencil_args(spec, tuple(x.shape)), steps, cached_rows, nb,
-            grid.value, smem, _stream())
+            grid.value, smem, _build.stream())
     _build.check(err, "stencil_perks_launch")
     return buf0 if (steps - 1) % 2 == 0 else buf1
 
@@ -226,7 +204,7 @@ def stencil_perks(
     performs the same steps); the CUDA kernel raises for it.
     """
     _check_perks_args(x, spec, steps, cached_rows, sub_rows, fuse_steps)
-    if _is_cpu(x):
+    if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
     if fuse_steps > 1:
         raise NotImplementedError(
@@ -254,7 +232,7 @@ def stencil_resident(
     store. Raises ``ValueError`` if it does not fit; never streams."""
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
-    if _is_cpu(x):
+    if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
     _check_cuda(x, spec)
     if steps == 0:
@@ -277,7 +255,7 @@ def stencil_baseline_step(
     """One non-persistent time step (the host-loop baseline's kernel),
     written into ``out`` when given (it must not alias ``x``). ``sub_rows``
     is accepted for the reference's signature and not used."""
-    if _is_cpu(x):
+    if _build.is_cpu(x, "stencil"):
         return ref.stencil_step(x, spec, out=out)
     _check_cuda(x, spec)
     if out is None:
@@ -288,10 +266,10 @@ def stencil_baseline_step(
         raise ValueError("out must be a contiguous tensor like x, apart "
                          "from x")
     lib = _build.load("stencil_step")
-    with _on(x):
+    with _build.on_device(x):
         err = lib.stencil_step_launch(x.data_ptr(), out.data_ptr(),
                                       stencil_args(spec, tuple(x.shape)),
-                                      _stream())
+                                      _build.stream())
     _build.check(err, "stencil_step_launch")
     stencil_baseline_step.launches += 1
     return out

@@ -16,12 +16,23 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import perks
-from repro_torch.exec import Plan, StencilProblem, execute, plan
+from repro_torch.exec import CGProblem, Plan, StencilProblem, execute, plan
+from repro_torch.exec import plan_candidates
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import BENCHMARKS, get_spec
+from repro_torch.solvers.cg import SellOperator
+from repro_torch.sparse import generate, symmetric_names
+from repro_torch.sparse.generate import poisson2d
 
 NAMES = sorted(BENCHMARKS)
 STEPS = 5
+SPD = symmetric_names()
+# The SpMVs against their plain version: the reference's SpMV bound plus a
+# relative term, as the order of summation may differ.
+SPMV_TOL = dict(rtol=1e-5, atol=1e-5)
+# CG on the card against the plain version: the reference's fused-CG bound
+# (tests/test_kernels_linalg.py); the dot products sum in another order.
+CG_TOL = dict(rtol=1e-3, atol=1e-5)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +105,99 @@ def test_cuda_device_loop_keeps_its_graph(cuda):
     assert first.data_ptr() != second.data_ptr()
     perks.clear_graphs()
     assert not perks.graph_cached(p.step_fn(), p.x, STEPS)
+
+
+# -- the CG slice ----------------------------------------------------------------
+
+def _rhs(n, seed=0):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", SPD)
+def test_cuda_spmv_kernels_match_plain_version(name, cuda):
+    csr = generate(name)
+    x = torch.from_numpy(_rhs(csr.shape[0], seed=11)).to(cuda)
+    ell = csr.to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    torch.testing.assert_close(ops.spmv(data, cols, x),
+                               ref.spmv_ell(data, cols, x), **SPMV_TOL)
+    for c, sigma in ((8, 64), (32, 256)):
+        op = SellOperator.from_matrix(csr.to_sell(c=c, sigma=sigma), cuda)
+        args = (op.data, op.cols, op.slice_offsets, op.slice_k, x)
+        torch.testing.assert_close(
+            ops.spmv_sell(*args, c=c, k_max=op.k_max),
+            ref.spmv_sell(*args, c=c, k_max=op.k_max), **SPMV_TOL)
+
+
+@pytest.mark.parametrize("side", [16, 48, 101])
+def test_cuda_cg_fused_matches_plain_version(side, cuda):
+    ell = poisson2d(side).to_ell()
+    n = side * side
+    data = torch.from_numpy(ell.data).to(cuda)
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    b = torch.from_numpy(_rhs(n, seed=side)).to(cuda)
+    want_x, want_rr = ref.cg_run(data, cols, b, 30)
+    for kw in (dict(resident_matrix=False), dict(resident_matrix=True),
+               dict(resident_matrix=True, matrix_rows=n // 3)):
+        x, rr = ops.cg(data, cols, b, iters=30, **kw)
+        torch.testing.assert_close(x, want_x, **CG_TOL)
+        torch.testing.assert_close(rr[0], want_rr, **CG_TOL)
+        x2, rr2 = ops.cg(data, cols, b, iters=30, **kw)
+        assert torch.equal(x, x2) and torch.equal(rr, rr2), "not repeatable"
+
+
+def test_cuda_cg_fused_refuses_what_a_cta_does_not_hold(cuda):
+    n = 4 * 2**20
+    data = torch.zeros((n, 5), device=cuda)
+    cols = torch.zeros((n, 5), dtype=torch.int32, device=cuda)
+    b = torch.ones(n, device=cuda)
+    with pytest.raises(ValueError, match="holds at most"):
+        ops.cg(data, cols, b, iters=1, resident_matrix=False)
+    with pytest.raises(TypeError, match="int32"):
+        ops.spmv(data, cols.long(), b)
+
+
+def test_cuda_cg_tiers_match_plain_version(cuda):
+    csr = poisson2d(40)
+    ell = csr.to_ell()
+    b = _rhs(csr.shape[0], seed=3)
+    p = CGProblem.from_ell(ell.data, ell.cols, b, 25, matrix=csr, device=cuda)
+    want_x, want_rr = p.oracle()
+    cands = plan_candidates(p)
+    assert {c.policy for c in cands if c.tier == "resident"} == {"VEC", "MIX"}
+    perks.clear_graphs()
+    for pl in cands + [Plan(tier="device_loop"), Plan(tier="device_loop",
+                                                      sync_every=7)]:
+        x, rr = execute(p, pl)
+        torch.testing.assert_close(x, want_x, **CG_TOL)
+        torch.testing.assert_close(rr, want_rr, **CG_TOL)
+        if pl.tier != "resident":   # same step function, same order
+            assert torch.equal(x, want_x), pl
+    assert perks.graph_cached(p.step_fn(), p.initial_state(), 25)
+    before = ops.launch_counts()["spmv_ell"]
+    execute(p, Plan(tier="device_loop"))        # a replay: no new launch
+    assert ops.launch_counts()["spmv_ell"] == before
+    perks.clear_graphs()
+    op = SellOperator.from_matrix(csr.to_sell(c=32, sigma=256), cuda)
+    q = CGProblem.from_matvec(op.matvec, b, 25, matrix=csr, device=cuda)
+    before = ops.launch_counts()["spmv_sell"]
+    for pl in plan_candidates(q):
+        x, rr = execute(q, pl)
+        torch.testing.assert_close(x, want_x, **CG_TOL)
+    assert ops.launch_counts()["spmv_sell"] > before
+    perks.clear_graphs()
+
+
+def test_cuda_cg_tol_stops_early(cuda):
+    csr = poisson2d(24)
+    ell = csr.to_ell()
+    p = CGProblem.from_ell(ell.data, ell.cols, _rhs(csr.shape[0]), 400,
+                           matrix=csr, tol=1e-6, device=cuda)
+    pl = plan(p)
+    assert pl.sync_every == 25
+    before = ops.launch_counts()["spmv_ell"]
+    x, rr = execute(p, Plan(tier="device_loop", sync_every=pl.sync_every))
+    launched = ops.launch_counts()["spmv_ell"] - before
+    assert float(rr) < 1e-6 * float(p.initial_state()[3])
+    assert 0 < launched < 200, launched      # stopped long before 400

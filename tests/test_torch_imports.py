@@ -26,6 +26,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch, repro_torch.convert, repro_torch.core.perks\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.stencil3d\n"
         "import repro_torch.exec.planner, repro_torch.core.perf_model\n"
+        "import repro_torch.sparse, repro_torch.solvers.cg\n"
+        "import repro_torch.exec.precision, repro_torch.kernels.cg_fused\n"
+        "import repro_torch.kernels.spmv_ell, repro_torch.kernels.spmv_sell\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")
@@ -52,6 +55,26 @@ def test_scan_pattern_catches_the_forbidden_forms():
     for line in ("import repro_torch", "from repro_torch.exec import plan",
                  "import jaxlib_free_name_torch"):
         assert not _FORBIDDEN.search(line), line
+
+
+def test_cg_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import CGProblem
+    from repro_torch.convert import ell_from_reference
+    from repro_torch.solvers.cg import load_dataset, load_sell
+    data = np.eye(4, dtype=np.float32)
+    cols = np.tile(np.arange(4, dtype=np.int32)[:, None], (1, 4))
+    b = np.ones(4, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CGProblem.from_ell(data, cols, b, 3)
+    for call in (lambda: load_dataset("poisson2d_small"),
+                 lambda: load_sell("poisson2d_small"),
+                 lambda: ell_from_reference((data, cols))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = CGProblem.from_ell(data, cols, b, 3, device="cpu")
+    assert p.b.device.type == "cpu" and p.data.device.type == "cpu"
 
 
 def test_default_device_is_the_card():
