@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's stencil and conjugate-gradient paths on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's stencil, conjugate-gradient and Krylov
+(BiCGStab, GMRES(m)) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -30,8 +30,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    each x against a float64 plain run;
 7. each CG tier's median time, per-iteration time and effective bandwidth
    against the planner's prediction;
-8. one ``{"kernels": [...]}`` line, the card's name and power limit, and
-   ``{"ok": true, "device": {...}}`` as the last line.
+8. the Krylov kernels against their plain versions: every nonsymmetric
+   registry entry at its own size (30 iterations of ``bicgstab_fused``,
+   VEC and MIX; one m=16 cycle of ``gmres_cycle_fused``: V, H, beta, the
+   new iterate and |V^T V - I|), an estimate of one ``grid.sync()``, then
+   each kernel at the Krylov path's full shapes with its time and its
+   plain version's;
+9. the Krylov path, with every launch counter set to 0 just before and read
+   just after: ``BiCGStabProblem``/``GMRESProblem`` -> ``plan`` ->
+   ``execute`` and every offered tier by hand on bicgstab-small and
+   bicgstab-large (``convdiff2d`` 512 and 768, 100 iterations), gmres-small
+   and gmres-large (``convdiff2d`` 448 and 1024, m = 16, 4 and 2 cycles);
+   each x and rr against a float64 plain run;
+10. each Krylov tier's median time against the planner's prediction, and a
+   ``precision="mixed"`` host loop on bicgstab-small;
+11. one ``{"kernels": [...]}`` line with all eight kernels, the card's name
+   and power limit, and ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Without a CUDA device it prints no result and exits non-zero.
 """
@@ -69,6 +84,14 @@ X64_REL = 1e-5
 CG_F32_CLOSE = ("poisson2d_small", "poisson2d_16k", "poisson3d_16",
                 "fem_band_8k", "graph_regular_4k", "rand_shift_16k")
 CG_ITERS = 100
+KRYLOV_M = 16
+KRYLOV_KERNEL_ITERS = 30
+KRYLOV_CELLS = [  # (cell, kind, convdiff2d side, iterations or cycles)
+    ("bicgstab-small", "bicgstab", 512, 100),   # n = 2^18, A wholly on chip
+    ("bicgstab-large", "bicgstab", 768, 100),   # A partly on chip
+    ("gmres-small", "gmres", 448, 4),           # V and A on chip
+    ("gmres-large", "gmres", 1024, 2),          # loop tiers only
+]
 CG_CELLS = [  # (cell, generator, size): the CG path's three shapes
     ("cg-small", "poisson2d", 512),             # n = 2^18, A wholly on chip
     ("cg-large", "poisson2d", 1024),            # n = 2^20, A partly on chip
@@ -96,6 +119,13 @@ CG_KERNELS = {
                   "src/repro/kernels/spmv_sell.py:65"),
     "cg_fused": ("src/repro_torch/kernels/csrc/cg_fused.cu",
                  "src/repro/kernels/cg_fused.py:104"),
+}
+
+KRYLOV_KERNELS = {
+    "bicgstab_fused": ("src/repro_torch/kernels/csrc/bicgstab_fused.cu",
+                       "src/repro/kernels/krylov_fused.py:129"),
+    "gmres_cycle_fused": ("src/repro_torch/kernels/csrc/gmres_cycle_fused.cu",
+                          "src/repro/kernels/krylov_fused.py:235"),
 }
 
 FAILS: list[str] = []
@@ -178,6 +208,20 @@ def check_x64(what: str, x: torch.Tensor, x32: torch.Tensor,
     return err
 
 
+def check_rr(what: str, rr: torch.Tensor, rr32s, rr64: torch.Tensor) -> None:
+    """rr against the float64 plain run's: its distance at most twice the
+    farthest of the float32 plain runs ``rr32s`` (each in its own dot
+    order) plus X64_REL * rr64, and finite."""
+    r, w = rr.double().item(), rr64.item()
+    gap = max(abs(float(v) - w) for v in rr32s)
+    limit = 2 * gap + X64_REL * abs(w)
+    ok = math.isfinite(r) and abs(r - w) <= limit
+    print(f"  {what}: rr={r!r} rr64={w!r} |rr-rr64|={abs(r - w)!r} "
+          f"limit={limit!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILS.append(what)
+
+
 def cg_bound(n: int, slots: int, iters: int,
              streamed_bytes: float) -> tuple[float, str]:
     """Least time for ``iters`` CG iterations (ms, which): the bytes the
@@ -201,6 +245,14 @@ def spmv_bound(n_in: int, n_out: int, slots: int,
     t_ops = 2 * slots / FP32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def blocked_dot(a, b):
+    """A float32 dot in another order than ``torch.dot``: 1024-wide rows,
+    then their sums (to show how far two dot orders drift apart)."""
+    prod = a * b
+    pad = torch.nn.functional.pad(prod, (0, -prod.shape[0] % 1024))
+    return pad.view(-1, 1024).sum(1).sum()
 
 
 def cusparse_mv(csr, x):
@@ -234,12 +286,6 @@ def cg_phases(rng):
         for _ in range(iters):
             state = ref.cg_iteration_matvec(state, matvec, dot=dot)
         return state[0], state[3]
-
-    def blocked_dot(a, b):
-        """A float32 dot in another order: 1024-wide rows, then their sums."""
-        prod = a * b
-        pad = torch.nn.functional.pad(prod, (0, -prod.shape[0] % 1024))
-        return pad.view(-1, 1024).sum(1).sum()
 
     errs = {k: 0.0 for k in CG_KERNELS}
 
@@ -461,6 +507,313 @@ def cg_phases(rng):
     return errs, timing, launches
 
 
+def krylov_bound(moved: float, ops: float) -> tuple[float, str]:
+    """Least time (ms, which) for ``moved`` bytes at the device-memory rate
+    or ``ops`` float32 operations at the peak rate, whichever is larger."""
+    t_bytes, t_ops = moved / HBM_BW, ops / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bicgstab_bound(n: int, slots: int, iters: int,
+                   streamed_bytes: float) -> tuple[float, str]:
+    """``iters`` BiCGStab iterations: A, b read once, x and rr written
+    once, plus the A bytes no CTA holds streamed again by every later SpMV
+    (two per iteration); or 2 float32 operations per stored slot per SpMV
+    and 22 per row per iteration (five dots, the p, s, x and r updates)."""
+    moved = (slots * 8 + n * 8 + 4
+             + max(0, 2 * iters - 1) * streamed_bytes)
+    return krylov_bound(moved, iters * (4 * slots + 22 * n))
+
+
+def gmres_cycle_bound(n: int, slots: int, m: int) -> tuple[float, str]:
+    """One GMRES(m) cycle: A, x and b read once, V, H, beta and the new x
+    written once; or the m+1 SpMVs (2 operations a slot) and, per row, 8
+    (j+1) operations for the two projections of step j and their updates,
+    3 for the norm and the scaling, 4 for the starting residual and 2 m for
+    x + y V[:m] (the (m+1) x m least-squares solve is a few thousand
+    operations, left out)."""
+    moved = slots * 8 + n * 12 + (m + 1) * n * 4 + (m + 1) * m * 4 + 4
+    ops = 2 * slots * (m + 1) + n * (4 * m * (m + 1) + 5 * m + 4)
+    return krylov_bound(moved, ops)
+
+
+def krylov_phases(rng):
+    """Phases 8-10: the Krylov kernels against their plain versions, the
+    Krylov path counted, the Krylov tiers timed. Returns (errors, timing,
+    launches) by kernel name."""
+    import functools
+
+    from repro_torch import BiCGStabProblem, GMRESProblem, Plan, execute, plan
+    from repro_torch.core import perks
+    from repro_torch.exec import plan_candidates
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sparse import generate, nonsymmetric_names
+    from repro_torch.sparse.generate import convdiff2d
+
+    def vec(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+
+    def plain_bicgstab(matvec, b, iters, dot=torch.dot):
+        state = ref.bicgstab_initial_state(b, dot=dot)
+        for _ in range(iters):
+            state = ref.bicgstab_iteration_matvec(state, matvec, dot=dot)
+        return state[0], state[8]
+
+    def plain_gmres(matvec, b, cycles, m, dot=torch.dot):
+        state = (torch.zeros_like(b), dot(b, b))
+        for _ in range(cycles):
+            state = ref.gmres_cycle_matvec(state, matvec, b, m, dot=dot)
+        return state
+
+    def orth(V):
+        eye = torch.eye(V.shape[0], device=V.device, dtype=V.dtype)
+        return (V @ V.T - eye).abs().max().item()
+
+    errs = {k: 0.0 for k in KRYLOV_KERNELS}
+
+    def keep(k, e):
+        errs[k] = max(errs[k], e)
+
+    # -- 8. kernels against their plain versions --------------------------------
+    print(f"[krylov kernels] every nonsymmetric registry entry; "
+          f"bicgstab_fused {KRYLOV_KERNEL_ITERS} iterations, "
+          f"gmres_cycle_fused m={KRYLOV_M}, one cycle")
+    for name in nonsymmetric_names():
+        csr = generate(name)
+        n = csr.shape[0]
+        ell = csr.to_ell()
+        data = torch.from_numpy(ell.data).cuda()
+        cols = torch.from_numpy(ell.cols).cuda()
+        b = vec(n)
+        mv = functools.partial(ref.spmv_ell, data, cols)
+        mv64 = functools.partial(ref.spmv_ell, data.double(), cols)
+        it = KRYLOV_KERNEL_ITERS
+        wx, wrr = plain_bicgstab(mv, b, it)
+        x64, rr64 = plain_bicgstab(mv64, b.double(), it)
+        bx, _ = plain_bicgstab(mv, b, it, dot=blocked_dot)
+        f32_close = bool(torch.allclose(bx, wx, rtol=CG_RTOL, atol=CG_ATOL))
+        print(f"  {name}: n={n} two float32 plain runs, dot orders apart: "
+              f"max|dx|={(bx - wx).abs().max().item()!r} "
+              f"(within rtol {CG_RTOL}/atol {CG_ATOL}: {f32_close})")
+        for policy, resident in (("VEC", False), ("MIX", True)):
+            gx, grr = ops.bicgstab(data, cols, b, iters=it,
+                                   resident_matrix=resident)
+            if f32_close:
+                keep("bicgstab_fused", check_close(
+                    f"{name} bicgstab_fused {policy} x", gx, wx, CG_RTOL,
+                    CG_ATOL))
+                check_close(f"{name} bicgstab_fused {policy} rr", grr[0],
+                            wrr, CG_RTOL, CG_ATOL)
+            keep("bicgstab_fused", check_x64(
+                f"{name} bicgstab_fused {policy} x", gx, wx, x64))
+        x0 = torch.zeros_like(b)
+        V, H, beta, gxn = ops.gmres_cycle(data, cols, x0, b, m=KRYLOV_M)
+        pV, pH, pbeta, pxn = ref.gmres_cycle_update(x0, b, mv, KRYLOV_M)
+        xn64 = ref.gmres_cycle_update(x0.double(), b.double(), mv64,
+                                      KRYLOV_M)[3]
+        # the steps before the Krylov space is numerically exhausted: past
+        # h_{j+1,j} < 1e-4 max|H| the next basis vector is rounding noise,
+        # different in every summation order
+        sub = (pH.diagonal(-1) < 1e-4 * pH.abs().max()).nonzero()
+        live = int(sub[0, 0]) + 1 if sub.numel() else KRYLOV_M
+        print(f"  {name} gmres_cycle_fused: |V^T V - I| kernel={orth(V)!r} "
+              f"plain={orth(pV)!r}; steps compared: {live} of {KRYLOV_M}")
+        keep("gmres_cycle_fused", check_close(
+            f"{name} gmres_cycle_fused V[:{live + 1}]", V[:live + 1],
+            pV[:live + 1], CG_RTOL, CG_ATOL))
+        check_close(f"{name} gmres_cycle_fused H[:, :{live}]",
+                    H[:, :live], pH[:, :live], CG_RTOL, CG_ATOL)
+        check_close(f"{name} gmres_cycle_fused beta", beta, pbeta, CG_RTOL,
+                    CG_ATOL)
+        # the cycle's new iterate x + y V[:m] (the kernel's own
+        # least-squares solve), which is defined past exhaustion too
+        keep("gmres_cycle_fused", check_x64(
+            f"{name} gmres_cycle_fused x + y V[:m]", gxn, pxn, xn64))
+
+    # one grid.sync(): the fused BiCGStab (five a iteration) on a tiny
+    # system, where the rows' work is a few hundred operations
+    tiny = convdiff2d(16).to_ell()
+    td = torch.from_numpy(tiny.data).cuda()
+    tc = torch.from_numpy(tiny.cols).cuda()
+    tb = vec(256)
+    t0 = cuda_ms(lambda: ops.bicgstab(td, tc, tb, iters=0), 5)
+    t1 = cuda_ms(lambda: ops.bicgstab(td, tc, tb, iters=2000), 5)
+    print(f"[grid.sync] bicgstab_fused on convdiff2d(16), 2000 iterations: "
+          f"{1e3 * (t1 - t0) / 2000!r} us per iteration, "
+          f"{1e3 * (t1 - t0) / 2000 / 5!r} us per grid.sync() at most")
+
+    # -- the Krylov path's cells ---------------------------------------------------
+    cells = []
+    for cell, kind, side, steps in KRYLOV_CELLS:
+        t0 = time.perf_counter()
+        csr = convdiff2d(side)
+        n = csr.shape[0]
+        ell = csr.to_ell()
+        b = rng.standard_normal(n).astype(np.float32)
+        if kind == "bicgstab":
+            problem = BiCGStabProblem.from_ell(ell.data, ell.cols, b, steps,
+                                               matrix=csr)
+        else:
+            problem = GMRESProblem.from_ell(ell.data, ell.cols, b, steps,
+                                            m=KRYLOV_M, matrix=csr)
+        mv = functools.partial(ref.spmv_ell, problem.data, problem.cols)
+        mv64 = functools.partial(ref.spmv_ell, problem.data.double(),
+                                 problem.cols)
+        if kind == "bicgstab":
+            x32, rr32 = plain_bicgstab(mv, problem.b, steps)
+            _, rr32b = plain_bicgstab(mv, problem.b, steps, dot=blocked_dot)
+            x64, rr64 = plain_bicgstab(mv64, problem.b.double(), steps)
+        else:
+            x32, rr32 = plain_gmres(mv, problem.b, steps, KRYLOV_M)
+            _, rr32b = plain_gmres(mv, problem.b, steps, KRYLOV_M,
+                                   dot=blocked_dot)
+            x64, rr64 = plain_gmres(mv64, problem.b.double(), steps,
+                                    KRYLOV_M)
+        torch.cuda.synchronize()
+        best = plan(problem)
+        print(f"[krylov] {cell}: n={n} nnz={csr.nnz} steps={steps} "
+              f"rr32={rr32.item()!r} rr32 (blocked dots)={rr32b.item()!r} "
+              f"rr64={rr64.item()!r} set-up "
+              f"{time.perf_counter() - t0:.1f} s; plan "
+              f"{best.to_json(indent=None)}")
+        cells.append(dict(cell=cell, kind=kind, problem=problem, best=best,
+                          x32=x32, x64=x64, rr32s=(rr32, rr32b), rr64=rr64,
+                          slots=ell.data.size, steps=steps))
+    bsmall, blarge, gsmall, glarge = cells
+
+    # -- 8b. each kernel at the Krylov path's full shapes ------------------------------
+    print("[krylov kernels] main-path shapes")
+    timing = {}
+    for c in (bsmall, blarge):
+        p, best = c["problem"], c["best"]
+        rows = p.resident_matrix_rows(best)
+        run = lambda: ops.bicgstab(p.data, p.cols, p.b, iters=c["steps"],
+                                   matrix_rows=rows)
+        gx, grr = run()
+        keep("bicgstab_fused", check_x64(
+            f"bicgstab_fused {c['cell']} {best.policy} matrix_rows={rows}",
+            gx, c["x32"], c["x64"]))
+        check_rr(f"bicgstab_fused {c['cell']} rr", grr[0], c["rr32s"],
+                 c["rr64"])
+        n = p.b.shape[0]
+        t = dict(ms=cuda_ms(run, 5),
+                 plain_ms=cuda_ms(lambda: ref.bicgstab_run(
+                     p.data, p.cols, p.b, c["steps"]), 3),
+                 bound=bicgstab_bound(n, c["slots"], c["steps"],
+                                      c["slots"] * 8 * (n - rows) / n),
+                 library_ms=None)
+        print(f"  bicgstab_fused {c['cell']}: {json.dumps(t)}")
+        if c is blarge:
+            timing["bicgstab_fused"] = t
+    p = gsmall["problem"]
+    n = p.b.shape[0]
+    x0 = torch.zeros_like(p.b)
+    mv = functools.partial(ref.spmv_ell, p.data, p.cols)
+    mv64 = functools.partial(ref.spmv_ell, p.data.double(), p.cols)
+    run = lambda: ops.gmres_cycle(p.data, p.cols, x0, p.b, m=KRYLOV_M)
+    V, H, beta, xn = run()
+    pV, pH, pbeta, pxn = ref.gmres_cycle_update(x0, p.b, mv, KRYLOV_M)
+    keep("gmres_cycle_fused", check_close(
+        "gmres_cycle_fused gmres-small V", V, pV, CG_RTOL, CG_ATOL))
+    check_close("gmres_cycle_fused gmres-small H", H, pH, CG_RTOL, CG_ATOL)
+    check_close("gmres_cycle_fused gmres-small beta", beta, pbeta, CG_RTOL,
+                CG_ATOL)
+    keep("gmres_cycle_fused", check_x64(
+        "gmres_cycle_fused gmres-small x + y V[:m]", xn, pxn,
+        ref.gmres_cycle_update(x0.double(), p.b.double(), mv64,
+                               KRYLOV_M)[3]))
+    print(f"  gmres_cycle_fused gmres-small: |V^T V - I| kernel={orth(V)!r} "
+          f"plain={orth(pV)!r}")
+    timing["gmres_cycle_fused"] = dict(
+        ms=cuda_ms(run, 10),
+        plain_ms=cuda_ms(
+            lambda: ref.gmres_cycle_update(x0, p.b, mv, KRYLOV_M), 5),
+        bound=gmres_cycle_bound(n, gsmall["slots"], KRYLOV_M),
+        library_ms=None)
+    print(f"  gmres_cycle_fused gmres-small: "
+          f"{json.dumps(timing['gmres_cycle_fused'])}")
+
+    # -- 9. the Krylov path, counted ---------------------------------------------------
+    print("[krylov path] counters set to 0")
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    for c in cells:
+        problem, best = c["problem"], c["best"]
+        runs = ([best] + plan_candidates(problem)
+                + [Plan(tier="device_loop")])   # the second: a replay
+        for p in runs:
+            replay = p.tier == "device_loop" and perks.graph_cached(
+                problem.step_fn(), problem.initial_state(), c["steps"])
+            before = ops.launch_counts()
+            x, rr = execute(problem, p)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()
+                     if v != before[k]}
+            e = check_x64(f"execute {c['cell']} {p.tier} {p.policy} "
+                          f"replay={replay} launches={delta}", x, c["x32"],
+                          c["x64"])
+            check_rr(f"execute {c['cell']} {p.tier} {p.policy} rr", rr,
+                     c["rr32s"], c["rr64"])
+            if p.tier == "resident":
+                keep("bicgstab_fused" if c["kind"] == "bicgstab"
+                     else "gmres_cycle_fused", e)
+            if replay and delta:
+                FAILS.append(f"device_loop replay on {c['cell']} launched "
+                             f"{delta}")
+    launches = ops.launch_counts()
+    print(f"[krylov path] launches {json.dumps(launches)}")
+    for k in list(KRYLOV_KERNELS) + ["spmv_ell"]:
+        if launches[k] == 0:
+            FAILS.append(f"{k} was not launched on the Krylov path")
+    for c, frac in ((bsmall, "whole"), (blarge, "partial"),
+                    (gsmall, "whole")):
+        best = c["best"]
+        a = next((d for d in best.cache if d.name == "A"), None)
+        whole = a is not None and a.cached_bytes == a.total_bytes
+        if not (best.tier == "resident" and best.policy == "MIX"
+                and a is not None and whole == (frac == "whole")):
+            FAILS.append(f"{c['cell']} plan is not MIX with {frac} A: {best}")
+    if any(p.tier == "resident" for p in plan_candidates(glarge["problem"])):
+        FAILS.append("gmres-large was offered the resident tier")
+
+    # -- 10. Krylov tier timing (not counted) ----------------------------------------------
+    print("[krylov tiers] median ms over 3 runs (the device loop's graph kept "
+          "after the first, which is timed alone as first_ms)")
+    for c in cells:
+        problem = c["problem"]
+        tiers = {}
+        for p in plan_candidates(problem):
+            first = None
+            if p.tier == "device_loop":
+                perks.clear_graphs()
+                first = cuda_ms(lambda: execute(problem, p), 0)
+            ms = cuda_ms(lambda: execute(problem, p), 3)
+            tiers[f"{p.tier}/{p.policy}"] = ms
+            rows = (problem.resident_matrix_rows(p)
+                    if p.tier == "resident" and c["kind"] == "bicgstab"
+                    else None)
+            print("  " + json.dumps(dict(
+                cell=c["cell"], tier=p.tier, policy=p.policy,
+                matrix_rows=rows, ms=ms, first_ms=first,
+                us_per_step=1e3 * ms / c["steps"],
+                predicted_ms=1e3 * p.predicted_s)))
+        print(f"  {c['cell']}: planner chose {c['best'].tier}/"
+              f"{c['best'].policy} (no graph kept); fastest measured: "
+              f"{min(tiers, key=tiers.get)}; planner now: "
+              f"{plan(problem).tier}")
+        perks.clear_graphs()
+    p = bsmall["problem"]
+    mixed = Plan(tier="host_loop", precision="mixed")
+    x, _ = execute(p, mixed)
+    check_x64("execute bicgstab-small host_loop precision=mixed", x,
+              bsmall["x32"], bsmall["x64"])
+    ms = cuda_ms(lambda: execute(p, mixed), 3)
+    print("  " + json.dumps(dict(cell="bicgstab-small", tier="host_loop",
+                                 precision="mixed", ms=ms)))
+    return errs, timing, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -626,10 +979,15 @@ def main() -> int:
     # -- 5-7. the CG path ------------------------------------------------------------
     cg_errs, cg_timing, cg_launches = cg_phases(rng)
 
-    # -- 8. report -------------------------------------------------------------------
+    # -- 8-10. the Krylov path ------------------------------------------------------------
+    kr_errs, kr_timing, kr_launches = krylov_phases(rng)
+
+    # -- 11. report -------------------------------------------------------------------
     kernels = []
     for table, e, tm, ln in ((STENCIL_KERNELS, errs, timing, launches),
-                             (CG_KERNELS, cg_errs, cg_timing, cg_launches)):
+                             (CG_KERNELS, cg_errs, cg_timing, cg_launches),
+                             (KRYLOV_KERNELS, kr_errs, kr_timing,
+                              kr_launches)):
         for k, (source, replaces) in table.items():
             t = tm[k]
             kernels.append(dict(

@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, ``sm_90a``).
 
 The JAX package ``repro`` is the reference and this package imports none of
-it. The stencil and conjugate-gradient paths::
+it. The stencil, conjugate-gradient and Krylov paths::
 
     from repro_torch import StencilProblem, plan, execute
     from repro_torch.kernels.common import get_spec
@@ -21,9 +21,20 @@ it. The stencil and conjugate-gradient paths::
     problem = CGProblem.from_matvec(op.matvec, b, 100, matrix=op.matrix)
     x, rr = execute(problem, plan(problem))                   # loop tiers
 
+    from repro_torch import BiCGStabProblem, GMRESProblem
+
+    data, cols = load_dataset("convdiff_small")               # nonsymmetric
+    matrix = load_matrix("convdiff_small")
+    problem = BiCGStabProblem.from_ell(data, cols, b, 100, matrix=matrix)
+    x, rr = execute(problem, plan(problem))
+    problem = GMRESProblem.from_ell(data, cols, b, 4, m=16, matrix=matrix)
+    x, rr = execute(problem, plan(problem))                   # 4 cycles
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the plain torch versions of the kernels run.
 """
-from repro_torch.exec import CGProblem, Plan, StencilProblem, execute, plan
+from repro_torch.exec import (BiCGStabProblem, CGProblem, GMRESProblem, Plan,
+                              StencilProblem, execute, plan)
 
-__all__ = ["CGProblem", "Plan", "StencilProblem", "execute", "plan"]
+__all__ = ["BiCGStabProblem", "CGProblem", "GMRESProblem", "Plan",
+           "StencilProblem", "execute", "plan"]

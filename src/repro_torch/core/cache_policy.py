@@ -1,6 +1,6 @@
-"""The PERKS caching policy (paper §III-B): the stencil and CG parts of
-``repro/core/cache_policy.py``, copied so the port imports nothing of the
-reference.
+"""The PERKS caching policy (paper §III-B): the stencil, CG, BiCGStab and
+GMRES parts of ``repro/core/cache_policy.py``, copied so the port imports
+nothing of the reference.
 
 Regions of a stencil shard, by what caching them saves per step:
 
@@ -190,3 +190,63 @@ def cg_arrays_for(matrix) -> list[CacheableArray]:
     container's **true** nnz: for padded formats the planner must rank A by
     the bytes it really streams, not the zero-filled slots."""
     return cg_arrays(matrix.shape[0], matrix.nnz, matrix.data.dtype.itemsize)
+
+
+def bicgstab_arrays(n_rows: int, nnz: int, dtype_bytes: int,
+                    index_bytes: int = 4) -> list[CacheableArray]:
+    """Cacheable arrays of one BiCGStab iteration.
+
+    Seven working vectors instead of CG's four, and the matrix streams
+    TWICE per iteration (v = A p, then t = A s), which doubles A's traffic
+    density relative to CG. Per iteration (``kernels.ref.
+    bicgstab_iteration_matvec``): r feeds the rho dot, the p update and the
+    s axpy (3 loads, 1 store); s feeds t = A s, two stabilization dots and
+    the x/r updates (3/1); p is rebuilt and consumed by the SpMV and the x
+    update (3/1); rhat is read by two dots and never written; v and t are
+    produced once and read twice; x accumulates.
+    """
+    vec = n_rows * dtype_bytes
+    return [
+        CacheableArray("r", vec, 3.0, 1.0),
+        CacheableArray("s", vec, 3.0, 1.0),
+        CacheableArray("p", vec, 3.0, 1.0),
+        CacheableArray("v", vec, 2.0, 1.0),
+        CacheableArray("t", vec, 2.0, 1.0),
+        CacheableArray("rhat", vec, 2.0, 0.0),
+        CacheableArray("x", vec, 1.0, 1.0),
+        CacheableArray("A", nnz * (dtype_bytes + index_bytes), 2.0, 0.0),
+    ]
+
+
+def bicgstab_arrays_for(matrix) -> list[CacheableArray]:
+    """``bicgstab_arrays`` from a sparse container (true nnz)."""
+    return bicgstab_arrays(matrix.shape[0], matrix.nnz,
+                           matrix.data.dtype.itemsize)
+
+
+def gmres_arrays(n_rows: int, m: int, nnz: int, dtype_bytes: int,
+                 index_bytes: int = 4) -> list[CacheableArray]:
+    """Cacheable arrays of one GMRES(m) cycle, normalised per inner
+    Arnoldi step.
+
+    The basis V, (m+1) vectors, is read twice by every inner step (the two
+    CGS2 projections) and extended once: keeping it on chip is the PERKS
+    case for GMRES, a cycle that never moves the basis through device
+    memory. A streams once per inner SpMV; w (the candidate vector) is
+    built, projected twice and normalised; x and r move only at cycle
+    boundaries (1/m per inner step, rounded to the planner's coarse 1.0).
+    """
+    vec = n_rows * dtype_bytes
+    return [
+        CacheableArray("V", (m + 1) * vec, 2.0, 1.0),
+        CacheableArray("w", vec, 3.0, 1.0),
+        CacheableArray("r", vec, 1.0, 1.0),
+        CacheableArray("x", vec, 1.0, 1.0),
+        CacheableArray("A", nnz * (dtype_bytes + index_bytes), 1.0, 0.0),
+    ]
+
+
+def gmres_arrays_for(matrix, m: int) -> list[CacheableArray]:
+    """``gmres_arrays`` from a sparse container (true nnz)."""
+    return gmres_arrays(matrix.shape[0], m, matrix.nnz,
+                        matrix.data.dtype.itemsize)

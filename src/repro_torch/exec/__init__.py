@@ -3,7 +3,9 @@
     Problem  ->  plan()/plan_candidates()  ->  execute()
 
 * :class:`StencilProblem`, :class:`CGProblem` (``adapters.py``) — the
-  paper's stencil and conjugate-gradient workloads.
+  paper's stencil and conjugate-gradient workloads;
+  :class:`BiCGStabProblem`, :class:`GMRESProblem` (``krylov.py``) — the
+  nonsymmetric Krylov family.
 * :class:`Plan` (``plan.py``) — how to run, with the reference's JSON
   schema.
 * :func:`plan` (``planner.py``) — ranks host_loop / device_loop / resident
@@ -18,20 +20,25 @@ from repro_torch.exec.adapters import (
     operator_fingerprint,
 )
 from repro_torch.exec.executor import execute, honors_on_sync
+from repro_torch.exec.krylov import BiCGStabProblem, GMRESProblem
 from repro_torch.exec.plan import SCHEDULES, TIERS, CacheDecision, Plan
 from repro_torch.exec.planner import cg_policy, plan, plan_candidates
+from repro_torch.exec.precision import compensated_vdot, solve_refined
 from repro_torch.exec.problem import HaloSpec, Problem, operand_fingerprint
 
 __all__ = [
+    "BiCGStabProblem",
     "CGProblem",
     "CacheDecision",
     "HaloSpec",
+    "GMRESProblem",
     "Plan",
     "Problem",
     "SCHEDULES",
     "StencilProblem",
     "TIERS",
     "cg_policy",
+    "compensated_vdot",
     "execute",
     "fused_block_rows",
     "fusion_schedule",
@@ -40,4 +47,5 @@ __all__ = [
     "operator_fingerprint",
     "plan",
     "plan_candidates",
+    "solve_refined",
 ]

@@ -1,5 +1,6 @@
 """Problem adapters: the stencil and conjugate gradient described for the
-executor — the single-device part of ``repro/exec/adapters.py``.
+executor — the single-device part of ``repro/exec/adapters.py``. BiCGStab
+and GMRES(m) are in ``krylov.py``.
 """
 from __future__ import annotations
 
@@ -151,6 +152,49 @@ def fused_block_rows(n: int, cap: int = 512) -> int:
     return bm
 
 
+def place_operands(problem) -> torch.Tensor:
+    """Check a Krylov problem's operator forms and precision, and move its
+    ``b`` and ELL planes to its device (default ``"cuda"``; raises without
+    a card unless ``device="cpu"``); returns ``b``."""
+    if problem.matvec is None and problem.data is None:
+        raise ValueError(f"{type(problem).__name__} needs ELL planes "
+                         f"(data, cols) or a matvec callable")
+    if problem.precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, "
+                         f"got {problem.precision!r}")
+    dev = _device.resolve(problem.device)
+    object.__setattr__(problem, "device", dev)
+    b = _device.as_domain(problem.b, dev)
+    object.__setattr__(problem, "b", b)
+    if problem.data is not None:
+        object.__setattr__(problem, "data",
+                           _device.as_domain(problem.data, dev))
+        object.__setattr__(problem, "cols",
+                           _device.as_domain(problem.cols, dev))
+    return b
+
+
+def loop_matvec(problem) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The loop tiers' SpMV of a Krylov problem: its matvec, else its ELL
+    planes through ``kernels.ops.spmv``."""
+    if problem.matvec is not None:
+        return problem.matvec
+    return functools.partial(kops.spmv, problem.data, problem.cols)
+
+
+def check_fused(problem, what: str) -> None:
+    """Raise unless the fused ``what`` kernel can run ``problem``: it needs
+    ELL planes, and reduces in the storage dtype only."""
+    if problem.data is None:
+        raise NotImplementedError(
+            f"the fused {what} kernel needs ELL planes (matvec-only "
+            f"problem)")
+    if problem.precision != "uniform":
+        raise NotImplementedError(
+            "mixed precision is a loop-tier dimension (the fused kernel "
+            "reduces in the storage dtype)")
+
+
 #: Launches of one CG step on the card, its SpMV counted as one: the SpMV,
 #: two dots, two ``_safe_div``s of five operations each (abs, compare,
 #: divide, the zero's fill, where), and three axpys of two operations each
@@ -191,21 +235,7 @@ class CGProblem(Problem):
     kind = "cg"
 
     def __post_init__(self):
-        if self.matvec is None and self.data is None:
-            raise ValueError("CGProblem needs ELL planes (data, cols) or a "
-                             "matvec callable")
-        if self.precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, "
-                             f"got {self.precision!r}")
-        dev = _device.resolve(self.device)
-        object.__setattr__(self, "device", dev)
-        b = _device.as_domain(self.b, dev)
-        object.__setattr__(self, "b", b)
-        if self.data is not None:
-            object.__setattr__(self, "data",
-                               _device.as_domain(self.data, dev))
-            object.__setattr__(self, "cols",
-                               _device.as_domain(self.cols, dev))
+        b = place_operands(self)
         # the initial state and the tol threshold are made once, so the
         # device loop's kept graph (core.perks, keyed by the state's
         # addresses) is found again on the next execute, and planning reads
@@ -242,11 +272,8 @@ class CGProblem(Problem):
 
     @functools.cached_property
     def _step(self):
+        mv = loop_matvec(self)
         dot = dot_for(self.precision)
-        if self.matvec is not None:
-            mv = self.matvec
-        else:
-            mv = functools.partial(kops.spmv, self.data, self.cols)
         return lambda s, out: kref.cg_iteration_matvec(s, mv, dot=dot,
                                                        out=out)
 
@@ -298,26 +325,29 @@ class CGProblem(Problem):
         """The fused kernel (``kernels.cg_fused``): VEC streams A, MIX/MAT
         keep the share of A the plan's ``"A"`` cache entry names (all of A
         when the plan has none)."""
-        if self.data is None:
-            raise NotImplementedError(
-                "fused CG kernel needs ELL planes (matvec-only problem)")
-        if self.precision != "uniform":
-            raise NotImplementedError(
-                "mixed precision is a loop-tier dimension (the fused "
-                "kernel reduces in storage dtype)")
+        check_fused(self, "CG")
         x, rr = kops.cg(self.data, self.cols, self.b, iters=self.n_steps,
                         block_rows=plan.block_rows or 256,
                         matrix_rows=self.resident_matrix_rows(plan))
         return x, rr[0]
 
     def resident_matrix_rows(self, plan) -> int:
-        """Rows of A the fused kernel keeps on chip under ``plan``: none
-        for VEC (and IMP), for MIX/MAT the share of the plan's ``"A"``
-        cache entry, all of A when the plan has no such entry."""
-        n = self.b.shape[0]
-        if (plan.policy or "MIX") not in ("MAT", "MIX"):
-            return 0
-        a = next((c for c in plan.cache if c.name == "A"), None)
-        if a is None or a.cached_bytes >= a.total_bytes:
-            return n
-        return n * a.cached_bytes // a.total_bytes
+        """Rows of A the fused kernel keeps on chip under ``plan``
+        (``plan_matrix_rows``)."""
+        return plan_matrix_rows(plan, self.b.shape[0])
+
+    def step_launches(self) -> int:
+        """Launches of one loop-tier step (``CG_STEP_LAUNCHES``)."""
+        return CG_STEP_LAUNCHES
+
+
+def plan_matrix_rows(plan, n: int) -> int:
+    """Rows of an n-row A that a fused Krylov kernel keeps on chip under
+    ``plan``: none for VEC (and IMP), for MIX/MAT the share of the plan's
+    ``"A"`` cache entry, all of A when the plan has no such entry."""
+    if (plan.policy or "MIX") not in ("MAT", "MIX"):
+        return 0
+    a = next((c for c in plan.cache if c.name == "A"), None)
+    if a is None or a.cached_bytes >= a.total_bytes:
+        return n
+    return n * a.cached_bytes // a.total_bytes

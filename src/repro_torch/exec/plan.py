@@ -16,8 +16,7 @@ import json
 import math
 from typing import Any, Optional
 
-#: Reduction-hardening modes of the schema (``repro/exec/precision.py``);
-#: the port runs "uniform" only so far.
+#: Reduction-hardening modes of the schema (``exec/precision.py``).
 PRECISIONS = ("uniform", "mixed")
 
 #: Execution tiers the executor dispatches on (DESIGN.md §2/§3).

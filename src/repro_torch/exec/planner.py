@@ -1,6 +1,9 @@
 """``plan(problem)``: the planner of the port — the ``_stencil_candidates``
 and ``_cg_candidates`` branches of ``repro/exec/planner.py`` for one
-instance on one card.
+instance on one card. The CG branch serves the Krylov family (``"cg"``,
+``"bicgstab"``, ``"gmres"``) with the reference's gates: no VEC candidate
+for GMRES, and its MIX only when all of A fits beside the basis (the cycle
+kernel streams no row of A).
 
 It enumerates the host_loop, device_loop and resident candidates, prices
 each with the paper's performance model (``core.perf_model``, Eq. 5 as
@@ -13,10 +16,12 @@ resident candidates are emitted at ``fuse_steps=1`` only, and no
 deep-schedule candidate at all, until the CUDA kernel fuses steps
 (ROADMAP).
 
-CG's host loop pays ``adapters.CG_STEP_LAUNCHES`` dispatches per step (the
-reference charges one); a chunked device loop (``sync_every < n_steps``)
-never keeps its graphs, so it always pays the capture plus one dispatch
-per chunk. Everything else is the reference's formula.
+A Krylov host loop pays its kind's launches per step (the reference
+charges one): ``problem.step_launches()``, i.e.
+``adapters.CG_STEP_LAUNCHES``, ``krylov.BICGSTAB_STEP_LAUNCHES`` or
+``krylov.GMRES_CYCLE_LAUNCHES(m)``; a chunked device loop
+(``sync_every < n_steps``) never keeps its graphs, so it always pays the
+capture plus one dispatch per chunk. Everything else is the reference's formula.
 """
 from __future__ import annotations
 
@@ -123,7 +128,7 @@ def cg_policy_from_arrays(arrays, budget_bytes: int) -> dict:
 
 def _cg_candidates(problem, chip: Chip, *,
                    sync_every: Optional[int]) -> list[Plan]:
-    from repro_torch.exec.adapters import CG_STEP_LAUNCHES, fused_block_rows
+    from repro_torch.exec.adapters import fused_block_rows
 
     arrays = list(problem.cacheable_arrays())
     budget = int(chip.onchip_bytes * 0.9)
@@ -144,7 +149,7 @@ def _cg_candidates(problem, chip: Chip, *,
                   for a in cplan.assignments)
     common = dict(n_steps=n, problem=problem.name, chip=chip.name,
                   sync_every=sync_every)
-    launches = CG_STEP_LAUNCHES
+    launches = problem.step_launches()
     chunks = -(-n // sync_every) if sync_every and sync_every < n else 1
     captures = n * launches
     if chunks == 1 and perks.graph_cached(problem.step_fn(),
@@ -158,6 +163,7 @@ def _cg_candidates(problem, chip: Chip, *,
              predicted_s=n * total_bytes / chip.hbm_bw
              + (captures + chunks) * DISPATCH_OVERHEAD_S, **common),
     ]
+    kind = problem.kind
     if problem.data is not None and pol["vector_fraction"] >= 1.0:
         bm = fused_block_rows(problem.b.shape[0])
         # cached bytes still move through on-chip memory every iteration
@@ -165,12 +171,17 @@ def _cg_candidates(problem, chip: Chip, *,
         vec_cache = tuple(c for c in cache if c.name != "A")
         t_sm_vec = sm_bytes_accessed(n, sum(c.cached_bytes
                                             for c in vec_cache))
-        cands.append(Plan(
-            tier="resident", policy="VEC", block_rows=bm, cache=vec_cache,
-            predicted_s=max(n * (total_bytes - vec_traffic) / chip.hbm_bw,
-                            t_sm_vec / chip.onchip_bw)
-            + DISPATCH_OVERHEAD_S, **common))
-        if pol["matrix_fraction"] > 0.0:
+        if kind != "gmres":
+            cands.append(Plan(
+                tier="resident", policy="VEC", block_rows=bm,
+                cache=vec_cache,
+                predicted_s=max(n * (total_bytes - vec_traffic)
+                                / chip.hbm_bw, t_sm_vec / chip.onchip_bw)
+                + DISPATCH_OVERHEAD_S, **common))
+        # the GMRES cycle kernel holds the whole of A beside the basis
+        # (no streamed-A variant), so a partial-A MIX plan has no kernel
+        if pol["matrix_fraction"] > 0.0 and (
+                kind != "gmres" or pol["matrix_fraction"] >= 1.0):
             saved = cplan.traffic_saved_per_step
             t_sm_all = sm_bytes_accessed(n, sum(c.cached_bytes
                                                 for c in cache))
@@ -195,7 +206,7 @@ def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
                                   "(ROADMAP)")
     if problem.kind == "stencil":
         cands = _stencil_candidates(problem, chip, sub_rows=sub_rows)
-    elif problem.kind == "cg":
+    elif problem.kind in ("cg", "bicgstab", "gmres"):
         cands = _cg_candidates(problem, chip, sync_every=sync_every)
     else:
         raise NotImplementedError(

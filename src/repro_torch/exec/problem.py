@@ -135,8 +135,8 @@ class Problem(abc.ABC):
         return sum(a.bytes for a in self.cacheable_arrays())
 
     def with_precision(self, precision: str) -> "Problem":
-        """A copy of this problem running under ``precision``; only
-        'uniform' exists in the port so far."""
+        """A copy of this problem running under ``precision``; a problem
+        that hardens no reduction runs 'uniform' only."""
         if precision == "uniform":
             return self
         raise NotImplementedError(

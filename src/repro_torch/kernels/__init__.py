@@ -8,6 +8,9 @@
 - ``cg_fused`` — PERKS conjugate gradient: a cooperative persistent CUDA
   kernel with the iteration loop inside and the vectors (and part or all
   of the matrix) in shared memory.
+- ``krylov_fused`` — PERKS BiCGStab (the iteration loop in one cooperative
+  launch) and one GMRES(m) restart cycle (the Arnoldi basis and the matrix
+  in shared memory for the cycle).
 
 ``ops.py`` holds the keyword wrappers and launch counters; ``ref.py`` the
 plain torch versions every kernel is held against.

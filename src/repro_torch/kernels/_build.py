@@ -5,7 +5,10 @@ Each ``.cu`` file becomes its own shared library with a plain C interface,
 compiled for ``sm_90a`` at first use (never at import) into ``build/kernels``
 at the root of the checkout. A library's file name carries a digest of its
 sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. ``build_all`` starts one ``nvcc`` per source at once.
+never loaded. ``build_all`` starts one ``nvcc`` per source at once. The
+cooperative kernels' capacity checks live here too: ``smem_limit``,
+``require_ctas`` and the row-split shared-memory ``layout``/``fit`` of the
+fused Krylov kernels.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ SOURCES = {
     "spmv_ell": "spmv_ell.cu",
     "spmv_sell": "spmv_sell.cu",
     "cg_fused": "cg_fused.cu",
+    "bicgstab_fused": "bicgstab_fused.cu",
+    "gmres_cycle_fused": "gmres_cycle_fused.cu",
 }
-HEADERS = ("stencil_common.cuh",)
+HEADERS = ("stencil_common.cuh", "krylov_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -90,6 +95,18 @@ _SIGNATURES = {
                                  _I, _I, _I, _P]),
         "cg_fused_max_ctas": (_I, [_I, _IP]),
         "cg_fused_smem": (_I, [_IP, _IP]),
+    },
+    "bicgstab_fused": {
+        "bicgstab_fused_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _I, _P]),
+        "bicgstab_fused_max_ctas": (_I, [_I, _IP]),
+        "bicgstab_fused_smem": (_I, [_IP, _IP]),
+    },
+    "gmres_cycle_fused": {
+        "gmres_cycle_fused_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _I, _I, _I, _I, _I, _I, _P]),
+        "gmres_cycle_fused_max_ctas": (_I, [_I, _IP]),
+        "gmres_cycle_fused_smem": (_I, [_IP, _IP]),
     },
 }
 
@@ -178,6 +195,72 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+def smem_limit(lib: ctypes.CDLL, prefix: str) -> int:
+    """Dynamic shared memory one CTA of the cooperative kernel ``prefix``
+    may take: the card's opt-in per-block maximum less the kernel's static
+    shared memory, both asked of the card and of the built kernel through
+    its ``<prefix>_smem`` entry point."""
+    optin, static = ctypes.c_int(), ctypes.c_int()
+    check(getattr(lib, f"{prefix}_smem")(ctypes.byref(optin),
+                                         ctypes.byref(static)),
+          f"{prefix}_smem")
+    return optin.value - static.value
+
+
+def require_ctas(lib: ctypes.CDLL, prefix: str, smem: int, ctas: int) -> None:
+    """Raise ``ValueError`` unless ``ctas`` CTAs of the cooperative kernel
+    ``prefix`` with ``smem`` bytes of dynamic shared memory each are
+    co-resident on the card (its ``<prefix>_max_ctas`` entry point)."""
+    grid = ctypes.c_int()
+    check(getattr(lib, f"{prefix}_max_ctas")(smem, ctypes.byref(grid)),
+          f"{prefix}_max_ctas")
+    if grid.value < ctas:
+        raise ValueError(f"{prefix} needs {ctas} co-resident CTAs with "
+                         f"{smem} B each; the card runs {grid.value}")
+
+
+#: Bytes of shared memory per cached slot of A (float32 value, int32 column).
+MATRIX_BYTES_PER_SLOT = 8
+
+
+def layout(n: int, k: int, ctas: int, matrix_rows: int,
+           vector_bytes: int) -> tuple[int, int, int]:
+    """``(rows per CTA, cached A rows per CTA, dynamic shared memory bytes)``
+    of a row-split cooperative Krylov kernel (``cg_fused``,
+    ``bicgstab_fused``, ``gmres_cycle_fused``, each with its own
+    ``vector_bytes`` per owned row) for ``n`` rows of ``k`` slots
+    over ``ctas`` CTAs with ``matrix_rows`` rows of A kept on chip in
+    all."""
+    stride = -(-n // ctas)
+    ca = min(stride, -(-matrix_rows // ctas))
+    smem = vector_bytes * stride + MATRIX_BYTES_PER_SLOT * k * ca
+    return stride, ca, smem
+
+
+def fit(lib: ctypes.CDLL, prefix: str, n: int, k: int, ctas: int,
+        matrix_rows: int, vector_bytes: int,
+        vectors: str) -> tuple[int, int, int]:
+    """``layout``, checked against the built kernel ``prefix``: raises
+    ``ValueError`` with the capacity when a CTA cannot hold its rows'
+    ``vectors`` (described for the message) and cached rows of A, or when
+    ``ctas`` such CTAs are not co-resident."""
+    limit = smem_limit(lib, prefix)
+    stride, ca, smem = layout(n, k, ctas, matrix_rows, vector_bytes)
+    if smem > limit:
+        vec = vector_bytes * stride
+        rows_cap = max(0, (limit - vec) // (MATRIX_BYTES_PER_SLOT * k))
+        raise ValueError(
+            f"{prefix} cannot hold this plan: {n} rows over {ctas} CTAs "
+            f"give each CTA {stride} rows, whose {vectors} take {vec} B of "
+            f"shared memory, and {ca} cached rows of A take "
+            f"{MATRIX_BYTES_PER_SLOT * k * ca} B more; a CTA has {limit} B, "
+            f"so the kernel holds at most "
+            f"{ctas * (limit // vector_bytes)} rows of vectors and, at this "
+            f"n, at most {ctas * min(rows_cap, stride)} rows of A")
+    require_ctas(lib, prefix, smem, ctas)
+    return stride, ca, smem
 
 
 def is_cpu(x: torch.Tensor, what: str) -> bool:

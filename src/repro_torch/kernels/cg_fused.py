@@ -24,7 +24,6 @@ its signature and not used. The wrapper counts its launches in
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -35,28 +34,6 @@ from repro_torch.kernels.spmv_ell import check_ell, check_vector
 
 #: Bytes of shared memory per owned row for x, r, p and Ap (float32).
 VECTOR_BYTES_PER_ROW = 16
-#: Bytes of shared memory per cached slot of A (float32 value, int32 column).
-MATRIX_BYTES_PER_SLOT = 8
-
-
-def layout(n: int, k: int, ctas: int, matrix_rows: int) -> tuple[int, int, int]:
-    """``(rows per CTA, cached A rows per CTA, dynamic shared memory bytes)``
-    for ``n`` rows of ``k`` slots over ``ctas`` CTAs with ``matrix_rows``
-    rows of A kept on chip in all."""
-    stride = -(-n // ctas)
-    ca = min(stride, -(-matrix_rows // ctas))
-    smem = VECTOR_BYTES_PER_ROW * stride + MATRIX_BYTES_PER_SLOT * k * ca
-    return stride, ca, smem
-
-
-def smem_limit(lib) -> int:
-    """Dynamic shared memory one CTA of the built kernel may take: the
-    card's opt-in per-block maximum less the kernel's static shared
-    memory, both asked of the card and of the kernel."""
-    optin, static = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib.cg_fused_smem(ctypes.byref(optin), ctypes.byref(static)),
-                 "cg_fused_smem")
-    return optin.value - static.value
 
 
 def cg_fused(
@@ -91,26 +68,8 @@ def cg_fused(
     lib = _build.load("cg_fused")
     with _build.on_device(data):
         sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-        limit = smem_limit(lib)
-        stride, ca, smem = layout(n, k, sms, matrix_rows)
-        if smem > limit:
-            vec = VECTOR_BYTES_PER_ROW * stride
-            rows_cap = max(0, (limit - vec) // (MATRIX_BYTES_PER_SLOT * k))
-            raise ValueError(
-                f"cg_fused cannot hold this plan: {n} rows over {sms} CTAs "
-                f"give each CTA {stride} rows, whose x, r, p and Ap take "
-                f"{vec} B of shared memory, and {ca} cached rows of A take "
-                f"{MATRIX_BYTES_PER_SLOT * k * ca} B more; a CTA has "
-                f"{limit} B, so the kernel holds at most "
-                f"{sms * (limit // VECTOR_BYTES_PER_ROW)} rows of vectors "
-                f"and, at this n, at most {sms * min(rows_cap, stride)} "
-                f"rows of A")
-        grid = ctypes.c_int()
-        _build.check(lib.cg_fused_max_ctas(smem, ctypes.byref(grid)),
-                     "cg_fused_max_ctas")
-        if grid.value < sms:
-            raise ValueError(f"cg_fused needs {sms} co-resident CTAs with "
-                             f"{smem} B each; the card runs {grid.value}")
+        stride, ca, smem = _build.fit(lib, "cg_fused", n, k, sms, matrix_rows,
+                               VECTOR_BYTES_PER_ROW, "x, r, p and Ap")
         x = torch.empty_like(b)
         rr = torch.empty(1, dtype=b.dtype, device=b.device)
         p_glob = torch.empty_like(b)

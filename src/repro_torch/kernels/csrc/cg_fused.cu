@@ -39,62 +39,16 @@
 // Bound on the H100: device memory for the streamed rows of A, 8 B per
 // stored slot per iteration, plus the p gathers through L2; with A wholly
 // on chip, the grid barriers and the latency of the gathers.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "krylov_common.cuh"
 
-namespace cg = cooperative_groups;
-
-#define CG_THREADS 1024
-#define CG_WARPS (CG_THREADS / 32)
-
-__device__ __forceinline__ float safe_div(float a, float b) {
-    return fabsf(b) > 0.f ? __fdiv_rn(a, b) : 0.f;
-}
-
-// Sum over a warp by a butterfly: every lane ends with the same value.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-// Sum of v over the block in a fixed order; the result is valid in warp 0.
-// Every thread of the block must call it.
-__device__ float block_sum(float v, float* warp_part) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    v = warp_sum(v);
-    if (lane == 0) warp_part[w] = v;
-    __syncthreads();
-    float t = 0.f;
-    if (w == 0) t = warp_sum(lane < CG_WARPS ? warp_part[lane] : 0.f);
-    __syncthreads();
-    return t;
-}
-
-// Sum of the grid's `g` partials in one fixed order (the same in every
-// CTA), broadcast to the whole block. L1 is bypassed: other SMs wrote them.
-__device__ float grid_sum(const float* part, int g, float* bcast) {
-    if (threadIdx.x < 32) {
-        float t = 0.f;
-        for (int i = threadIdx.x; i < g; i += 32) t = __fadd_rn(t, __ldcg(part + i));
-        t = warp_sum(t);
-        if (threadIdx.x == 0) *bcast = t;
-    }
-    __syncthreads();
-    const float v = *bcast;
-    __syncthreads();
-    return v;
-}
-
-__global__ void __launch_bounds__(CG_THREADS, 1)
+__global__ void __launch_bounds__(KRY_THREADS, 1)
 cg_fused_kernel(const float* __restrict__ data, const int* __restrict__ cols,
                 const float* __restrict__ b, float* __restrict__ x_out,
                 float* __restrict__ rr_out, float* p_glob, float* partials,
                 int n, int k, int iters, int rows_stride, int ca_max) {
     extern __shared__ float smem[];
-    __shared__ float warp_part[CG_WARPS];
-    __shared__ float bcast;
+    __shared__ float warp_part[KRY_WARPS];
+    __shared__ float sums[1];
     cg::grid_group grid = cg::this_grid();
 
     const int g = gridDim.x, bid = blockIdx.x, tid = threadIdx.x;
@@ -112,13 +66,9 @@ cg_fused_kernel(const float* __restrict__ data, const int* __restrict__ cols,
     float* part_rr = partials + g;                 // slot B: r.r partials
 
     // Prologue: the cached rows of A, and b, each read once.
-    for (int e = tid; e < ca * k; e += CG_THREADS) {
-        const int li = e / k, j = e - li * k;
-        ad[(size_t)j * ca_max + li] = __ldg(data + (size_t)(r0 + li) * k + j);
-        ac[(size_t)j * ca_max + li] = __ldg(cols + (size_t)(r0 + li) * k + j);
-    }
+    cache_rows(r0, ca, ca_max, k, data, cols, ad, ac);
     float part = 0.f;
-    for (int li = tid; li < nr; li += CG_THREADS) {
+    for (int li = tid; li < nr; li += KRY_THREADS) {
         const float bv = __ldg(b + r0 + li);
         xs[li] = 0.f;
         rs[li] = bv;
@@ -126,53 +76,45 @@ cg_fused_kernel(const float* __restrict__ data, const int* __restrict__ cols,
         p_glob[r0 + li] = bv;
         part = __fadd_rn(part, __fmul_rn(bv, bv));
     }
-    part = block_sum(part, warp_part);             // also orders the A copy
-    if (tid == 0) part_rr[bid] = part;
+    warp_partial(part, 0, warp_part);
+    block_partials(1, warp_part, part_rr, g);      // also orders the A copy
     grid.sync();
-    float rr = grid_sum(part_rr, g, &bcast);
+    grid_sums(1, part_rr, g, sums);
+    float rr = sums[0];
 
     for (int it = 0; it < iters; ++it) {
         // Ap = A p over the CTA's rows, and the partial of p.Ap.
         part = 0.f;
-        for (int li = tid; li < nr; li += CG_THREADS) {
-            float acc = 0.f;
-            if (li < ca) {
-                for (int j = 0; j < k; ++j)
-                    acc = __fadd_rn(acc, __fmul_rn(
-                        ad[(size_t)j * ca_max + li],
-                        __ldcg(p_glob + ac[(size_t)j * ca_max + li])));
-            } else {
-                const size_t base = (size_t)(r0 + li) * k;
-                for (int j = 0; j < k; ++j)
-                    acc = __fadd_rn(acc, __fmul_rn(
-                        __ldg(data + base + j),
-                        __ldcg(p_glob + __ldg(cols + base + j))));
-            }
+        for (int li = tid; li < nr; li += KRY_THREADS) {
+            const float acc = ell_row(li, r0 + li, ca, ca_max, k, ad, ac,
+                                      data, cols, p_glob);
             aps[li] = acc;
             part = __fadd_rn(part, __fmul_rn(ps[li], acc));
         }
-        part = block_sum(part, warp_part);
-        if (tid == 0) part_pap[bid] = part;
+        warp_partial(part, 0, warp_part);
+        block_partials(1, warp_part, part_pap, g);
         grid.sync();
-        const float alpha = safe_div(rr, grid_sum(part_pap, g, &bcast));
+        grid_sums(1, part_pap, g, sums);
+        const float alpha = safe_div(rr, sums[0]);
 
         // x += alpha p; r -= alpha Ap; the partial of r.r.
         part = 0.f;
-        for (int li = tid; li < nr; li += CG_THREADS) {
+        for (int li = tid; li < nr; li += KRY_THREADS) {
             xs[li] = __fadd_rn(xs[li], __fmul_rn(alpha, ps[li]));
             const float r = __fsub_rn(rs[li], __fmul_rn(alpha, aps[li]));
             rs[li] = r;
             part = __fadd_rn(part, __fmul_rn(r, r));
         }
-        part = block_sum(part, warp_part);
-        if (tid == 0) part_rr[bid] = part;
+        warp_partial(part, 0, warp_part);
+        block_partials(1, warp_part, part_rr, g);
         grid.sync();
-        const float rr_new = grid_sum(part_rr, g, &bcast);
+        grid_sums(1, part_rr, g, sums);
+        const float rr_new = sums[0];
         const float beta = safe_div(rr_new, rr);
         rr = rr_new;
 
         // p = r + beta p, published for the next iteration's gathers.
-        for (int li = tid; li < nr; li += CG_THREADS) {
+        for (int li = tid; li < nr; li += KRY_THREADS) {
             const float pn = __fadd_rn(rs[li], __fmul_rn(beta, ps[li]));
             ps[li] = pn;
             p_glob[r0 + li] = pn;
@@ -181,41 +123,16 @@ cg_fused_kernel(const float* __restrict__ data, const int* __restrict__ cols,
     }
 
     // Epilogue: x written once.
-    for (int li = tid; li < nr; li += CG_THREADS) x_out[r0 + li] = xs[li];
+    for (int li = tid; li < nr; li += KRY_THREADS) x_out[r0 + li] = xs[li];
     if (bid == 0 && tid == 0) rr_out[0] = rr;
 }
 
-// The card's opt-in shared memory per block and the kernel's static shared
-// memory; the wrapper gives the vectors and the cached rows the difference.
 extern "C" int cg_fused_smem(int* optin, int* static_bytes) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, (const void*)cg_fused_kernel);
-    if (e != cudaSuccess) return (int)e;
-    *static_bytes = (int)attr.sharedSizeBytes;
-    return 0;
+    return kry_smem((const void*)cg_fused_kernel, optin, static_bytes);
 }
 
-// Co-resident CTAs for `smem_bytes` of dynamic shared memory: the largest
-// grid a cooperative launch accepts.
 extern "C" int cg_fused_max_ctas(int smem_bytes, int* out) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    const void* f = (const void*)cg_fused_kernel;
-    e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, CG_THREADS,
-                                                      smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    *out = per_sm * sms;
-    return 0;
+    return kry_max_ctas((const void*)cg_fused_kernel, smem_bytes, out);
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -225,16 +142,10 @@ extern "C" int cg_fused_launch(const float* data, const int* cols,
                                float* p_glob, float* partials, int n, int k,
                                int iters, int rows_stride, int ca_max, int grid,
                                int smem_bytes, cudaStream_t stream) {
-    const void* f = (const void*)cg_fused_kernel;
-    cudaError_t e = cudaFuncSetAttribute(
-        f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
     void* args[] = {(void*)&data, (void*)&cols, (void*)&b, (void*)&x_out,
                     (void*)&rr_out, (void*)&p_glob, (void*)&partials,
                     (void*)&n, (void*)&k, (void*)&iters, (void*)&rows_stride,
                     (void*)&ca_max};
-    e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(CG_THREADS), args,
-                                    (size_t)smem_bytes, stream);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return kry_launch((const void*)cg_fused_kernel, grid, smem_bytes, args,
+                      stream);
 }

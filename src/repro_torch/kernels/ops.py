@@ -1,6 +1,6 @@
 """Public keyword wrappers for the port's kernels, as in
-``repro/kernels/ops.py``: the stencils, the ELL and SELL-C-σ SpMVs and the
-fused conjugate gradient.
+``repro/kernels/ops.py``: the stencils, the ELL and SELL-C-σ SpMVs, the
+fused conjugate gradient, BiCGStab and the GMRES(m) cycle.
 
 Each call dispatches on the tensor's device: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor runs the plain torch version. ``launch_counts``/``reset_launch_counts`` read and
@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cg_fused as _cg
+from repro_torch.kernels import krylov_fused as _kry
 from repro_torch.kernels import spmv_ell as _spmv
 from repro_torch.kernels import spmv_sell as _sell
 from repro_torch.kernels import stencil2d as _s2d
@@ -26,6 +27,8 @@ KERNELS = {
     "spmv_ell": _spmv.spmv_ell,
     "spmv_sell": _sell.spmv_sell,
     "cg_fused": _cg.cg_fused,
+    "bicgstab_fused": _kry.bicgstab_fused,
+    "gmres_cycle_fused": _kry.gmres_cycle_fused,
 }
 
 
@@ -75,6 +78,29 @@ def cg(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor, *,
     return _cg.cg_fused(data, cols, b, iters=iters,
                         resident_matrix=resident_matrix,
                         block_rows=block_rows, matrix_rows=matrix_rows)
+
+
+def bicgstab(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor, *,
+             iters: int, resident_matrix: bool = True, block_rows: int = 256,
+             matrix_rows: Optional[int] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PERKS BiCGStab: the whole iteration loop in one launch (two SpMVs
+    per iteration; ``matrix_rows`` of A, default all when
+    ``resident_matrix``, on chip, the rest streamed twice per
+    iteration)."""
+    return _kry.bicgstab_fused(data, cols, b, iters=iters,
+                               resident_matrix=resident_matrix,
+                               block_rows=block_rows, matrix_rows=matrix_rows)
+
+
+def gmres_cycle(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                b: torch.Tensor, *, m: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """One GMRES(m) restart cycle with the basis on chip, its small
+    least-squares solve included. Returns (V, H, beta, x_new): the
+    reference's (V, H, beta), and x + y V[:m]."""
+    return _kry.gmres_cycle_fused(data, cols, x, b, m=m)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,12 +1,15 @@
 """Plain torch versions of the port's kernels (the port's
-``repro/kernels/ref.py``: the stencils, the two SpMVs and conjugate
-gradient).
+``repro/kernels/ref.py``: the stencils, the two SpMVs, conjugate
+gradient, BiCGStab and GMRES(m)).
 
 They are what the CPU path runs and what ``chip_smoke.py`` holds each CUDA
 kernel against on the card. No custom kernel, no scratch: torch ops only.
 The SpMVs sum a row's slots in slot order, one rounded product added at a
 time, which is the CUDA kernels' order; the CG iteration follows the
-reference's order of operations, ``_safe_div`` included.
+reference's order of operations, ``_safe_div`` included; so do the
+BiCGStab iteration and the GMRES(m) cycle, whose small least-squares solve
+is a Givens QR in torch ops (``hessenberg_lstsq``) where the reference
+calls ``jnp.linalg.lstsq``.
 """
 from __future__ import annotations
 
@@ -124,3 +127,166 @@ def cg_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
     for _ in range(iters):
         state = cg_iteration(state, data, cols)
     return state[0], state[3]
+
+
+# -- BiCGStab (one iteration; bicgstab_run is the fused kernel's plain
+# -- version) ----------------------------------------------------------------
+
+BiCGStabState = tuple[torch.Tensor, ...]
+
+
+def bicgstab_iteration_matvec(state: BiCGStabState,
+                              matvec: Callable[[torch.Tensor], torch.Tensor],
+                              dot: Callable = torch.dot,
+                              out: Optional[BiCGStabState] = None
+                              ) -> BiCGStabState:
+    """One BiCGStab iteration (van der Vorst 1992) with a pluggable SpMV
+    and reduction; state = (x, r, rhat, p, v, rho, alpha, omega, rr).
+
+    Every quotient goes through ``_safe_div``, so a converged state (r
+    exactly 0) is a fixed point. With ``out`` (buffers like ``state``, not
+    aliasing it) x, r and p are written there; rhat is returned as it came
+    (it never changes), v and the scalars are new tensors."""
+    x, r, rhat, p, v, rho, alpha, omega, _ = state
+    rho_new = dot(rhat, r)
+    beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
+    d = beta * (p - omega * v)
+    p = r + d if out is None else torch.add(r, d, out=out[3])
+    v = matvec(p)
+    alpha = _safe_div(rho_new, dot(rhat, v))
+    s = r - alpha * v
+    t = matvec(s)
+    omega = _safe_div(dot(t, s), dot(t, t))
+    x = x + alpha * p
+    if out is None:
+        x = x + omega * s
+        r = s - omega * t
+    else:
+        x = torch.add(x, omega * s, out=out[0])
+        r = torch.sub(s, omega * t, out=out[1])
+    return (x, r, rhat, p, v, rho_new, alpha, omega, dot(r, r))
+
+
+def bicgstab_initial_state(b: torch.Tensor,
+                           dot: Callable = torch.dot) -> BiCGStabState:
+    """x = 0: r = rhat = b, p = v = 0, and rho = alpha = omega = 1, so the
+    first iteration reduces to p = r."""
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros_like(b)
+    return (zero, b, b, zero, zero, one, one, one, dot(b, b))
+
+
+def bicgstab_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
+                 iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``iters`` BiCGStab iterations from x0 = 0 on ELL-format A (the plain
+    version of ``bicgstab_fused``); returns (x, rr), rr a 0-dim tensor."""
+    state = bicgstab_initial_state(b)
+    for _ in range(iters):
+        state = bicgstab_iteration_matvec(
+            state, lambda q: spmv_ell(data, cols, q))
+    return state[0], state[8]
+
+
+# -- restarted GMRES(m) (gmres_cycle_update is the cycle kernel's plain
+# -- version) -----------------------------------------------------------------
+
+def gmres_arnoldi(x: torch.Tensor, b: torch.Tensor,
+                  matvec: Callable[[torch.Tensor], torch.Tensor], m: int,
+                  dot: Callable = torch.dot
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Arnoldi half of one GMRES(m) cycle from iterate ``x``, with CGS2
+    (two classical Gram-Schmidt passes): returns the basis V (m+1, n), the
+    Hessenberg matrix H (m+1, m) and beta = ||b - A x|| of shape (1,), as
+    ``gmres_cycle_fused`` returns them beside the new iterate.
+
+    Step j projects on the j+1 rows of V built so far; the reference
+    projects on all m+1 rows, whose others are still 0, so the two differ
+    only in the order of the matrix products' sums."""
+    n = b.shape[0]
+    r = b - matvec(x)
+    beta = torch.sqrt(dot(r, r))
+    V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+    H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+    torch.mul(r, _safe_div(1.0, beta), out=V[0])
+    for j in range(m):
+        basis = V[:j + 1]
+        w = matvec(V[j])
+        h1 = basis @ w
+        w = w - h1 @ basis
+        h2 = basis @ w
+        w = w - h2 @ basis
+        hn = torch.sqrt(dot(w, w))
+        torch.add(h1, h2, out=H[:j + 1, j])
+        H[j + 1, j] = hn
+        torch.mul(w, _safe_div(1.0, hn), out=V[j + 1])
+    return V, H, beta.reshape(1)
+
+
+def hessenberg_lstsq(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """y minimising ||H y - beta e1|| for the (m+1, m) upper Hessenberg H
+    of one GMRES cycle, by Givens rotations and back substitution in torch
+    ops: nothing is read on the host, so a CUDA graph can hold it (the
+    reference's ``jnp.linalg.lstsq`` is an SVD; on the card
+    ``torch.linalg.lstsq`` offers only a full-rank QR solve).
+
+    After an Arnoldi breakdown (h_{j+1,j} = 0) the later columns of H are
+    0: a rotation of a zero pair is the identity, and the back
+    substitution's ``_safe_div`` gives those coordinates 0, which is the
+    minimum-norm answer the SVD gives."""
+    m = H.shape[1]
+    g = torch.zeros(m + 1, dtype=H.dtype, device=H.device)
+    g[0] = beta.reshape(())
+    R = torch.cat([H, g[:, None]], dim=1)        # [H | beta e1]
+    for j in range(m):
+        a, c = R[j, j], R[j + 1, j]
+        rad = torch.hypot(a, c)
+        live = rad > 0
+        cos = torch.where(live, a / rad, 1.0)
+        sin = torch.where(live, c / rad, 0.0)
+        rot = torch.stack([cos, sin, -sin, cos]).view(2, 2)
+        R[j:j + 2, j:] = rot @ R[j:j + 2, j:]
+    y = torch.zeros(m, dtype=H.dtype, device=H.device)
+    for i in reversed(range(m)):
+        acc = R[i, m] - R[i, i + 1:m] @ y[i + 1:]
+        y[i] = _safe_div(acc, R[i, i])
+    return y
+
+
+def gmres_cycle_update(x: torch.Tensor, b: torch.Tensor,
+                       matvec: Callable[[torch.Tensor], torch.Tensor], m: int,
+                       dot: Callable = torch.dot,
+                       out: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, ...]:
+    """One GMRES(m) cycle up to the new iterate (the plain version of
+    ``gmres_cycle_fused``): the Arnoldi basis (``gmres_arnoldi``), the
+    least-squares solve (``hessenberg_lstsq``) and x + y V[:m]; returns
+    (V, H, beta, x_new). With ``out`` (a buffer like x, not aliasing it)
+    x_new is written there."""
+    V, H, beta = gmres_arnoldi(x, b, matvec, m, dot=dot)
+    y = hessenberg_lstsq(H, beta)
+    return V, H, beta, torch.add(x, y @ V[:m], out=out)
+
+
+def gmres_cycle_matvec(state: tuple[torch.Tensor, torch.Tensor],
+                       matvec: Callable[[torch.Tensor], torch.Tensor],
+                       b: torch.Tensor, m: int, dot: Callable = torch.dot,
+                       out: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One GMRES(m) restart cycle: ``gmres_cycle_update``, then the
+    residual recomputed with one more SpMV; state = (x, rr). With ``out``
+    (a buffer like x, not aliasing it) x is written there."""
+    x, _ = state
+    x = gmres_cycle_update(x, b, matvec, m, dot=dot, out=out)[3]
+    r = b - matvec(x)
+    return (x, dot(r, r))
+
+
+def gmres_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
+              cycles: int, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cycles`` GMRES(m) restart cycles from x0 = 0 on ELL-format A;
+    returns (x, rr), rr a 0-dim tensor."""
+    state = (torch.zeros_like(b), torch.dot(b, b))
+    for _ in range(cycles):
+        state = gmres_cycle_matvec(state, lambda q: spmv_ell(data, cols, q),
+                                   b, m)
+    return state

@@ -261,8 +261,9 @@ def test_cg_problem_surface_matches_reference():
     assert tp.kind == jp.kind == "cg"
     assert tp.step_fn() is tp.step_fn()   # one step function per problem
     assert tp.with_precision("uniform") is tp
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        execute(tp, Plan(tier="host_loop", precision="mixed"))
+    assert tp.with_precision("mixed").precision == "mixed"
+    with pytest.raises(NotImplementedError, match="mixed"):
+        execute(tp, Plan(tier="resident", precision="mixed"))
     with pytest.raises(NotImplementedError, match="distributed"):
         execute(tp, Plan(tier="distributed", shard_axis="data"))
     with pytest.raises(ValueError, match="ELL planes"):
@@ -278,9 +279,9 @@ def test_cg_problem_surface_matches_reference():
 
 
 def test_dot_for_runs_uniform_and_names_the_roadmap_for_mixed():
+    from repro_torch.exec.precision import compensated_vdot
     assert dot_for("uniform") is torch.dot
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_for("mixed")
+    assert dot_for("mixed") is compensated_vdot
     with pytest.raises(ValueError, match="precision"):
         dot_for("double")
 

@@ -201,3 +201,137 @@ def test_cuda_cg_tol_stops_early(cuda):
     launched = ops.launch_counts()["spmv_ell"] - before
     assert float(rr) < 1e-6 * float(p.initial_state()[3])
     assert 0 < launched < 200, launched      # stopped long before 400
+
+
+# -- the Krylov slice -------------------------------------------------------------
+
+def _hold(x, x32, x64):
+    """A Krylov kernel's x against the plain float32 run x32 and a float64
+    run x64: within twice the float32 run's distance from x64 plus 1e-5
+    ||x64||, and at CG_TOL from x32 wherever x32 itself is within 1e-4 of
+    x64 (in BiCGStab's erratic phase two float32 dot orders drift apart
+    further than that; chip_smoke.py prints the spread)."""
+    d = torch.linalg.vector_norm(x.double() - x64).item()
+    d32 = torch.linalg.vector_norm(x32.double() - x64).item()
+    assert d <= 2 * d32 + 1e-5 * torch.linalg.vector_norm(x64).item()
+    if (x32.double() - x64).abs().max().item() < 1e-4:
+        torch.testing.assert_close(x, x32, **CG_TOL)
+
+
+def _convdiff(side, cuda, seed=0):
+    from repro_torch.sparse.generate import convdiff2d
+    csr = convdiff2d(side)
+    ell = csr.to_ell()
+    return (csr, torch.from_numpy(ell.data).to(cuda),
+            torch.from_numpy(ell.cols).to(cuda),
+            torch.from_numpy(_rhs(csr.shape[0], seed=seed)).to(cuda))
+
+
+@pytest.mark.parametrize("side", [16, 48, 101])
+def test_cuda_bicgstab_fused_matches_plain_version(side, cuda):
+    _, data, cols, b = _convdiff(side, cuda, seed=side)
+    n = b.shape[0]
+    x32, rr32 = ref.bicgstab_run(data, cols, b, 40)
+    x64, _ = ref.bicgstab_run(data.double(), cols, b.double(), 40)
+    for kw in (dict(resident_matrix=False), dict(resident_matrix=True),
+               dict(resident_matrix=True, matrix_rows=n // 3)):
+        x, rr = ops.bicgstab(data, cols, b, iters=40, **kw)
+        assert rr.shape == (1,) and bool(torch.isfinite(rr).all())
+        _hold(x, x32, x64)
+        x2, rr2 = ops.bicgstab(data, cols, b, iters=40, **kw)
+        assert torch.equal(x, x2) and torch.equal(rr, rr2), "not repeatable"
+    x, rr = ops.bicgstab(data, cols, b, iters=0)
+    assert torch.equal(x, torch.zeros_like(b))
+    torch.testing.assert_close(rr[0], torch.dot(b, b), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("side,m", [(16, 8), (48, 16), (101, 31)])
+def test_cuda_gmres_cycle_fused_matches_plain_version(side, m, cuda):
+    import functools
+    _, data, cols, b = _convdiff(side, cuda, seed=side)
+    x0 = 0.1 * torch.from_numpy(_rhs(b.shape[0], seed=1)).to(cuda)
+    want = ref.gmres_cycle_update(x0, b, functools.partial(ref.spmv_ell,
+                                                           data, cols), m)
+    got = ops.gmres_cycle(data, cols, x0, b, m=m)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **CG_TOL)
+    V = got[0]
+    eye = torch.eye(m + 1, device=cuda)
+    assert (V @ V.T - eye).abs().max().item() < 1e-4
+    again = ops.gmres_cycle(data, cols, x0, b, m=m)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_cuda_krylov_kernels_refuse_what_a_cta_does_not_hold(cuda):
+    n = 4 * 2**20
+    data = torch.zeros((n, 5), device=cuda)
+    cols = torch.zeros((n, 5), dtype=torch.int32, device=cuda)
+    b = torch.ones(n, device=cuda)
+    with pytest.raises(ValueError, match="holds at most"):
+        ops.bicgstab(data, cols, b, iters=1, resident_matrix=False)
+    with pytest.raises(ValueError, match="holds at most"):
+        ops.gmres_cycle(data, cols, b, b, m=16)
+    small = poisson2d(8).to_ell()
+    d = torch.from_numpy(small.data).to(cuda)
+    c = torch.from_numpy(small.cols).to(cuda)
+    with pytest.raises(ValueError, match="m must be"):
+        ops.gmres_cycle(d, c, b[:64], b[:64], m=32)
+
+
+@pytest.mark.parametrize("kind", ["bicgstab", "gmres"])
+def test_cuda_krylov_tiers_match_plain_version(kind, cuda):
+    from repro_torch.exec import BiCGStabProblem, GMRESProblem
+    csr, data, cols, b = _convdiff(40, cuda, seed=2)
+    if kind == "bicgstab":
+        p = BiCGStabProblem.from_ell(data, cols, b, 40, matrix=csr,
+                                     device=cuda)
+        x64, _ = ref.bicgstab_run(data.double(), cols, b.double(), 40)
+    else:
+        p = GMRESProblem.from_ell(data, cols, b, 3, m=12, matrix=csr,
+                                  device=cuda)
+        x64, _ = ref.gmres_run(data.double(), cols, b.double(), 3, 12)
+    want_x, want_rr = p.oracle()
+    cands = plan_candidates(p)
+    assert {c.policy for c in cands if c.tier == "resident"} == (
+        {"VEC", "MIX"} if kind == "bicgstab" else {"MIX"})
+    perks.clear_graphs()
+    for pl in cands + [Plan(tier="device_loop"), Plan(tier="device_loop",
+                                                      sync_every=7)]:
+        x, rr = execute(p, pl)
+        _hold(x, want_x, x64)
+        if pl.tier != "resident":   # same step function, same order
+            assert torch.equal(x, want_x) and torch.equal(rr, want_rr), pl
+    name = "bicgstab_fused" if kind == "bicgstab" else "gmres_cycle_fused"
+    before = ops.launch_counts()[name]
+    execute(p, next(c for c in cands if c.tier == "resident"))
+    assert ops.launch_counts()[name] == before + (1 if kind == "bicgstab"
+                                                  else 3)
+    perks.clear_graphs()
+
+
+def test_cuda_gmres_device_loop_keeps_its_graph(cuda):
+    from repro_torch.exec import GMRESProblem
+    csr, data, cols, b = _convdiff(32, cuda, seed=4)
+    p = GMRESProblem.from_ell(data, cols, b, 2, m=8, matrix=csr, device=cuda)
+    perks.clear_graphs()
+    first = execute(p, Plan(tier="device_loop"))
+    assert perks.graph_cached(p.step_fn(), p.initial_state(), 2)
+    before = ops.launch_counts()["spmv_ell"]
+    second = execute(p, Plan(tier="device_loop"))   # a replay: no launch
+    assert ops.launch_counts()["spmv_ell"] == before
+    want = p.oracle()
+    for got in (first, second):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    perks.clear_graphs()
+
+
+def test_cuda_mixed_precision_runs_the_loop_tiers(cuda):
+    from repro_torch.exec import BiCGStabProblem
+    csr, data, cols, b = _convdiff(24, cuda, seed=5)
+    p = BiCGStabProblem.from_ell(data, cols, b, 30, matrix=csr, device=cuda)
+    xu, _ = execute(p, Plan(tier="host_loop"))
+    xm, _ = execute(p, Plan(tier="host_loop", precision="mixed"))
+    xd, _ = execute(p, Plan(tier="device_loop", precision="mixed"))
+    assert torch.equal(xm, xd)
+    assert (xm - xu).abs().max().item() <= 1e-3 * xu.abs().max().item()
+    perks.clear_graphs()

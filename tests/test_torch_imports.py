@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.sparse, repro_torch.solvers.cg\n"
         "import repro_torch.exec.precision, repro_torch.kernels.cg_fused\n"
         "import repro_torch.kernels.spmv_ell, repro_torch.kernels.spmv_sell\n"
+        "import repro_torch.exec.krylov, repro_torch.kernels.krylov_fused\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")
@@ -45,6 +46,12 @@ def test_source_has_no_jax_or_reference_import():
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_chip_smoke_has_no_jax_or_reference_import():
+    script = REPO / "chip_smoke.py"
+    assert not _FORBIDDEN.search(script.read_text())
+    assert "repro_torch" in script.read_text()
 
 
 def test_scan_pattern_catches_the_forbidden_forms():
@@ -75,6 +82,20 @@ def test_cg_entry_points_default_to_the_card():
             call()
     p = CGProblem.from_ell(data, cols, b, 3, device="cpu")
     assert p.b.device.type == "cpu" and p.data.device.type == "cpu"
+
+
+def test_krylov_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import BiCGStabProblem, GMRESProblem
+    data = np.eye(4, dtype=np.float32)
+    cols = np.tile(np.arange(4, dtype=np.int32)[:, None], (1, 4))
+    b = np.ones(4, np.float32)
+    for cls in (BiCGStabProblem, GMRESProblem):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.from_ell(data, cols, b, 3)
+        p = cls.from_ell(data, cols, b, 3, device="cpu")
+        assert p.b.device.type == "cpu" and p.data.device.type == "cpu"
 
 
 def test_default_device_is_the_card():
