@@ -1,18 +1,27 @@
 """Time build variants of the port's stencil kernels on one NVIDIA GPU.
 
-    python3 scripts/kernel_variants.py [--variants NAME,NAME,...]
+    python3 scripts/kernel_variants.py [--variants NAME,NAME,...] [--src SRC]
 
-Each variant builds ``src/repro_torch/kernels/csrc`` with ``-D`` overrides
+Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` overrides
 of the kernels' tuning macros (all variants compile at once), prints its
 ``ptxas`` register and spill counts, holds its kernels against the plain
 torch version at atol 5e-6 (rtol 0), and times them at the main path's
 shapes: one step of 2d5pt on 8192x8192 (``stencil_baseline_step``),
-``stencil_perks`` on 8192x8192 for 100 steps at the planner's cached rows,
-and ``stencil_resident`` on 3072x1152 for 1000 steps. The variants are
+``stencil_perks`` on 8192x8192 for 100 steps at the one-step plan's cached
+rows, ``stencil_resident`` on 3072x1152 for 1000 steps, and the kept
+device loop's replay on 8192x8192 x 100 (``execute`` with
+``Plan(tier="device_loop")`` after its first run). The variants are
 timed in turn, twice over (A B C ... A B C ...), in one process on one
 card, so they can be compared with each other. Prints one JSON line per
 variant and round, then the card's name and power limit. Exits non-zero
 without a CUDA device or if a kernel disagrees with its plain version.
+
+``--src`` is the ``src`` directory of the tree to time (default: this
+checkout's); its kernels build into that tree's own ``build/``. To compare
+two commits on one card, unpack the other one (``git archive <commit> |
+tar -x -C build/parent``) and run both in one call, in turns: ``--src
+build/parent/src --variants shipped --rounds 1``, this tree, this tree,
+the other.
 """
 from __future__ import annotations
 
@@ -73,13 +82,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--src", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch import StencilProblem, plan
+    src = os.path.abspath(args.src)
+    sys.path.insert(0, src)
+    from repro_torch import Plan, StencilProblem, execute
+    from repro_torch.exec import plan_candidates
+    from repro_torch.core import perks
     from repro_torch.kernels import _build, ops, ref, stencil2d
     from repro_torch.kernels.common import get_spec
 
@@ -97,24 +110,31 @@ def main() -> int:
     rng = np.random.default_rng(0)
     big = torch.from_numpy(rng.standard_normal((8192, 8192), dtype=np.float32)).cuda()
     small = torch.from_numpy(rng.standard_normal((3072, 1152), dtype=np.float32)).cuda()
-    rows = plan(StencilProblem(big, spec, 100)).cached_rows
+    problem = StencilProblem(big, spec, 100)
+    rows = next(c.cached_rows for c in plan_candidates(problem)
+                if c.tier == "resident" and c.fuse_steps == 1
+                and c.schedule == "shallow")
     want = {"step": ref.stencil_step(big, spec),
             "perks": ref.stencil_run(big, spec, 100),
             "resident": ref.stencil_run(small, spec, 1000)}
+    want["device_loop"] = want["perks"]
     runs = {
         "step": lambda: ops.stencil_baseline_step(big, spec=spec),
         "perks": lambda: ops.stencil_perks(big, spec=spec, steps=100,
                                            cached_rows=rows),
         "resident": lambda: ops.stencil_resident(small, spec=spec, steps=1000),
+        "device_loop": lambda: execute(problem, Plan(tier="device_loop")),
     }
     shipped_cells = stencil2d.PERKS_MAX_ROW_CELLS
     bad = []
     for rnd in range(args.rounds):
         for n in names:
             _build.EXTRA_FLAGS = VARIANTS[n]
+            perks.clear_graphs()   # a kept graph holds the last variant's kernel
             lib = _build.load("stencil_perks")
             stencil2d.PERKS_MAX_ROW_CELLS = lib.stencil_perks_max_row_cells()
-            line = {"variant": n, "round": rnd, "perks_cached_rows": rows}
+            line = {"variant": n, "round": rnd, "src": src,
+                    "perks_cached_rows": rows}
             for k, fn in runs.items():
                 if rnd == 0:
                     err = (fn() - want[k]).abs().max().item()

@@ -165,6 +165,101 @@ def gm_bytes_fused(
     return passes * (2.0 * uncached + overlap) + 2.0 * cached_bytes
 
 
+def gm_bytes_deep(
+    n_steps: int,
+    domain_bytes: int,
+    cached_bytes: int,
+    *,
+    fuse_steps: int,
+) -> float:
+    """Eq. 5 under deep temporal blocking (the wavefront schedule of
+    ``stencil_perks_deep``): each pass reads and writes every uncached row
+    exactly once, whatever t,
+
+        A_gm = ceil(N/t) * 2*D_uncached + 2*D_cached
+
+    the least traffic of t fused steps a pass (the reference's model; the
+    port's kernel also re-reads halos, ``gm_bytes_tb``)."""
+    t = fuse_steps
+    passes = -(-n_steps // t)
+    uncached = max(0, domain_bytes - cached_bytes)
+    return passes * 2.0 * uncached + 2.0 * cached_bytes
+
+
+def deep_scratch_rows(sub_rows: int, radius: int, fuse_steps: int) -> int:
+    """The reference's on-chip working set of its deep kernel beyond the
+    resident rows, in rows: (2t+3) block buffers and (t+1) radius-row edge
+    stashes. The port's planner gates on its own kernel's layout
+    (``kernels.stencil2d.tb_layout``); this stays for parity."""
+    return (2 * fuse_steps + 3) * sub_rows + (fuse_steps + 1) * radius
+
+
+def _window_sum(n: int, size: int, halo: int) -> int:
+    """Sum over the ``size``-wide pieces [lo, hi) of [0, n) of their
+    windows [lo - halo, hi + halo) clamped to [0, n)."""
+    return sum(min(n, lo + size + halo) - max(0, lo - halo)
+               for lo in range(0, n, size))
+
+
+def gm_bytes_tb(
+    n_steps: int,
+    shape: tuple[int, ...],
+    dtype_bytes: int,
+    *,
+    radius: int,
+    fuse_steps: int,
+    cached_rows: int,
+    bands: int,
+    strip: tuple[int, int],
+    rows: int,
+    deep: bool,
+) -> float:
+    """Device-memory bytes of the port's temporal-blocking kernel
+    (``csrc/stencil_tb.cu``) for ``n_steps`` steps, t = ``fuse_steps`` a
+    pass (a last pass of ``n_steps % t``):
+
+    * the cached rows [0, R), cut into ``bands`` bands: one load and one
+      store in all, plus each pass every band's r*ct halo rows read and its
+      top and bottom r*t rows written;
+    * shallow: every ``rows`` x ``strip`` tile of the streamed rows read
+      with an r*ct halo on every side (clamped at the domain border) and
+      its interior written, once a pass;
+    * deep: every strip read over rows [R - r*ct, H) with an r*ct side
+      halo, and the streamed rows written, once a pass.
+
+    ``strip`` is (plane rows, columns); plane rows are 1 in 2D. Never below
+    ``gm_bytes_deep`` at the same cached rows."""
+    H, R, r, t = shape[0], cached_rows, radius, fuse_steps
+    D1 = shape[1] if len(shape) == 3 else 1
+    D2 = shape[-1]
+    row_bytes = D1 * D2 * dtype_bytes
+    sy, sx = strip
+    total = 2.0 * R * row_bytes
+    full, rem = divmod(n_steps, t)
+    for passes, ct in ((full, t), (1, rem)):
+        if passes == 0 or ct == 0:
+            continue
+        h = r * ct
+        per = 0
+        for b in range(bands):
+            b0, b1 = b * R // bands, (b + 1) * R // bands
+            per += (b0 - max(0, b0 - h)) + (min(H, b1 + h) - b1)
+            top = min(b0 + r * t, b1)
+            per += (top - b0) + (b1 - max(b1 - r * t, top))
+        per *= row_bytes
+        if R < H:
+            hy = h if len(shape) == 3 else 0
+            plane = _window_sum(D1, sy, hy) * _window_sum(D2, sx, h)
+            if deep:
+                per += (H - max(0, R - h)) * plane * dtype_bytes
+            else:
+                per += sum(min(H, lo + rows + h) - max(0, lo - h)
+                           for lo in range(R, H, rows)) * plane * dtype_bytes
+            per += (H - R) * D1 * D2 * dtype_bytes
+        total += passes * per
+    return total
+
+
 def cg_arrays(n_rows: int, nnz: int, dtype_bytes: int,
               index_bytes: int = 4) -> list[CacheableArray]:
     """Cacheable arrays of the PERKS conjugate-gradient solver (§III-B2).

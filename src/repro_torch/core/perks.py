@@ -11,9 +11,10 @@ loop lives:
 ``DEVICE_LOOP``
     All N steps in one dispatch. On a CUDA tensor the N step launches are
     captured into a CUDA graph on the first run and the graph is kept, so
-    every later run on the same input replays it: the host issues one
-    launch for the whole loop. On a CPU tensor it is the same loop as
-    HOST_LOOP.
+    every later run of the same step function on a state of the same
+    shapes replays it: the state is copied into the graph's own input
+    buffers and the host issues one launch for the whole loop. On a CPU
+    tensor it is the same loop as HOST_LOOP.
 
 ``RESIDENT``
     The time loop inside one persistent kernel with (part of) the domain
@@ -34,6 +35,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import weakref
 from typing import Callable, Optional, Union
 
 import torch
@@ -141,19 +143,31 @@ def capture(step_fn: StepFn, x: State, n_steps: int
     return graph, bufs, cur
 
 
-#: Captured device loops, least recently used first: (step function, each
-#: input tensor's address, shape and dtype, device, steps) -> ``capture``'s
-#: result. A graph reads its input from the captured addresses, so a hit is
-#: any state of those shapes and types at those addresses, whatever it
-#: holds now.
+#: Captured device loops, least recently used first: (the step function's
+#: id, each state tensor's shape and dtype, device, steps) -> (graph, its
+#: input buffers, its ping-pong buffers, the state its last step writes).
+#: A graph reads its state from its own input buffers, into which every run
+#: copies the state it is given, so any state of those shapes may replay
+#: it. Everything else the step reads (operands it closes over: a matrix,
+#: a spec) is part of the step function, which is why the key is that
+#: function and not the problem: a copy of a problem that shares its step
+#: function (``with_rhs``) shares its graph. An entry goes when its step
+#: function is collected, so it keeps no problem's operands alive.
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
-#: Graphs kept at once; each holds two buffers the size of its state.
+#: Graphs kept at once; each holds three buffers the size of its state.
 GRAPH_CACHE_SIZE = 4
 
 
 def _graph_key(step_fn: StepFn, x: State, n_steps: int) -> tuple:
-    return (step_fn, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                           for t in _tensors(x)), _device(x), n_steps)
+    return (id(step_fn), tuple((tuple(t.shape), t.dtype)
+                               for t in _tensors(x)), _device(x), n_steps)
+
+
+def _drop(key: tuple) -> None:
+    """Forget a kept graph, once no replay of it still runs."""
+    entry = _GRAPHS.pop(key, None)
+    if entry is not None and key[2].type == "cuda":
+        torch.cuda.synchronize(key[2])
 
 
 def graph_cached(step_fn: StepFn, x: State, n_steps: int) -> bool:
@@ -170,17 +184,45 @@ def clear_graphs() -> None:
     _GRAPHS.clear()
 
 
+def _copy_into(dst: State, src: State) -> None:
+    for d, s in zip(_tensors(dst), _tensors(src)):
+        d.copy_(s)
+
+
+def _kept(step_fn: StepFn, x: State, n_steps: int) -> State:
+    """Run ``n_steps`` of ``step_fn`` from ``x`` through the kept graph of
+    the step function at these shapes, capturing it first if there is
+    none: a hit copies ``x`` into the graph's input buffers, so the replay
+    starts from ``x`` whatever addresses it lies at."""
+    key = _graph_key(step_fn, x, n_steps)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        inputs = _clone(x)
+        graph, bufs, out = capture(step_fn, inputs, n_steps)
+        entry = (graph, out, inputs, bufs)   # the graph writes bufs
+        _GRAPHS[key] = entry
+        weakref.finalize(step_fn, _drop, key)
+        if len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _drop(next(iter(_GRAPHS)))
+    else:
+        _copy_into(entry[2], x)
+        _GRAPHS.move_to_end(key)
+    graph, out = entry[:2]
+    graph.replay()
+    return _clone(out)
+
+
 def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
     """PERKS control-flow transform: the whole time loop in one dispatch.
 
     On CUDA the first run captures the ``n_steps`` launches into one CUDA
     graph (``capture``) and keeps it (at most ``GRAPH_CACHE_SIZE`` graphs,
     least recently used dropped first); that run and every later one with
-    the same step function on a tensor at the same address replays the
-    graph once. The result is copied out of the graph's buffer, which the
-    next replay overwrites. With ``keep=False`` the graph is replayed once,
-    waited for and dropped (for inputs that never recur). On the CPU it is
-    the host loop.
+    the same step function on a state of the same shapes replays the graph
+    once (``_kept``). The result is copied out of the graph's buffer, which
+    the next replay overwrites. With ``keep=False`` the graph is replayed
+    once, waited for and dropped (for inputs that never recur). On the CPU
+    it is the host loop.
     """
 
     def run(x):
@@ -198,19 +240,7 @@ def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
             graph.replay()
             torch.cuda.current_stream(dev).synchronize()
             return out
-        key = _graph_key(step_fn, x, n_steps)
-        entry = _GRAPHS.get(key)
-        if entry is None:
-            entry = capture(step_fn, x, n_steps)
-            _GRAPHS[key] = entry
-            if len(_GRAPHS) > GRAPH_CACHE_SIZE:
-                torch.cuda.synchronize(dev)   # no replay still reads it
-                _GRAPHS.popitem(last=False)
-        else:
-            _GRAPHS.move_to_end(key)
-        graph, _, out = entry
-        graph.replay()
-        return _clone(out)
+        return _kept(step_fn, x, n_steps)
 
     return run
 

@@ -129,9 +129,10 @@ class StencilProblem(Problem):
             return kops.stencil_resident(self.x, spec=self.spec,
                                          steps=self.n_steps)
         if plan.schedule == "deep":
-            raise NotImplementedError(
-                "schedule='deep' needs stencil_perks_deep, which is not "
-                "ported yet (ROADMAP, Queue 2: stencil_perks_deep)")
+            return kops.stencil_perks_deep(
+                self.x, spec=self.spec, steps=self.n_steps,
+                cached_rows=cached_rows, sub_rows=plan.sub_rows,
+                fuse_steps=plan.fuse_steps)
         return kops.stencil_perks(self.x, spec=self.spec, steps=self.n_steps,
                                   cached_rows=cached_rows,
                                   sub_rows=plan.sub_rows,
@@ -195,6 +196,44 @@ def check_fused(problem, what: str) -> None:
             "reduces in the storage dtype)")
 
 
+class SharedSteps:
+    """Loop-tier step functions of a Krylov problem, one per precision,
+    kept in a table that the problem shares with its ``with_precision``
+    copies (each made once and kept) and its ``with_rhs`` copies. The
+    device loop keeps its CUDA graph per step function (``core.perks``),
+    so a mixed-precision run or a refinement round replays the graph of
+    the first run instead of capturing its own. A class using it sets
+    ``_steps`` in ``__post_init__`` (``object.__setattr__(self, "_steps",
+    {})``) and builds its step in ``_make_step``."""
+
+    @property
+    def _step(self):
+        fn = self._steps.get(self.precision)
+        if fn is None:
+            fn = self._steps[self.precision] = self._make_step()
+        return fn
+
+    def step_fn(self):
+        return self._step
+
+    def with_precision(self, precision: str):
+        if precision == self.precision:
+            return self
+        copies = self.__dict__.setdefault("_precision_copies", {})
+        if precision not in copies:
+            copy = dataclasses.replace(self, precision=precision)
+            object.__setattr__(copy, "_steps", self._steps)
+            copies[precision] = copy
+        return copies[precision]
+
+    def with_rhs(self, b):
+        """This problem against the right-hand side ``b``, sharing its
+        operator and step functions (so its kept graphs)."""
+        copy = dataclasses.replace(self, b=b)
+        object.__setattr__(copy, "_steps", self._steps)
+        return copy
+
+
 #: Launches of one CG step on the card, its SpMV counted as one: the SpMV,
 #: two dots, two ``_safe_div``s of five operations each (abs, compare,
 #: divide, the zero's fill, where), and three axpys of two operations each
@@ -207,7 +246,7 @@ CG_STEP_LAUNCHES = 19
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class CGProblem(Problem):
+class CGProblem(SharedSteps, Problem):
     """Conjugate gradient on an SPD operator.
 
     Two operator forms: ELL planes (``data``/``cols``, needed for the fused
@@ -242,6 +281,7 @@ class CGProblem(Problem):
         # no tensor
         rr0 = torch.dot(b, b)
         object.__setattr__(self, "_state0", (torch.zeros_like(b), b, b, rr0))
+        object.__setattr__(self, "_steps", {})
         object.__setattr__(self, "_thresh", None if self.tol is None
                            else self.tol * rr0)
 
@@ -270,15 +310,11 @@ class CGProblem(Problem):
     def initial_state(self):
         return self._state0
 
-    @functools.cached_property
-    def _step(self):
+    def _make_step(self):
         mv = loop_matvec(self)
         dot = dot_for(self.precision)
         return lambda s, out: kref.cg_iteration_matvec(s, mv, dot=dot,
                                                        out=out)
-
-    def step_fn(self):
-        return self._step
 
     def finalize(self, state):
         return state[0], state[3]
@@ -304,11 +340,6 @@ class CGProblem(Problem):
 
     def halo_spec(self) -> HaloSpec:
         return HaloSpec(axis=0, halo=0, partitions=("rows", "nnz"))
-
-    def with_precision(self, precision: str) -> "CGProblem":
-        if precision == self.precision:
-            return self
-        return dataclasses.replace(self, precision=precision)
 
     def batch_key(self) -> tuple:
         # instances share one batch iff they solve against the same

@@ -24,7 +24,6 @@ with the batching slice.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -38,6 +37,7 @@ from repro_torch.core.cache_policy import (
     gmres_arrays_for,
 )
 from repro_torch.exec.adapters import (
+    SharedSteps,
     _operand_sig,
     check_fused,
     loop_matvec,
@@ -78,7 +78,7 @@ def GMRES_CYCLE_LAUNCHES(m: int) -> int:
 # =============================================================================
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class BiCGStabProblem(Problem):
+class BiCGStabProblem(SharedSteps, Problem):
     """BiCGStab on a (possibly nonsymmetric) operator.
 
     The operator forms of ``CGProblem``: ELL planes (``data``/``cols``,
@@ -108,6 +108,7 @@ class BiCGStabProblem(Problem):
         # addresses) is found again on the next execute
         state0 = kref.bicgstab_initial_state(b)
         object.__setattr__(self, "_state0", state0)
+        object.__setattr__(self, "_steps", {})
         object.__setattr__(self, "_thresh", None if self.tol is None
                            else self.tol * state0[8])
 
@@ -136,15 +137,11 @@ class BiCGStabProblem(Problem):
     def initial_state(self):
         return self._state0
 
-    @functools.cached_property
-    def _step(self):
+    def _make_step(self):
         mv = loop_matvec(self)
         dot = dot_for(self.precision)
         return lambda s, out: kref.bicgstab_iteration_matvec(s, mv, dot=dot,
                                                              out=out)
-
-    def step_fn(self):
-        return self._step
 
     def step_launches(self) -> int:
         """Launches of one loop-tier step (``BICGSTAB_STEP_LAUNCHES``)."""
@@ -171,11 +168,6 @@ class BiCGStabProblem(Problem):
 
     def halo_spec(self) -> HaloSpec:
         return HaloSpec(axis=0, halo=0, partitions=("rows",))
-
-    def with_precision(self, precision: str) -> "BiCGStabProblem":
-        if precision == self.precision:
-            return self
-        return dataclasses.replace(self, precision=precision)
 
     def batch_key(self) -> tuple:
         fp = operator_fingerprint(self.data, self.cols, self.matrix,
@@ -209,7 +201,7 @@ class BiCGStabProblem(Problem):
 # =============================================================================
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class GMRESProblem(Problem):
+class GMRESProblem(SharedSteps, Problem):
     """Restarted GMRES(m); one executor step is one restart cycle.
 
     ``n_steps`` counts cycles of m inner Arnoldi steps. The right-hand side
@@ -238,6 +230,7 @@ class GMRESProblem(Problem):
         b = place_operands(self)
         rr0 = torch.dot(b, b)
         object.__setattr__(self, "_state0", (torch.zeros_like(b), rr0, b))
+        object.__setattr__(self, "_steps", {})
         object.__setattr__(self, "_thresh", None if self.tol is None
                            else self.tol * rr0)
 
@@ -266,8 +259,7 @@ class GMRESProblem(Problem):
     def initial_state(self):
         return self._state0
 
-    @functools.cached_property
-    def _step(self):
+    def _make_step(self):
         mv = loop_matvec(self)
         m = self.m
         dot = dot_for(self.precision)
@@ -279,9 +271,6 @@ class GMRESProblem(Problem):
             return (x, rr, b)
 
         return cycle
-
-    def step_fn(self):
-        return self._step
 
     def step_launches(self) -> int:
         """Launches of one loop-tier cycle (``GMRES_CYCLE_LAUNCHES``)."""
@@ -310,11 +299,6 @@ class GMRESProblem(Problem):
 
     def halo_spec(self) -> HaloSpec:
         return HaloSpec(axis=0, halo=0, partitions=("rows",))
-
-    def with_precision(self, precision: str) -> "GMRESProblem":
-        if precision == self.precision:
-            return self
-        return dataclasses.replace(self, precision=precision)
 
     def batch_key(self) -> tuple:
         fp = operator_fingerprint(self.data, self.cols, self.matrix,

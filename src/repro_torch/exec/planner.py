@@ -6,15 +6,25 @@ for GMRES, and its MIX only when all of A fits beside the basis (the cycle
 kernel streams no row of A).
 
 It enumerates the host_loop, device_loop and resident candidates, prices
-each with the paper's performance model (``core.perf_model``, Eq. 5 as
-``gm_bytes_fused`` for stencils; the reference's per-array traffic for
-CG) plus a per-dispatch launch term, and ranks them by projected time.
-The device loop is one dispatch only once its CUDA graph is kept for this
-problem (``core.perks.graph_cached``); until then its next run also
-captures the graph, charged as one launch per captured launch. Stencil
-resident candidates are emitted at ``fuse_steps=1`` only, and no
-deep-schedule candidate at all, until the CUDA kernel fuses steps
-(ROADMAP).
+each with the paper's performance model (``core.perf_model``; the
+reference's per-array traffic for CG) plus a per-dispatch launch term, and
+ranks them by projected time. The device loop is one dispatch only once
+its CUDA graph is kept for this problem (``core.perks.graph_cached``);
+until then its next run also captures the graph, charged as one launch per
+captured launch.
+
+Stencil resident candidates are the reference's two loops: the shallow
+schedule at t = 1, 2, 4, ... up to ``max_fuse`` (default 4), and the deep
+schedule at t = 2, 4, ... up to ``DEEP_MAX_FUSE``. t = 1 is
+``csrc/stencil_perks.cu`` priced by Eq. 5 (``gm_bytes_fused``); t > 1 is
+``csrc/stencil_tb.cu``, priced by the port's own byte model of it
+(``gm_bytes_tb``: halo re-reads of its tiles or strips included) and by
+its levels: each costs every cell ``TB_CELL_STEP_S`` of barriers and index
+arithmetic, whatever the bytes (``stencil_model_bytes`` and
+``stencil_model_s`` give both for any plan). Each candidate's cached rows and layout are those the kernel takes in ONE CTA's
+shared memory (``stencil2d.tb_layout``, the card's per-block limit, or the
+H100 data sheet's on the CPU): a depth the kernel cannot run is not
+offered, and the first deep overflow ends the deep sweep.
 
 A Krylov host loop pays its kind's launches per step (the reference
 charges one): ``problem.step_launches()``, i.e.
@@ -34,12 +44,14 @@ from repro_torch.core.cache_policy import (
     cg_arrays,
     cg_arrays_for,
     gm_bytes_fused,
+    gm_bytes_tb,
     plan_caching,
 )
 from repro_torch.core.hardware import CHIPS, Chip, device_chip
 from repro_torch.core.perf_model import project_host_loop, sm_bytes_accessed
 from repro_torch.exec.plan import CacheDecision, Plan
 from repro_torch.exec.problem import Problem
+from repro_torch.kernels import stencil2d
 from repro_torch.kernels.stencil3d import plan_resident_planes
 
 #: Host cost charged per launch; HOST_LOOP pays it n_steps times, the
@@ -48,6 +60,20 @@ from repro_torch.kernels.stencil3d import plan_resident_planes
 #: on an H100 SXM at a 700 W power limit: the median of three runs was
 #: 25 microseconds, nearly all of it Python and launch cost.
 DISPATCH_OVERHEAD_S = 25e-6
+
+#: Depth ceiling of the deep resident candidates (the reference's
+#: ``DEEP_MAX_FUSE``): the deep schedule has no r*t recompute window, so its
+#: depths run past ``max_fuse`` as far as the kernel's layout fits.
+DEEP_MAX_FUSE = 32
+
+#: Seconds one cell of one level costs ``csrc/stencil_tb.cu`` whatever its
+#: bytes: every level of a tile or strip is two ``__syncthreads`` and index
+#: arithmetic a cell, so the kernel runs far below its byte bound. The
+#: fastest rate ``chip_smoke.py``'s depth sweep measured for it (2d5pt
+#: 8192x8192 x 100, shallow t = 4: 45.78 ms for 6.71e9 cell-steps, on an
+#: H100 SXM at a 700 W power limit); deep and 3D levels measured slower
+#: (up to 18 ps), so this is the optimistic end.
+TB_CELL_STEP_S = 6.8e-12
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -71,7 +97,8 @@ def _rank(cands: list[Plan]) -> list[Plan]:
                                         -p.cached_bytes))
 
 
-def _stencil_candidates(problem, chip: Chip, *, sub_rows: int) -> list[Plan]:
+def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
+                        max_fuse: int) -> list[Plan]:
     shape = tuple(problem.x.shape)
     db = problem.x.element_size()
     cells = int(math.prod(shape))
@@ -91,19 +118,100 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int) -> list[Plan]:
              + (captures + 1) * DISPATCH_OVERHEAD_S,
              predicted_bound=base.bound, **common),
     ]
-    rows = plan_resident_planes(shape, db, problem.spec, chip=chip)
-    cached_bytes = rows * row_bytes
-    gm = gm_bytes_fused(n, domain_bytes, cached_bytes, row_bytes=row_bytes,
-                        radius=r, fuse_steps=1)
-    t_gm = gm / chip.hbm_bw
-    t_sm = sm_bytes_accessed(n, cached_bytes) / chip.onchip_bw
-    cands.append(Plan(
-        tier="resident", fuse_steps=1, cached_rows=rows, sub_rows=sub_rows,
-        cache=(CacheDecision("domain_rows", cached_bytes, domain_bytes),),
-        predicted_s=max(t_gm, t_sm) + DISPATCH_OVERHEAD_S,
-        predicted_bound="main_memory" if t_gm >= t_sm else "onchip_memory",
-        **common))
+    smem = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+
+    def resident(t: int, schedule: str, rows: int, sub: int) -> Plan:
+        p = Plan(tier="resident", schedule=schedule, fuse_steps=t,
+                 cached_rows=rows, sub_rows=sub,
+                 cache=(CacheDecision("domain_rows", rows * row_bytes,
+                                      domain_bytes),), **common)
+        s, bound_by = stencil_model_s(problem, p, chip=chip)
+        return dataclasses.replace(p, predicted_s=s + DISPATCH_OVERHEAD_S,
+                                   predicted_bound=bound_by)
+
+    # RESIDENT x shallow depth (t = 1 is csrc/stencil_perks.cu)
+    t = 1
+    while t <= max(1, min(max_fuse, n)):
+        if t == 1:
+            rows = plan_resident_planes(shape, db, problem.spec, chip=chip)
+        else:
+            if sub_rows < r * t:     # Plan.validate would refuse it
+                break
+            rows = stencil2d.tb_cached_rows(shape, r, t, db, deep=False,
+                                            ctas=chip.sms, limit=smem)
+            if rows is None:
+                break
+        cands.append(resident(t, "shallow", rows, sub_rows))
+        t *= 2
+
+    # RESIDENT x deep depth: the first depth whose layout does not fit one
+    # CTA ends the sweep (the layout grows with t)
+    deep_sub = max(sub_rows, r)
+    t = 2
+    while t <= max(1, min(max(max_fuse, DEEP_MAX_FUSE), n)):
+        got = stencil2d.tb_cached_rows(shape, r, t, db, deep=True,
+                                       ctas=chip.sms, limit=smem)
+        if got is None:
+            break
+        cands.append(resident(t, "deep", got, deep_sub))
+        t *= 2
     return cands
+
+
+def _runs_tb(problem, p: Plan) -> bool:
+    """Whether stencil plan ``p`` runs ``csrc/stencil_tb.cu`` (the routing
+    of ``StencilProblem.run_resident``)."""
+    return (p.tier == "resident" and (p.cached_rows or 0) < problem.x.shape[0]
+            and (p.schedule == "deep" or min(p.fuse_steps, problem.n_steps) > 1))
+
+
+def stencil_model_bytes(problem, p: Plan, *,
+                        chip: Union[str, Chip] = "h100") -> float:
+    """Device-memory bytes the planner charges stencil plan ``p``: Eq. 5
+    (``gm_bytes_fused`` at t = 1) for the loop tiers, the one-step kernel
+    and the whole domain cached; the port's byte model of
+    ``csrc/stencil_tb.cu`` (``gm_bytes_tb``, at the layout the kernel takes
+    in one CTA of ``chip``) for temporal blocking."""
+    shape, n = tuple(problem.x.shape), problem.n_steps
+    db = problem.x.element_size()
+    r = problem.spec.radius
+    row_bytes = int(math.prod(shape[1:])) * db
+    rows = (p.cached_rows or 0) if p.tier == "resident" else 0
+    if not _runs_tb(problem, p):
+        return gm_bytes_fused(n, shape[0] * row_bytes, rows * row_bytes,
+                              row_bytes=row_bytes, radius=r, fuse_steps=1)
+    chip = _as_chip(chip)
+    deep = p.schedule == "deep"
+    t = min(p.fuse_steps, n)
+    lay = stencil2d.tb_layout(
+        shape, r, t, db, deep=deep, ctas=chip.sms,
+        limit=chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM,
+        cached_rows=rows)
+    return gm_bytes_tb(n, shape, db, radius=r, fuse_steps=t,
+                       cached_rows=rows, bands=lay.nb, strip=lay.strip,
+                       rows=lay.rows, deep=deep)
+
+
+def stencil_model_s(problem, p: Plan, *,
+                    chip: Union[str, Chip] = "h100") -> tuple[float, str]:
+    """Seconds the planner charges the kernel of resident stencil plan
+    ``p`` (no dispatch) and what bounds it: the larger of its model bytes
+    at the device-memory rate, the cached bytes through on-chip memory
+    (Eq. 7) and, for ``csrc/stencil_tb.cu``, its levels
+    (``TB_CELL_STEP_S`` a cell a step)."""
+    chip = _as_chip(chip)
+    shape, n = tuple(problem.x.shape), problem.n_steps
+    row_bytes = int(math.prod(shape[1:])) * problem.x.element_size()
+    terms = {
+        "main_memory": stencil_model_bytes(problem, p, chip=chip)
+        / chip.hbm_bw,
+        "onchip_memory": sm_bytes_accessed(
+            n, (p.cached_rows or 0) * row_bytes) / chip.onchip_bw,
+        "compute": (math.prod(shape) * n * TB_CELL_STEP_S
+                    if _runs_tb(problem, p) else 0.0),
+    }
+    bound_by = max(terms, key=terms.get)
+    return terms[bound_by], bound_by
 
 
 def cg_policy_from_arrays(arrays, budget_bytes: int) -> dict:
@@ -194,18 +302,21 @@ def _cg_candidates(problem, chip: Chip, *,
 
 
 def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
-                    sub_rows: int = 128, budget_bytes: Optional[int] = None,
+                    max_fuse: int = 4, sub_rows: int = 128,
+                    budget_bytes: Optional[int] = None,
                     sync_every: Optional[int] = None) -> list[Plan]:
     """Every candidate Plan for ``problem``, ranked by projected time.
-    Planning reads shapes only; it launches nothing. ``budget_bytes``
-    replaces the card's on-chip capacity (the reference's proxy regimes);
-    ``sync_every`` sets CG's host-check cadence."""
+    Planning reads shapes only; it launches nothing. ``max_fuse`` caps the
+    shallow stencil depth; ``budget_bytes`` replaces the card's on-chip
+    capacity (the reference's proxy regimes); ``sync_every`` sets CG's
+    host-check cadence."""
     chip = _budget_chip(_as_chip(chip), budget_bytes)
     if problem.batch != 1:
         raise NotImplementedError("batched planning is not ported yet "
                                   "(ROADMAP)")
     if problem.kind == "stencil":
-        cands = _stencil_candidates(problem, chip, sub_rows=sub_rows)
+        cands = _stencil_candidates(problem, chip, sub_rows=sub_rows,
+                                    max_fuse=max_fuse)
     elif problem.kind in ("cg", "bicgstab", "gmres"):
         cands = _cg_candidates(problem, chip, sync_every=sync_every)
     else:
@@ -215,10 +326,12 @@ def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
 
 
 def plan(problem: Problem, *, chip: Union[str, Chip] = "h100",
-         sub_rows: int = 128, budget_bytes: Optional[int] = None,
+         max_fuse: int = 4, sub_rows: int = 128,
+         budget_bytes: Optional[int] = None,
          sync_every: Optional[int] = None) -> Plan:
     """The planner's top candidate for ``problem``."""
-    return plan_candidates(problem, chip=chip, sub_rows=sub_rows,
+    return plan_candidates(problem, chip=chip, max_fuse=max_fuse,
+                           sub_rows=sub_rows,
                            budget_bytes=budget_bytes,
                            sync_every=sync_every)[0]
 

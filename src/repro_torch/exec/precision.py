@@ -17,11 +17,12 @@ storage dtype and hardens only the dots:
   float32 products already round before the compensated sum.
 
 ``solve_refined`` is iterative refinement over ``execute``: solve, form the
-true residual, solve again for the correction.
+true residual, solve again for the correction. Each correction is the
+problem's ``with_rhs`` copy, which shares its step functions, so a device
+loop replays the first round's kept CUDA graph.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Callable
 
@@ -66,7 +67,7 @@ def solve_refined(problem, plan, *, rounds: int = 2):
         dx, _ = execute(cur, plan)
         x = x + dx
         r = b - matvec(x)
-        cur = dataclasses.replace(problem, b=r)
+        cur = problem.with_rhs(r)
     return x, torch.dot(r, r)
 
 

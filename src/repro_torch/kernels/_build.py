@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "stencil_step": "stencil_step.cu",
     "stencil_perks": "stencil_perks.cu",
+    "stencil_tb": "stencil_tb.cu",
     "spmv_ell": "spmv_ell.cu",
     "spmv_sell": "spmv_sell.cu",
     "cg_fused": "cg_fused.cu",
@@ -64,8 +65,17 @@ class StencilArgs(ctypes.Structure):
         ("npts", ctypes.c_int),
         ("d0", ctypes.c_int * MAX_POINTS),
         ("dc", ctypes.c_int * MAX_POINTS),
+        ("d1", ctypes.c_int * MAX_POINTS),
+        ("d2", ctypes.c_int * MAX_POINTS),
         ("w", ctypes.c_float * MAX_POINTS),
     ]
+
+
+class TbArgs(ctypes.Structure):
+    """Mirror of ``struct TbArgs`` in ``csrc/stencil_tb.cu``."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "steps", "t", "R", "nb", "deep", "sy", "sx", "rows", "band_bytes")]
 
 
 _P = ctypes.c_void_p
@@ -75,14 +85,21 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures: library -> {function: (restype, argtypes)}
 _SIGNATURES = {
     "stencil_step": {
-        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _P]),
+        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _I, _P]),
     },
     "stencil_perks": {
         "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, _I, _I, _I,
-                                      _I, _I, _P]),
-        "stencil_perks_max_ctas": (_I, [_I, _I, _IP]),
-        "stencil_perks_smem": (_I, [_I, _IP, _IP]),
+                                      _I, _I, _I, _P]),
+        "stencil_perks_max_ctas": (_I, [_I, _I, _I, _IP]),
+        "stencil_perks_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_perks_max_row_cells": (_I, []),
+    },
+    "stencil_tb": {
+        "stencil_tb_launch": (_I, [_P, _P, _P, StencilArgs, TbArgs, _I, _I,
+                                   _I, _P]),
+        "stencil_tb_max_ctas": (_I, [_I, _I, _I, _IP]),
+        "stencil_tb_smem": (_I, [_I, _I, _IP, _IP]),
+        "stencil_tb_max_row_cells": (_I, []),
     },
     "spmv_ell": {
         "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _P]),

@@ -1,26 +1,47 @@
 // Shared pieces of the hand-written Hopper stencil kernels.
 //
 // A domain of shape (H, D1, D2) (3D) or (H, D2) (2D, D1 = 1) is seen as H
-// leading-axis "rows" of P = D1 * D2 contiguous float32 cells. A stencil
-// point has a leading-axis offset d0 and an in-row offset dc = d1 * D2 + d2.
-// The outermost r cells on every axis are Dirichlet (copied through).
+// leading-axis "rows" of P = D1 * D2 contiguous cells. A stencil point has
+// a leading-axis offset d0, in-plane offsets d1 (3D only, else 0) and d2,
+// and an in-row offset dc = d1 * D2 + d2. The outermost r cells on every
+// axis are Dirichlet (copied through).
 //
-// Every update sums its terms in the spec's offset order, each product
-// rounded before the add (__fmul_rn / __fadd_rn, and the build passes
-// -fmad=false), which is exactly the order and rounding of the plain torch
-// version: the two agree bit for bit.
+// Cells are stored as T, float or __nv_bfloat16. Every update sums its
+// terms in the spec's offset order, each product rounded to T before the
+// add and each partial sum rounded to T (float32 arithmetic under
+// __fmul_rn / __fadd_rn, then __float2bfloat16_rn for bf16; the build
+// passes -fmad=false). That is the order and rounding of the plain torch
+// version, whose bf16 `x * w` is one float32 product rounded to bf16: the
+// two agree bit for bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define STENCIL_MAX_POINTS 32
 #define STENCIL_MAX_RADIUS 8
+
+// Threads of one persistent CTA (one CTA per SM), and the registers that
+// hold new values while rows are updated in place: one block of rows is
+// computed into them, then written back. A row updated in place has at most
+// PERKS_CELLS_PER_THREAD * PERKS_THREADS cells. Both are overridable with
+// -D for variant builds; the product must stay PERKS_MAX_ROW_CELLS of
+// stencil2d.py, which the wrapper checks.
+#ifndef PERKS_THREADS
+#define PERKS_THREADS 1024
+#endif
+#ifndef PERKS_CELLS_PER_THREAD
+#define PERKS_CELLS_PER_THREAD 20
+#endif
+#define PERKS_MAX_BLOCK_ROWS 32
 
 // Passed by value from the host (ctypes mirrors this layout).
 struct StencilArgs {
     int H, D1, D2, P, ndim, r, npts;
     int d0[STENCIL_MAX_POINTS];
     int dc[STENCIL_MAX_POINTS];
+    int d1[STENCIL_MAX_POINTS];
+    int d2[STENCIL_MAX_POINTS];
     float w[STENCIL_MAX_POINTS];
 };
 
@@ -28,6 +49,8 @@ struct StencilArgs {
 struct SpecShared {
     int d0[STENCIL_MAX_POINTS];
     int dc[STENCIL_MAX_POINTS];
+    int d1[STENCIL_MAX_POINTS];
+    int d2[STENCIL_MAX_POINTS];
     int lin[STENCIL_MAX_POINTS];  // d0 * P + dc: offset in the flat domain
     float w[STENCIL_MAX_POINTS];
 };
@@ -36,10 +59,30 @@ __device__ __forceinline__ void load_spec(const StencilArgs& a, SpecShared& s) {
     for (int k = threadIdx.x; k < a.npts; k += blockDim.x) {
         s.d0[k] = a.d0[k];
         s.dc[k] = a.dc[k];
+        s.d1[k] = a.d1[k];
+        s.d2[k] = a.d2[k];
         s.lin[k] = a.d0[k] * a.P + a.dc[k];
         s.w[k] = a.w[k];
     }
     __syncthreads();
+}
+
+// -- arithmetic in the storage type ----------------------------------------
+
+__device__ __forceinline__ float term(float x, float w) { return __fmul_rn(x, w); }
+__device__ __forceinline__ float plus(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ __nv_bfloat16 term(__nv_bfloat16 x, float w) {
+    return __float2bfloat16_rn(__fmul_rn(__bfloat162float(x), w));
+}
+__device__ __forceinline__ __nv_bfloat16 plus(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// A load that bypasses L1 (cached in L2 only): another CTA wrote the value
+// earlier in the same launch, before a grid barrier.
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
+    return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 // Update of the cell at flat index idx, all neighbours read from src.
@@ -48,31 +91,48 @@ __device__ __forceinline__ void load_spec(const StencilArgs& a, SpecShared& s) {
 // every term reads the cell itself, so a frozen border cell's loads stay in
 // bounds and the caller can issue them unconditionally (the sum is then
 // unused).
-template <int NPTS>
-__device__ __forceinline__ float sum_flat(const float* __restrict__ src, int idx,
-                                          const SpecShared& s, int npts, bool in) {
+template <int NPTS, typename T>
+__device__ __forceinline__ T sum_flat(const T* __restrict__ src, int idx,
+                                      const SpecShared& s, int npts, bool in) {
     const int n = NPTS > 0 ? NPTS : npts;
     const int m = in ? -1 : 0;
-    float acc = __fmul_rn(src[idx + (s.lin[0] & m)], s.w[0]);
+    T acc = term(src[idx + (s.lin[0] & m)], s.w[0]);
 #pragma unroll
     for (int k = 1; k < (NPTS > 0 ? NPTS : STENCIL_MAX_POINTS); ++k) {
         if (NPTS == 0 && k >= n) break;
-        acc = __fadd_rn(acc, __fmul_rn(src[idx + (s.lin[k] & m)], s.w[k]));
+        acc = plus(acc, term(src[idx + (s.lin[k] & m)], s.w[k]));
     }
     return acc;
 }
 
-// Update of cell c of a row whose neighbour rows i-r .. i+r are given as
-// pointers rows[0 .. 2r] (shared or global memory: generic addressing).
-template <int NPTS>
-__device__ __forceinline__ float sum_rows(const float* const* rows, int r, int c,
-                                          const SpecShared& s, int npts) {
+// Update of the cell at index idx of a buffer whose neighbours lie at the
+// offsets lin[] (the buffer's own strides).
+template <int NPTS, typename T>
+__device__ __forceinline__ T sum_at(const T* src, int idx, const int* lin,
+                                    const SpecShared& s, int npts) {
     const int n = NPTS > 0 ? NPTS : npts;
-    float acc = __fmul_rn(rows[s.d0[0] + r][c + s.dc[0]], s.w[0]);
+    T acc = term(src[idx + lin[0]], s.w[0]);
 #pragma unroll
     for (int k = 1; k < (NPTS > 0 ? NPTS : STENCIL_MAX_POINTS); ++k) {
         if (NPTS == 0 && k >= n) break;
-        acc = __fadd_rn(acc, __fmul_rn(rows[s.d0[k] + r][c + s.dc[k]], s.w[k]));
+        acc = plus(acc, term(src[idx + lin[k]], s.w[k]));
+    }
+    return acc;
+}
+
+// Update of in-row cell c of a row whose neighbour rows i-r .. i+r are given
+// as pointers rows[0 .. 2r] (shared or global memory: generic addressing);
+// point k lies at in-row offset off[k] (s.dc for whole rows).
+template <int NPTS, typename T>
+__device__ __forceinline__ T sum_rows(const T* const* rows, int r, int c,
+                                      const int* off, const SpecShared& s,
+                                      int npts) {
+    const int n = NPTS > 0 ? NPTS : npts;
+    T acc = term(rows[s.d0[0] + r][c + off[0]], s.w[0]);
+#pragma unroll
+    for (int k = 1; k < (NPTS > 0 ? NPTS : STENCIL_MAX_POINTS); ++k) {
+        if (NPTS == 0 && k >= n) break;
+        acc = plus(acc, term(rows[s.d0[k] + r][c + off[k]], s.w[k]));
     }
     return acc;
 }
@@ -109,6 +169,12 @@ __device__ __forceinline__ bool row_interior(int i, const StencilArgs& a) {
     return i >= a.r && i < a.H - a.r;
 }
 
+// Whether cell (i, y, x) lies inside the frozen border (2D: y = 0).
+__device__ __forceinline__ bool cell_interior(int i, int y, int x, const StencilArgs& a) {
+    return row_interior(i, a) && x >= a.r && x < a.D2 - a.r &&
+           (a.ndim != 3 || (y >= a.r && y < a.D1 - a.r));
+}
+
 // One step of rows i = first, first + stride, ... < H, cells of each row
 // spread over threads (c0, c0 + cstride, ...): src -> dst, frozen cells
 // copied through. Neighbouring threads take neighbouring cells, so loads
@@ -116,21 +182,21 @@ __device__ __forceinline__ bool row_interior(int i, const StencilArgs& a) {
 // loads before it stores any result, so it keeps U rows' device-memory
 // reads in flight; a row past H reads row H - 1 (frozen, in bounds) and is
 // not stored.
-template <int NPTS, int U>
-__device__ __forceinline__ void step_rows(const float* __restrict__ src,
-                                          float* __restrict__ dst,
+template <int NPTS, int U, typename T>
+__device__ __forceinline__ void step_rows(const T* __restrict__ src,
+                                          T* __restrict__ dst,
                                           const StencilArgs& a, const SpecShared& s,
                                           int first, int stride, int c0, int cstride) {
     for (int i0 = first; i0 < a.H; i0 += U * stride) {
         for (int c = c0; c < a.P; c += cstride) {
             const bool col_in = col_interior(c, a);
-            float v[U];
+            T v[U];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const int i = min(i0 + u * stride, a.H - 1);
                 const int idx = i * a.P + c;
                 const bool in = col_in && row_interior(i, a);
-                const float acc = sum_flat<NPTS>(src, idx, s, a.npts, in);
+                const T acc = sum_flat<NPTS>(src, idx, s, a.npts, in);
                 v[u] = in ? acc : src[idx];
             }
 #pragma unroll
@@ -141,3 +207,7 @@ __device__ __forceinline__ void step_rows(const float* __restrict__ src,
         }
     }
 }
+
+// The element type of a launch: 0 float32, 1 bfloat16 (the wrappers' code).
+#define STENCIL_F32 0
+#define STENCIL_BF16 1

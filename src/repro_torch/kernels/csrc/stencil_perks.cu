@@ -25,8 +25,10 @@
 //     written), cells spread over all CTAs;
 //   * grid.sync() is the barrier between steps (the paper's Fig. 3, right).
 //
+// Cells are float or __nv_bfloat16 (one instance each, chosen at launch).
+//
 // Bound on the H100: device memory for the streamed rows, 2 * (H - R) * P
-// * 4 bytes per step, plus 4r rows per band per step for the borders; the
+// * sizeof(T) bytes per step, plus 4r rows per band per step for the borders; the
 // cached rows cost one load and one store in total (Eq. 5 of the paper).
 // With everything cached (stencil_resident) device memory is touched only
 // twice and the bound moves to shared-memory bandwidth, grid.sync() latency
@@ -38,19 +40,6 @@
 
 namespace cg = cooperative_groups;
 
-// Threads of one CTA (one CTA per SM), and the registers that hold new
-// values during the in-place band update: one block of rows is computed
-// into them, then written back. A cached row has at most
-// PERKS_CELLS_PER_THREAD * PERKS_THREADS cells. Both are overridable with
-// -D for variant builds; the product must stay PERKS_MAX_ROW_CELLS of
-// stencil2d.py, which the wrapper checks.
-#ifndef PERKS_THREADS
-#define PERKS_THREADS 1024
-#endif
-#ifndef PERKS_CELLS_PER_THREAD
-#define PERKS_CELLS_PER_THREAD 20
-#endif
-#define PERKS_MAX_BLOCK_ROWS 32
 // Streamed rows a thread takes at a time (step_rows): with one 1024-thread
 // CTA per SM the streamed loop is bound by memory latency, and four rows'
 // loads in flight measured 30.3 ms against 34.8 ms for one on 8192^2 x 100
@@ -59,17 +48,17 @@ namespace cg = cooperative_groups;
 #define PERKS_STREAM_ROWS 4
 #endif
 
-template <int NPTS>
+template <int NPTS, typename T>
 __global__ void __launch_bounds__(PERKS_THREADS, 1)
-stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
-                     StencilArgs a, int steps, int R, int nb) {
-    extern __shared__ float smem[];
+stencil_perks_kernel(const T* __restrict__ x, T* buf0, T* buf1, StencilArgs a,
+                     int steps, int R, int nb) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ SpecShared s;
-    __shared__ const float* rows[PERKS_MAX_BLOCK_ROWS + 2 * STENCIL_MAX_RADIUS];
+    __shared__ const T* rows[PERKS_MAX_BLOCK_ROWS + 2 * STENCIL_MAX_RADIUS];
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
 
-    const int P = a.P, r = a.r, H = a.H;
+    const int P = a.P, r = a.r;
     const int tid = threadIdx.x;
     const int b = blockIdx.x;
     int b0 = 0, b1 = 0;
@@ -78,8 +67,8 @@ stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
         b1 = (int)((long long)(b + 1) * R / nb);
     }
     const int nrows = b1 - b0;
-    float* band = smem;                        // rows [b0, b1)
-    float* ring = smem + (size_t)nrows * P;    // old values of r rows
+    T* band = reinterpret_cast<T*>(smem_raw);  // rows [b0, b1)
+    T* ring = band + (size_t)nrows * P;         // old values of r rows
     // rows updated per block: as many as the registers hold
     int kb = (PERKS_CELLS_PER_THREAD * PERKS_THREADS) / P;
     kb = max(1, min(kb, PERKS_MAX_BLOCK_ROWS));
@@ -90,25 +79,28 @@ stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
     __syncthreads();
 
     for (int k = 0; k < steps; ++k) {
-        const float* src = (k == 0) ? x : ((k & 1) ? buf0 : buf1);
-        float* dst = (k & 1) ? buf1 : buf0;
+        const T* src = (k == 0) ? x : ((k & 1) ? buf0 : buf1);
+        T* dst = (k & 1) ? buf1 : buf0;
 
         // Band update in place, a block of rows [i, i1) at a time: read the
         // old rows i-r .. i1-1+r (above the block from the ring, the block
         // and below it from the band, outside the band from src), compute
         // into registers, then save the old rows the next block still
-        // needs into the ring and write the new rows over the old.
+        // needs into the ring and write the new rows over the old. (The
+        // same update as stencil_tb.cu's inplace_step, written out here:
+        // calling that function made the streamed loop of this kernel 10-21%
+        // slower on 8192^2, scripts/stencil_ab.py.)
         for (int i = b0; i < b1; i += kb) {
             const int i1 = min(i + kb, b1);
             const int nr = i1 - i;
             for (int t = tid; t < nr + 2 * r; t += blockDim.x) {
                 const int j = i - r + t;
-                const float* p = nullptr;
+                const T* p = nullptr;
                 if (j >= b0 && j < i)
                     p = ring + (size_t)(j % r) * P;
                 else if (j >= i && j < b1)
                     p = band + (size_t)(j - b0) * P;
-                else if (j >= 0 && j < H)
+                else if (j >= 0 && j < a.H)
                     p = src + (size_t)j * P;
                 rows[t] = p;
             }
@@ -116,14 +108,14 @@ stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
             // Thread tid takes cells tid, tid + T, ... of the block, found by
             // stepping (row, cell) rather than dividing for each.
             const int ii0 = tid / P, c0 = tid - ii0 * P;
-            float v[PERKS_CELLS_PER_THREAD];
+            T v[PERKS_CELLS_PER_THREAD];
             {
                 int ii = ii0, c = c0;
 #pragma unroll
                 for (int q = 0; q < PERKS_CELLS_PER_THREAD; ++q) {
                     if (ii < nr)
                         v[q] = (row_interior(i + ii, a) && col_interior(c, a))
-                                   ? sum_rows<NPTS>(rows + ii, r, c, s, a.npts)
+                                   ? sum_rows<NPTS>(rows + ii, r, c, s.dc, s, a.npts)
                                    : rows[ii + r][c];
                     c += PERKS_THREADS;
                     while (c >= P) { c -= P; ++ii; }
@@ -136,7 +128,7 @@ stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
                 for (int q = 0; q < PERKS_CELLS_PER_THREAD; ++q) {
                     if (ii < nr) {
                         const int row = i + ii;
-                        float* own = band + (size_t)(row - b0) * P;
+                        T* own = band + (size_t)(row - b0) * P;
                         if (row >= i1 - r)
                             ring[(size_t)(row % r) * P + c] = own[c];
                         own[c] = v[q];
@@ -166,20 +158,29 @@ stencil_perks_kernel(const float* __restrict__ x, float* buf0, float* buf1,
 
     // Epilogue: the band's one store, into the buffer the last step wrote.
     if (nrows > 0 && steps > 0) {
-        float* fin = ((steps - 1) & 1) ? buf1 : buf0;
+        T* fin = ((steps - 1) & 1) ? buf1 : buf0;
         for (int e = tid; e < nrows * P; e += blockDim.x)
             fin[(size_t)b0 * P + e] = band[e];
     }
 }
 
 template <int NPTS>
-static void kernel_of(const void** out) {
-    *out = (const void*)stencil_perks_kernel<NPTS>;
+static void kernel_f32(const void** out) {
+    *out = (const void*)stencil_perks_kernel<NPTS, float>;
 }
 
-static const void* perks_kernel(int npts) {
+template <int NPTS>
+static void kernel_bf16(const void** out) {
+    *out = (const void*)stencil_perks_kernel<NPTS, __nv_bfloat16>;
+}
+
+static const void* perks_kernel(int npts, int dtype) {
     const void* f = nullptr;
-    STENCIL_DISPATCH_NPTS(npts, kernel_of, &f)
+    if (dtype == STENCIL_BF16) {
+        STENCIL_DISPATCH_NPTS(npts, kernel_bf16, &f)
+    } else {
+        STENCIL_DISPATCH_NPTS(npts, kernel_f32, &f)
+    }
     return f;
 }
 
@@ -191,14 +192,15 @@ extern "C" int stencil_perks_max_row_cells(void) {
 // The card's opt-in shared memory per block and the kernel's static shared
 // memory. The wrapper checks the static part against PERKS_STATIC_SMEM of
 // stencil2d.py, the one reserve the planner and the wrapper both subtract.
-extern "C" int stencil_perks_smem(int npts, int* optin, int* static_bytes) {
+extern "C" int stencil_perks_smem(int npts, int dtype, int* optin,
+                                  int* static_bytes) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e != cudaSuccess) return (int)e;
     cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, perks_kernel(npts));
+    e = cudaFuncGetAttributes(&attr, perks_kernel(npts, dtype));
     if (e != cudaSuccess) return (int)e;
     *static_bytes = (int)attr.sharedSizeBytes;
     return 0;
@@ -206,11 +208,12 @@ extern "C" int stencil_perks_smem(int npts, int* optin, int* static_bytes) {
 
 // Co-resident CTAs for `smem_bytes` of dynamic shared memory: the largest
 // grid a cooperative launch accepts.
-extern "C" int stencil_perks_max_ctas(int npts, int smem_bytes, int* out) {
+extern "C" int stencil_perks_max_ctas(int npts, int dtype, int smem_bytes,
+                                      int* out) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
-    const void* f = perks_kernel(npts);
+    const void* f = perks_kernel(npts, dtype);
     e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f,
@@ -223,10 +226,12 @@ extern "C" int stencil_perks_max_ctas(int npts, int smem_bytes, int* out) {
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-extern "C" int stencil_perks_launch(const float* x, float* buf0, float* buf1,
-                                    StencilArgs a, int steps, int R, int nb,
-                                    int grid, int smem_bytes, cudaStream_t stream) {
-    const void* f = perks_kernel(a.npts);
+// Elements of type `dtype` (STENCIL_F32 or STENCIL_BF16).
+extern "C" int stencil_perks_launch(const void* x, void* buf0, void* buf1,
+                                    StencilArgs a, int dtype, int steps, int R,
+                                    int nb, int grid, int smem_bytes,
+                                    cudaStream_t stream) {
+    const void* f = perks_kernel(a.npts, dtype);
     cudaError_t e = cudaFuncSetAttribute(
         f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;

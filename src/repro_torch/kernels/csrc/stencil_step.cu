@@ -6,7 +6,8 @@
 // CUDA graph, of its device_loop tier.
 //
 // Bound on the H100: device memory. One step must read the domain once and
-// write it once, 2 * H * P * 4 bytes at 3.35 TB/s; the arithmetic
+// write it once, 2 * H * P * sizeof(T) bytes at 3.35 TB/s (T is float or
+// __nv_bfloat16, chosen at launch); the arithmetic
 // (2 * npoints flops per cell) is 20-50x below the float32 rate. Design:
 // about 4096 blocks walk the rows (grid y) and the cells of a row (grid
 // x); neighbouring threads take neighbouring cells so loads and stores
@@ -28,9 +29,9 @@
 #define STEP_STREAM_ROWS 1
 #endif
 
-template <int NPTS>
+template <int NPTS, typename T>
 __global__ void __launch_bounds__(STEP_THREADS)
-stencil_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
+stencil_step_kernel(const T* __restrict__ src, T* __restrict__ dst,
                     StencilArgs a) {
     __shared__ SpecShared s;
     load_spec(a, s);
@@ -39,17 +40,30 @@ stencil_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
 }
 
 template <int NPTS>
-static void launch_step(const float* src, float* dst, const StencilArgs& a,
-                        dim3 grid, cudaStream_t stream) {
-    stencil_step_kernel<NPTS><<<grid, STEP_THREADS, 0, stream>>>(src, dst, a);
+static void launch_f32(const void* src, void* dst, const StencilArgs& a,
+                       dim3 grid, cudaStream_t stream) {
+    stencil_step_kernel<NPTS><<<grid, STEP_THREADS, 0, stream>>>(
+        (const float*)src, (float*)dst, a);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-extern "C" int stencil_step_launch(const float* src, float* dst, StencilArgs a,
-                                   cudaStream_t stream) {
+template <int NPTS>
+static void launch_bf16(const void* src, void* dst, const StencilArgs& a,
+                        dim3 grid, cudaStream_t stream) {
+    stencil_step_kernel<NPTS><<<grid, STEP_THREADS, 0, stream>>>(
+        (const __nv_bfloat16*)src, (__nv_bfloat16*)dst, a);
+}
+
+// Launches on `stream` for elements of type `dtype` (STENCIL_F32 or
+// STENCIL_BF16); returns the cudaError_t of the launch (0 = success).
+extern "C" int stencil_step_launch(const void* src, void* dst, StencilArgs a,
+                                   int dtype, cudaStream_t stream) {
     // About STEP_BLOCKS blocks: x across a row, y over rows (grid-stride).
     const int gx = min((a.P + STEP_THREADS - 1) / STEP_THREADS, 64);
     const int gy = max(1, min(min(a.H, 65535), STEP_BLOCKS / gx));
-    STENCIL_DISPATCH_NPTS(a.npts, launch_step, src, dst, a, dim3(gx, gy), stream)
+    if (dtype == STENCIL_BF16) {
+        STENCIL_DISPATCH_NPTS(a.npts, launch_bf16, src, dst, a, dim3(gx, gy), stream)
+    } else {
+        STENCIL_DISPATCH_NPTS(a.npts, launch_f32, src, dst, a, dim3(gx, gy), stream)
+    }
     return (int)cudaGetLastError();
 }

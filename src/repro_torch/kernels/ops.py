@@ -1,5 +1,5 @@
 """Public keyword wrappers for the port's kernels, as in
-``repro/kernels/ops.py``: the stencils, the ELL and SELL-C-σ SpMVs, the
+``repro/kernels/ops.py``: the stencils (temporal blocking included), the ELL and SELL-C-σ SpMVs, the
 fused conjugate gradient, BiCGStab and the GMRES(m) cycle.
 
 Each call dispatches on the tensor's device: a CUDA tensor launches the
@@ -19,16 +19,20 @@ from repro_torch.kernels import spmv_sell as _sell
 from repro_torch.kernels import stencil2d as _s2d
 from repro_torch.kernels.common import StencilSpec
 
-#: kernel name -> the wrapper that carries its launch counter
+#: kernel name -> (the wrapper that carries its launch counter, the
+#: counter's attribute): ``stencil_perks`` counts its ``fuse_steps>1``
+#: launches (``csrc/stencil_tb.cu``) apart, as ``stencil_perks_fused``
 KERNELS = {
-    "stencil_perks": _s2d.stencil_perks,
-    "stencil_resident": _s2d.stencil_resident,
-    "stencil_baseline_step": _s2d.stencil_baseline_step,
-    "spmv_ell": _spmv.spmv_ell,
-    "spmv_sell": _sell.spmv_sell,
-    "cg_fused": _cg.cg_fused,
-    "bicgstab_fused": _kry.bicgstab_fused,
-    "gmres_cycle_fused": _kry.gmres_cycle_fused,
+    "stencil_perks": (_s2d.stencil_perks, "launches"),
+    "stencil_perks_fused": (_s2d.stencil_perks, "fused_launches"),
+    "stencil_perks_deep": (_s2d.stencil_perks_deep, "launches"),
+    "stencil_resident": (_s2d.stencil_resident, "launches"),
+    "stencil_baseline_step": (_s2d.stencil_baseline_step, "launches"),
+    "spmv_ell": (_spmv.spmv_ell, "launches"),
+    "spmv_sell": (_sell.spmv_sell, "launches"),
+    "cg_fused": (_cg.cg_fused, "launches"),
+    "bicgstab_fused": (_kry.bicgstab_fused, "launches"),
+    "gmres_cycle_fused": (_kry.gmres_cycle_fused, "launches"),
 }
 
 
@@ -44,6 +48,15 @@ def stencil_perks(x: torch.Tensor, *, spec: StencilSpec, steps: int,
     """Large-domain PERKS stencil (leading rows cached, rest streamed)."""
     return _s2d.stencil_perks(x, spec, steps=steps, cached_rows=cached_rows,
                               sub_rows=sub_rows, fuse_steps=fuse_steps)
+
+
+def stencil_perks_deep(x: torch.Tensor, *, spec: StencilSpec, steps: int,
+                       cached_rows: int, sub_rows: int = 128,
+                       fuse_steps: int = 1) -> torch.Tensor:
+    """Deep temporal blocking (t steps a pass, no recompute along rows)."""
+    return _s2d.stencil_perks_deep(x, spec, steps=steps,
+                                   cached_rows=cached_rows,
+                                   sub_rows=sub_rows, fuse_steps=fuse_steps)
 
 
 def stencil_baseline_step(x: torch.Tensor, *, spec: StencilSpec,
@@ -104,9 +117,9 @@ def gmres_cycle(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)

@@ -1,32 +1,40 @@
 """PERKS stencil kernels on Hopper: the port of ``repro/kernels/stencil2d.py``.
 
-Three entry points with the reference's signatures, generic over 2D/3D
-(blocking is along the leading axis; a 3D "row" is a whole plane):
+Four entry points with the reference's signatures, generic over 2D/3D
+(blocking is along the leading axis; a 3D "row" is a whole plane), for
+float32 and bfloat16 cells:
 
 ``stencil_perks``
     ``steps`` steps in ONE cooperative persistent launch; rows
     [0, cached_rows) stay in shared memory for the kernel's whole life, the
-    rest stream between two device-memory ping-pong buffers every step
-    (``csrc/stencil_perks.cu``).
+    rest stream between two device-memory ping-pong buffers. With
+    ``fuse_steps=1`` they stream every step (``csrc/stencil_perks.cu``);
+    with ``fuse_steps=t>1`` every t steps, in tiles that recompute an r*t
+    halo (``csrc/stencil_tb.cu``, the shallow schedule).
+``stencil_perks_deep``
+    t steps a pass with no recompute along the rows: strip walkers keep a
+    ring of rows per level (``csrc/stencil_tb.cu``, the deep schedule).
 ``stencil_resident``
-    The same kernel with every row cached; raises ``ValueError`` when the
-    domain does not fit the co-resident CTAs' shared memory.
+    ``csrc/stencil_perks.cu`` with every row cached; raises ``ValueError``
+    when the domain does not fit the co-resident CTAs' shared memory.
 ``stencil_baseline_step``
     One non-persistent, out-of-place step (``csrc/stencil_step.cu``): the
     loop tiers' step on the card.
 
 Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
-wrapper counts its launches in its ``launches`` attribute.
+wrapper counts its launches in its ``launches`` attribute;
+``stencil_perks`` counts its ``fuse_steps>1`` launches apart, in
+``fused_launches``. ``tb_layout`` is the temporal-blocking kernel's shared
+memory layout, which the wrappers and the planner share, so the planner
+offers no plan the kernel refuses.
 
-Not ported yet (ROADMAP): ``fuse_steps > 1`` in the CUDA kernel (the CUDA
-path raises ``NotImplementedError``), the deep wavefront schedule
-(``stencil_perks_deep``), dtypes other than float32 on the card, and
-cached rows wider than one CTA can hold.
+Not ported yet (ROADMAP): cached rows wider than one CTA can hold.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -41,11 +49,20 @@ from repro_torch.kernels.common import StencilSpec
 #: hold while a row is updated in place (``csrc/stencil_perks.cu``).
 PERKS_THREADS = 1024
 PERKS_MAX_ROW_CELLS = 20 * PERKS_THREADS
-#: Shared memory per CTA reserved for the kernel's static buffers (the spec
-#: and the row-pointer table). The planner and the wrapper both give a band
-#: the opt-in per-block limit less this reserve; the wrapper checks at each
-#: launch that the built kernel's static shared memory fits in it.
-PERKS_STATIC_SMEM = 1024
+#: Shared memory per CTA reserved for the persistent kernels' static
+#: buffers (the spec, the row-pointer table). The planner and the wrappers
+#: give a CTA the opt-in per-block limit less this reserve; the wrappers
+#: check at each launch that the built kernel's static shared memory fits.
+PERKS_STATIC_SMEM = 2048
+#: Temporal blocking (``csrc/stencil_tb.cu``): the most rows of a shallow
+#: tile and of a deep block (the rows table holds PERKS_MAX_BLOCK_ROWS +
+#: 2 * MAX_RADIUS = 48 pointers), and the cells a deep block aims at per
+#: level (two a thread).
+TB_TILE_ROWS = 64
+TB_BLOCK_ROWS = 32
+TB_TARGET_CELLS = 2048
+#: dtype -> the kernels' element-type code (STENCIL_F32, STENCIL_BF16)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # -- layout arithmetic shared by the wrappers and the planner -----------------
@@ -78,11 +95,143 @@ def band_smem_bytes(cached_rows: int, radius: int, row_bytes: int,
     return 0 if nb == 0 else (maxband + radius) * row_bytes
 
 
+@dataclasses.dataclass(frozen=True)
+class TbLayout:
+    """Shared memory of one CTA of ``csrc/stencil_tb.cu``: ``nb`` bands of
+    at most ``maxband`` cached rows with their 2*r*t halo rows and r-row
+    ring (``band_bytes``), then the streaming scratch (``scratch_bytes``)
+    for strips of ``strip`` = (plane rows, columns) and tiles (shallow) or
+    blocks (deep) of ``rows`` rows."""
+
+    nb: int
+    maxband: int
+    band_bytes: int
+    strip: tuple[int, int]
+    rows: int
+    scratch_bytes: int
+
+    @property
+    def smem(self) -> int:
+        return self.band_bytes + self.scratch_bytes
+
+
+def _planes(shape: tuple[int, ...]) -> tuple[int, int]:
+    """(D1, D2): plane rows and columns of a row (D1 = 1 in 2D)."""
+    return (shape[1] if len(shape) == 3 else 1), shape[-1]
+
+
+def tb_scratch_bytes(shape: tuple[int, ...], radius: int, t: int,
+                     dtype_bytes: int, deep: bool, strip: tuple[int, int],
+                     rows: int) -> int:
+    """Streaming scratch of one CTA: shallow, two tile buffers of the
+    widest window ((rows + 2rt) x (strip + 2rt), clamped to the domain);
+    deep, a ring of rows + 2r strip-rows for each level 0..t-1, level k
+    r*(t-k) wider on each side."""
+    D1, D2 = _planes(shape)
+    sy, sx = strip
+    is3 = len(shape) == 3
+    if deep:
+        cells = sum((min(D1, sy + 2 * radius * m) if is3 else 1)
+                    * min(D2, sx + 2 * radius * m) for m in range(1, t + 1))
+        return (rows + 2 * radius) * cells * dtype_bytes
+    h = radius * t
+    return (2 * min(shape[0], rows + 2 * h) * (min(D1, sy + 2 * h) if is3
+                                               else 1)
+            * min(D2, sx + 2 * h) * dtype_bytes)
+
+
+def _tb_stream(shape, radius, t, dtype_bytes, deep, ctas, budget):
+    """The streaming layout ``(strip, rows, bytes)`` that fits ``budget``
+    bytes: the default strip (shallow 2D: 128 columns; deep 2D: the columns
+    over ``ctas`` strips, at least 32; 3D: 8 x 32), the most rows that fit,
+    halving the strip's wider side while even one row does not; None when
+    a one-cell strip of one row does not fit."""
+    D1, D2 = _planes(shape)
+    if len(shape) == 3:
+        sy, sx = min(D1, 8), min(D2, 32)
+    elif deep:
+        sy, sx = 1, min(D2, max(32, -(-D2 // ctas)))
+    else:
+        sy, sx = 1, min(D2, 128)
+    while True:
+        if deep:
+            want = 1
+            while want < TB_BLOCK_ROWS and want * sy * sx < TB_TARGET_CELLS:
+                want *= 2
+        else:
+            want = TB_TILE_ROWS
+        rows = want
+        while rows >= 1:
+            b = tb_scratch_bytes(shape, radius, t, dtype_bytes, deep,
+                                 (sy, sx), rows)
+            if b <= budget:
+                return (sy, sx), rows, b
+            rows //= 2
+        if sx >= sy and sx > 1:
+            sx = -(-sx // 2)
+        elif sy > 1:
+            sy = -(-sy // 2)
+        else:
+            return None
+
+
+def tb_layout(shape: tuple[int, ...], radius: int, t: int, dtype_bytes: int,
+              *, deep: bool, ctas: int, limit: int,
+              cached_rows: int) -> Optional[TbLayout]:
+    """The layout of ``csrc/stencil_tb.cu`` for ``cached_rows`` cached rows
+    and t steps a pass over ``ctas`` CTAs of ``limit`` bytes of shared
+    memory, or None when it does not fit: the bands (``band_layout``, full
+    rows held in place, so at most PERKS_MAX_ROW_CELLS cells a row) come
+    first, the streaming scratch takes what is left."""
+    H = shape[0]
+    row_cells = math.prod(shape[1:])
+    nb, maxband = band_layout(cached_rows, radius, ctas)
+    if nb and row_cells > PERKS_MAX_ROW_CELLS:
+        return None
+    band = 0 if nb == 0 else -(-(maxband + 2 * radius * t + radius)
+                               * row_cells * dtype_bytes // 16) * 16
+    if band > limit:
+        return None
+    if cached_rows >= H:
+        return TbLayout(nb, maxband, band, (1, 1), 1, 0)
+    stream = _tb_stream(shape, radius, t, dtype_bytes, deep, ctas,
+                        limit - band)
+    if stream is None:
+        return None
+    strip, rows, scratch = stream
+    return TbLayout(nb, maxband, band, strip, rows, scratch)
+
+
+def tb_cached_rows(shape: tuple[int, ...], radius: int, t: int,
+                   dtype_bytes: int, *, deep: bool, ctas: int,
+                   limit: int) -> Optional[int]:
+    """Cached rows the planner gives the temporal-blocking kernel: bands of
+    at most half a CTA's shared memory (halo rows and ring included), so
+    the streaming scratch keeps the other half; 0 where no band fits, None
+    where the kernel cannot run t steps a pass at all."""
+    if tb_layout(shape, radius, t, dtype_bytes, deep=deep, ctas=ctas,
+                 limit=limit, cached_rows=0) is None:
+        return None
+    H = shape[0]
+    row_bytes = math.prod(shape[1:]) * dtype_bytes
+    per = (limit // 2) // row_bytes - 2 * radius * t - radius
+    rows = min(H, ctas * per) if per >= 1 else 0
+    if rows < min(radius, H):
+        return 0
+    if tb_layout(shape, radius, t, dtype_bytes, deep=deep, ctas=ctas,
+                 limit=limit, cached_rows=rows) is None:
+        return 0
+    return rows
+
+
 # -- argument checks -----------------------------------------------------------
 
 def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
-                      sub_rows: int, fuse_steps: int) -> None:
-    """The reference's kernel preconditions, raised as ``ValueError``."""
+                      sub_rows: int, fuse_steps: int, deep: bool = False
+                      ) -> None:
+    """The reference's kernel preconditions, raised as ``ValueError``: the
+    deep schedule's block needs one level's halo, the shallow schedule's
+    tile the fused r*t halo."""
     H, r = x.shape[0], spec.radius
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
@@ -93,16 +242,19 @@ def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
     if cached_rows not in (0, H) and cached_rows < r:
         raise ValueError("partial caching needs at least `radius` resident "
                          f"rows (cached_rows={cached_rows} < radius={r})")
-    if sub_rows < r * min(fuse_steps, steps):
+    if deep and sub_rows < r:
+        raise ValueError("deep schedule needs one level's halo per block "
+                         f"(sub_rows >= radius = {r}, got {sub_rows})")
+    if not deep and sub_rows < r * min(fuse_steps, steps):
         raise ValueError(
             "subtile must cover the next subtile's fused halo "
             f"(sub_rows >= radius*fuse_steps = {r * min(fuse_steps, steps)})")
 
 
 def _check_cuda(x: torch.Tensor, spec: StencilSpec) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA stencil kernels take float32, got "
-                        f"{x.dtype} (other dtypes: ROADMAP)")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the CUDA stencil kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
     if x.dim() != spec.ndim or spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} needs a {spec.ndim}D domain, got "
                          f"shape {tuple(x.shape)}")
@@ -128,61 +280,122 @@ def stencil_args(spec: StencilSpec, shape: tuple[int, ...]) -> _build.StencilArg
     a.P, a.ndim, a.r, a.npts = D1 * D2, spec.ndim, spec.radius, spec.npoints
     for k, (off, w) in enumerate(zip(spec.offsets, spec.weights)):
         a.d0[k] = off[0]
-        a.dc[k] = off[1] * D2 + off[2] if spec.ndim == 3 else off[1]
+        a.d1[k] = off[1] if spec.ndim == 3 else 0
+        a.d2[k] = off[-1]
+        a.dc[k] = a.d1[k] * D2 + a.d2[k]
         a.w[k] = w
     return a
 
 
-# -- the persistent kernel ----------------------------------------------------
+def _limit(lib, prefix: str, spec: StencilSpec, x: torch.Tensor) -> int:
+    """Dynamic shared memory a CTA of kernel ``prefix`` may take: the
+    card's opt-in maximum less PERKS_STATIC_SMEM, after checking that the
+    built kernel's static shared memory fits in that reserve."""
+    optin, static = ctypes.c_int(), ctypes.c_int()
+    _build.check(getattr(lib, f"{prefix}_smem")(
+        spec.npoints, DTYPES[x.dtype], ctypes.byref(optin),
+        ctypes.byref(static)), f"{prefix}_smem")
+    if static.value > PERKS_STATIC_SMEM:
+        raise RuntimeError(
+            f"the built {prefix} kernel takes {static.value} B of static "
+            f"shared memory, more than the {PERKS_STATIC_SMEM} B that "
+            f"stencil2d.PERKS_STATIC_SMEM reserves for it")
+    return optin.value - PERKS_STATIC_SMEM
+
+
+def _grid(lib, prefix: str, spec: StencilSpec, x: torch.Tensor, smem: int,
+          nb: int) -> int:
+    """Co-resident CTAs of kernel ``prefix`` at ``smem`` bytes each; raises
+    ``ValueError`` when the ``nb`` bands do not all fit."""
+    grid = ctypes.c_int()
+    _build.check(getattr(lib, f"{prefix}_max_ctas")(
+        spec.npoints, DTYPES[x.dtype], smem, ctypes.byref(grid)),
+        f"{prefix}_max_ctas")
+    if grid.value < max(nb, 1):
+        raise ValueError(f"{nb} bands need {nb} co-resident CTAs, the "
+                         f"card runs {grid.value} with {smem} B each")
+    return grid.value
+
+
+# -- the persistent kernels ---------------------------------------------------
 
 def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
                   cached_rows: int) -> torch.Tensor:
-    """Launch the persistent kernel on a checked CUDA tensor."""
+    """Launch ``csrc/stencil_perks.cu`` on a checked CUDA tensor."""
     lib = _build.load("stencil_perks")
     if lib.stencil_perks_max_row_cells() != PERKS_MAX_ROW_CELLS:
-        raise RuntimeError("csrc/stencil_perks.cu and stencil2d.py disagree "
-                           "on the widest cached row")
-    H, r = x.shape[0], spec.radius
+        raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
+                           "disagree on the widest cached row")
+    r = spec.radius
     row_cells = math.prod(x.shape[1:])
     row_bytes = row_cells * x.element_size()
     with _build.on_device(x):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        optin, static = ctypes.c_int(), ctypes.c_int()
-        _build.check(lib.stencil_perks_smem(spec.npoints, ctypes.byref(optin),
-                                            ctypes.byref(static)),
-                     "stencil_perks_smem")
-        if static.value > PERKS_STATIC_SMEM:
-            raise RuntimeError(
-                f"the built stencil_perks kernel takes {static.value} B of "
-                f"static shared memory, more than the {PERKS_STATIC_SMEM} B "
-                f"that stencil2d.PERKS_STATIC_SMEM reserves for it")
-        limit = optin.value - PERKS_STATIC_SMEM
+        limit = _limit(lib, "stencil_perks", spec, x)
         nb, maxband = band_layout(cached_rows, r, sms)
         smem = band_smem_bytes(cached_rows, r, row_bytes, sms)
         if nb and (row_cells > PERKS_MAX_ROW_CELLS or smem > limit):
             cap = sms * rows_per_cta(row_cells, x.element_size(), r, limit)
             raise ValueError(
-                f"cannot cache {cached_rows} rows of {row_cells} float32 "
+                f"cannot cache {cached_rows} rows of {row_cells} {x.dtype} "
                 f"cells: a band of {maxband} rows plus the {r}-row ring "
                 f"needs {smem} B of shared memory per CTA and a CTA has "
                 f"{limit} B, so the kernel holds at most {cap} rows "
                 f"of this width over {sms} SMs (rows wider than "
                 f"{PERKS_MAX_ROW_CELLS} cells are not cached)")
-        grid = ctypes.c_int()
-        _build.check(lib.stencil_perks_max_ctas(spec.npoints, smem,
-                                                ctypes.byref(grid)),
-                     "stencil_perks_max_ctas")
-        if grid.value < max(nb, 1):
-            raise ValueError(f"{nb} bands need {nb} co-resident CTAs, the "
-                             f"card runs {grid.value} with {smem} B each")
+        grid = _grid(lib, "stencil_perks", spec, x, smem, nb)
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
         err = lib.stencil_perks_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            stencil_args(spec, tuple(x.shape)), steps, cached_rows, nb,
-            grid.value, smem, _build.stream())
+            stencil_args(spec, tuple(x.shape)), DTYPES[x.dtype], steps,
+            cached_rows, nb, grid, smem, _build.stream())
     _build.check(err, "stencil_perks_launch")
     return buf0 if (steps - 1) % 2 == 0 else buf1
+
+
+def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
+               cached_rows: int, deep: bool) -> torch.Tensor:
+    """Launch ``csrc/stencil_tb.cu`` (t steps a pass, shallow tiles or deep
+    strip walkers) on a checked CUDA tensor."""
+    lib = _build.load("stencil_tb")
+    if lib.stencil_tb_max_row_cells() != PERKS_MAX_ROW_CELLS:
+        raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
+                           "disagree on the widest cached row")
+    r = spec.radius
+    shape = tuple(x.shape)
+    eb = x.element_size()
+    with _build.on_device(x):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        limit = _limit(lib, "stencil_tb", spec, x)
+        lay = tb_layout(shape, r, t, eb, deep=deep, ctas=sms, limit=limit,
+                        cached_rows=cached_rows)
+        if lay is None:
+            nb, maxband = band_layout(cached_rows, r, sms)
+            band = (maxband + 2 * r * t + r) * math.prod(shape[1:]) * eb \
+                if nb else 0
+            least = tb_scratch_bytes(shape, r, t, eb, deep, (1, 1), 1)
+            raise ValueError(
+                f"{'stencil_perks_deep' if deep else 'stencil_perks'} "
+                f"cannot run {spec.name} on {shape} {x.dtype} at "
+                f"{t} steps a pass (r*t = {r * t}-cell halos) with "
+                f"{cached_rows} cached rows: the bands need {band} B of "
+                f"shared memory per CTA and the smallest streaming layout "
+                f"{least} B more, and a CTA has {limit} B (cached rows are "
+                f"at most {PERKS_MAX_ROW_CELLS} cells wide)")
+        grid = _grid(lib, "stencil_tb", spec, x, lay.smem, lay.nb)
+        g = _build.TbArgs(steps, t, cached_rows, lay.nb, int(deep),
+                          lay.strip[0], lay.strip[1], lay.rows,
+                          lay.band_bytes)
+        buf0 = torch.empty_like(x)
+        buf1 = torch.empty_like(x)
+        err = lib.stencil_tb_launch(
+            x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
+            _build.stream())
+    _build.check(err, "stencil_tb_launch")
+    passes = -(-steps // t)
+    return buf0 if (passes - 1) % 2 == 0 else buf1
 
 
 def stencil_perks(
@@ -198,27 +411,68 @@ def stencil_perks(
     on chip for the kernel's whole lifetime (the PERKS scheme); ``x`` is
     not written.
 
+    ``fuse_steps=t`` is temporal blocking: the streamed rows go through
+    device memory once every t steps (the last pass takes ``steps % t``),
+    in tiles that recompute an r*t halo (``csrc/stencil_tb.cu``); t is
+    ``min(fuse_steps, steps)``, and t = 1 runs ``csrc/stencil_perks.cu``.
     ``sub_rows`` is the reference's streaming tile, checked as the
-    reference checks it; the CUDA kernel streams cell by cell and does not
-    use it. ``fuse_steps > 1`` runs on the CPU only (the plain version
-    performs the same steps); the CUDA kernel raises for it.
+    reference checks it; the CUDA kernels choose their own tiles
+    (``tb_layout``).
     """
     _check_perks_args(x, spec, steps, cached_rows, sub_rows, fuse_steps)
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
-    if fuse_steps > 1:
-        raise NotImplementedError(
-            "fuse_steps > 1 (temporal blocking) is not in the CUDA kernel "
-            "yet (ROADMAP)")
     _check_cuda(x, spec)
     if steps == 0:
         return x.clone()
+    t = min(fuse_steps, steps)
+    if t > 1:
+        out = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
+        stencil_perks.fused_launches += 1
+        return out
     out = _launch_perks(x, spec, steps, cached_rows)
     stencil_perks.launches += 1
     return out
 
 
 stencil_perks.launches = 0
+stencil_perks.fused_launches = 0
+
+
+def stencil_perks_deep(
+    x: torch.Tensor,
+    spec: StencilSpec,
+    *,
+    steps: int,
+    cached_rows: int,
+    sub_rows: int = 128,
+    fuse_steps: int = 1,
+) -> torch.Tensor:
+    """Deep temporal blocking: t = ``min(fuse_steps, steps)`` steps a pass
+    with no recompute along the rows — every streamed row is read and
+    written once a pass, the strips' side halos are the only redundant
+    work (``csrc/stencil_tb.cu``, the deep schedule). Rows [0, cached_rows)
+    stay on chip as in ``stencil_perks``; ``x`` is not written.
+
+    The reference's preconditions raise ``ValueError``: ``sub_rows`` (its
+    wavefront block, which the CUDA kernel does not use) must be at least
+    the radius. A layout the CTA's shared memory cannot hold raises
+    ``ValueError`` naming the limit.
+    """
+    _check_perks_args(x, spec, steps, cached_rows, sub_rows, fuse_steps,
+                      deep=True)
+    if _build.is_cpu(x, "stencil"):
+        return ref.stencil_run(x, spec, steps)
+    _check_cuda(x, spec)
+    if steps == 0:
+        return x.clone()
+    t = max(1, min(fuse_steps, steps))
+    out = _launch_tb(x, spec, steps, t, cached_rows, deep=True)
+    stencil_perks_deep.launches += 1
+    return out
+
+
+stencil_perks_deep.launches = 0
 
 
 def stencil_resident(
@@ -269,7 +523,7 @@ def stencil_baseline_step(
     with _build.on_device(x):
         err = lib.stencil_step_launch(x.data_ptr(), out.data_ptr(),
                                       stencil_args(spec, tuple(x.shape)),
-                                      _build.stream())
+                                      DTYPES[x.dtype], _build.stream())
     _build.check(err, "stencil_step_launch")
     stencil_baseline_step.launches += 1
     return out

@@ -65,16 +65,65 @@ def test_cuda_kernels_match_plain_version(name, cuda):
 def test_cuda_wrappers_refuse_what_the_kernel_does_not_do(cuda):
     spec = get_spec("2d5pt")
     x = torch.from_numpy(_domain(spec)).to(cuda)
-    with pytest.raises(NotImplementedError, match="fuse_steps"):
-        ops.stencil_perks(x, spec=spec, steps=4, cached_rows=8, fuse_steps=2)
-    with pytest.raises(TypeError, match="float32"):
-        ops.stencil_perks(x.to(torch.bfloat16), spec=spec, steps=4,
-                          cached_rows=8)
-    with pytest.raises(TypeError, match="float32"):
-        ops.stencil_baseline_step(x.to(torch.bfloat16), spec=spec)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.stencil_perks(x.half(), spec=spec, steps=4, cached_rows=8,
+                          fuse_steps=2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.stencil_baseline_step(x.double(), spec=spec)
     big = torch.zeros((40000, 8192), device=cuda)
     with pytest.raises(ValueError, match="holds at most"):
         ops.stencil_resident(big, spec=spec, steps=1)
+    # r*t = 192-cell halos: a one-cell strip's level rings alone need more
+    # than a CTA's shared memory
+    wide = get_spec("2ds25pt")
+    y = torch.zeros((64, 512), device=cuda)
+    with pytest.raises(ValueError, match="a CTA has"):
+        ops.stencil_perks_deep(y, spec=wide, steps=32, cached_rows=0,
+                               fuse_steps=32)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_temporal_blocking_matches_plain_version(name, cuda):
+    """csrc/stencil_tb.cu, both schedules, with and without cached bands,
+    11 steps (a remainder pass), against the plain version: bit for bit."""
+    spec = get_spec(name)
+    x = torch.from_numpy(_domain(spec, seed=12)).to(cuda)
+    want = ref.stencil_run(x, spec, 11)
+    before = ops.launch_counts()
+    for rows in (0, 4 * spec.radius + 1):
+        for t in (2, 3, 4):
+            got = ops.stencil_perks(x, spec=spec, steps=11, cached_rows=rows,
+                                    sub_rows=32, fuse_steps=t)
+            assert torch.equal(got, want), (name, rows, t)
+        for t in (2, 3, 8):
+            got = ops.stencil_perks_deep(x, spec=spec, steps=11,
+                                         cached_rows=rows, fuse_steps=t)
+            assert torch.equal(got, want), (name, rows, t, "deep")
+    after = ops.launch_counts()
+    assert after["stencil_perks_fused"] == before["stencil_perks_fused"] + 6
+    assert after["stencil_perks_deep"] == before["stencil_perks_deep"] + 6
+    assert after["stencil_perks"] == before["stencil_perks"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_bf16_kernels_match_plain_version(name, cuda):
+    """bf16 cells: every product and partial sum rounded to bf16, as the
+    plain torch version rounds them; gated at the reference's bf16 bound."""
+    spec = get_spec(name)
+    x = torch.from_numpy(_domain(spec, seed=13)).to(cuda).to(torch.bfloat16)
+    r = spec.radius
+    want = ref.stencil_run(x, spec, STEPS)
+    got = [ops.stencil_baseline_step(x, spec=spec),
+           ops.stencil_resident(x, spec=spec, steps=STEPS),
+           ops.stencil_perks(x, spec=spec, steps=STEPS, cached_rows=4 * r + 1),
+           ops.stencil_perks(x, spec=spec, steps=STEPS, cached_rows=0,
+                             sub_rows=32, fuse_steps=2),
+           ops.stencil_perks_deep(x, spec=spec, steps=STEPS,
+                                  cached_rows=4 * r + 1, fuse_steps=4)]
+    wants = [ref.stencil_step(x, spec)] + [want] * 4
+    for g, w in zip(got, wants):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2e-2)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -89,6 +138,24 @@ def test_cuda_tiers_agree_bit_for_bit(name, cuda):
                                                      x.shape[0] // 2)),
                plan(p)):
         assert torch.equal(execute(p, pl), want), pl.tier
+
+
+@pytest.mark.parametrize("name", ["2d5pt", "2ds25pt", "3d7pt", "poisson"])
+def test_cuda_tiers_agree_on_fused_and_deep_plans(name, cuda):
+    spec = get_spec(name)
+    x = _domain(spec, seed=14)
+    p = StencilProblem(x, spec, 9, device=cuda)
+    want = p.oracle()
+    rows = 4 * spec.radius + 1
+    plans = [c for c in plan_candidates(p) if c.tier == "resident"]
+    plans += [Plan(tier="resident", fuse_steps=t, schedule=sched,
+                   cached_rows=R, sub_rows=32)
+              for sched, t, R in (("shallow", 2, 0), ("shallow", 4, rows),
+                                  ("deep", 8, 0), ("deep", 3, rows))]
+    assert {c.schedule for c in plans if c.fuse_steps > 1} == {"shallow",
+                                                               "deep"}
+    for pl in plans:
+        assert torch.equal(execute(p, pl), want), pl
 
 
 def test_cuda_device_loop_keeps_its_graph(cuda):
@@ -322,6 +389,38 @@ def test_cuda_gmres_device_loop_keeps_its_graph(cuda):
     want = p.oracle()
     for got in (first, second):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    perks.clear_graphs()
+
+
+def test_cuda_changed_problems_replay_the_kept_graph(cuda):
+    """The second mixed-precision execute and the later solve_refined
+    rounds replay the first run's graph: no launch, and the same bits as
+    a fresh capture."""
+    from repro_torch.exec import BiCGStabProblem, solve_refined
+    csr, data, cols, b = _convdiff(24, cuda, seed=6)
+    p = BiCGStabProblem.from_ell(data, cols, b, 30, matrix=csr, device=cuda)
+    mixed = Plan(tier="device_loop", precision="mixed")
+    perks.clear_graphs()
+    first, rr1 = execute(p, mixed)
+    before = ops.launch_counts()["spmv_ell"]
+    second, rr2 = execute(p, mixed)
+    assert ops.launch_counts()["spmv_ell"] == before, "captured again"
+    assert torch.equal(first, second) and torch.equal(rr1, rr2)
+    q = p.with_rhs(b.flip(0))
+    fresh = BiCGStabProblem.from_ell(data, cols, b.flip(0), 30, matrix=csr,
+                                     device=cuda)
+    xq, _ = execute(q, mixed)                       # a replay
+    assert ops.launch_counts()["spmv_ell"] == before
+    perks.clear_graphs()
+    xf, _ = execute(fresh, mixed)                   # a fresh capture
+    assert ops.launch_counts()["spmv_ell"] > before
+    assert torch.equal(xq, xf)
+    perks.clear_graphs()
+    x2, _ = solve_refined(p, mixed, rounds=2)
+    launched = ops.launch_counts()["spmv_ell"]
+    x3, _ = solve_refined(p, mixed, rounds=3)
+    # the third round's execute replays, only the residual SpMVs launch
+    assert ops.launch_counts()["spmv_ell"] == launched + 3
     perks.clear_graphs()
 
 

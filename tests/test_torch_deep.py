@@ -1,0 +1,309 @@
+"""The port's deep temporal blocking and its planning against the JAX
+reference: ``stencil_perks_deep`` at t = 2, 3, 8 on all 13 Table-III
+specs, the byte models, the H100 planner's temporally blocked candidates,
+reference plans with ``fuse_steps>1`` and ``schedule="deep"``, and bf16.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX kernels run as ``tests/test_deep_blocking.py`` runs them on the CPU
+(Pallas interpret mode); the port's wrappers run their plain torch
+versions because the tensors lie on the CPU. Bounds: the reference's, atol
+5e-6 with rtol 0 for float32 and 2e-2 for bf16
+(``tests/test_kernels_stencil.py``). The bf16 rounding differs between the
+packages by design: the reference's ``w * x`` rounds w to bf16 first (jnp's
+weak typing), torch multiplies in float32 and rounds the product once. The
+CUDA kernel (``csrc/stencil_tb.cu``) is held to the port's plain version on
+the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import itertools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.core import cache_policy as jcp
+from repro.exec import Plan as JaxPlan
+from repro.exec import StencilProblem as JaxStencilProblem
+from repro.exec import execute as jax_execute
+from repro.exec import plan_candidates as jax_plan_candidates
+from repro.kernels import stencil2d as jk
+from repro.kernels.common import BENCHMARKS as JAX_SPECS
+from repro_torch.convert import plan_from_reference
+from repro_torch.core import cache_policy as tcp
+from repro_torch.core import hardware as thw
+from repro_torch.exec import StencilProblem, execute, plan_candidates
+from repro_torch.kernels import ops, stencil2d
+from repro_torch.kernels.common import BENCHMARKS, get_spec
+from repro_torch.kernels.stencil3d import plan_resident_planes
+
+ATOL = 5e-6
+BF16_ATOL = 2e-2
+NAMES = sorted(BENCHMARKS)
+STEPS = 11
+
+
+def _domain(spec, seed=0, shape=None):
+    shape = shape or ((48, 64) if spec.ndim == 2 else (24, 16, 32))
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+# -- the deep kernel over the whole zoo ----------------------------------------
+
+@pytest.mark.parametrize("t", [2, 3, 8])
+@pytest.mark.parametrize("cached", ["none", "4r+1"])
+@pytest.mark.parametrize("name", NAMES)
+def test_deep_stencil_perks_matches_reference(name, cached, t):
+    spec = get_spec(name)
+    r = spec.radius
+    x = _domain(spec, seed=t)
+    H = x.shape[0]
+    rows = 0 if cached == "none" else 4 * r + 1
+    sub = 9 if (H - rows) % 9 else 10          # a ragged last block
+    want = jk.stencil_perks_deep(jnp.asarray(x), JAX_SPECS[name],
+                                 steps=STEPS, cached_rows=rows, sub_rows=sub,
+                                 fuse_steps=t)
+    xt = torch.from_numpy(x)
+    got = ops.stencil_perks_deep(xt, spec=spec, steps=STEPS,
+                                 cached_rows=rows, sub_rows=sub,
+                                 fuse_steps=t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    assert np.array_equal(xt.numpy(), x), "the input must not be written"
+
+
+def test_deep_preconditions_raise():
+    spec = get_spec("2ds25pt")                      # radius 6
+    x = torch.from_numpy(_domain(spec))
+    with pytest.raises(ValueError, match="sub_rows >= radius = 6"):
+        ops.stencil_perks_deep(x, spec=spec, steps=4, cached_rows=0,
+                               sub_rows=5, fuse_steps=32)
+    with pytest.raises(ValueError, match="partial caching"):
+        ops.stencil_perks_deep(x, spec=spec, steps=4, cached_rows=3)
+    with pytest.raises(ValueError, match="fuse_steps"):
+        ops.stencil_perks_deep(x, spec=spec, steps=4, cached_rows=0,
+                               fuse_steps=0)
+    # sub_rows >= radius is all the deep schedule asks, at any depth
+    ops.stencil_perks_deep(x, spec=spec, steps=4, cached_rows=0, sub_rows=6,
+                           fuse_steps=32)
+    before = ops.launch_counts()
+    ops.stencil_perks_deep(x, spec=spec, steps=2, cached_rows=0)
+    assert ops.launch_counts() == before, "a CPU tensor launches nothing"
+
+
+# -- byte models -----------------------------------------------------------------
+
+_GRID = list(itertools.product((1, 7, 100), (1, 2, 3, 8, 32), (0.0, 0.3, 1.0)))
+
+
+def test_deep_byte_model_and_scratch_match_reference():
+    dom = 97 * 4096
+    for n, t, frac in _GRID:
+        cached = int(frac * dom)
+        assert tcp.gm_bytes_deep(n, dom, cached, fuse_steps=t) == \
+            jcp.gm_bytes_deep(n, dom, cached, fuse_steps=t)
+    for sub, r, t in itertools.product((1, 8, 128), (1, 2, 6), (1, 4, 32)):
+        assert tcp.deep_scratch_rows(sub, r, t) == \
+            jcp.deep_scratch_rows(sub, r, t)
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (8192, 8192), (24, 16, 32),
+                                   (256, 256, 256)])
+def test_port_byte_model_is_never_below_the_least(shape):
+    """The port's model of its kernel (halo re-reads included) against
+    gm_bytes_deep at the same cached rows, for both schedules and every
+    layout the kernel takes."""
+    h100 = thw.H100
+    limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    row = int(np.prod(shape[1:])) * 4
+    for r, t, deep, n in itertools.product((1, 2), (2, 3, 8), (False, True),
+                                           (1, 11, 100)):
+        rows = stencil2d.tb_cached_rows(shape, r, t, 4, deep=deep,
+                                        ctas=h100.sms, limit=limit)
+        if rows is None:
+            continue
+        lay = stencil2d.tb_layout(shape, r, t, 4, deep=deep, ctas=h100.sms,
+                                  limit=limit, cached_rows=rows)
+        got = tcp.gm_bytes_tb(n, shape, 4, radius=r, fuse_steps=t,
+                              cached_rows=rows, bands=lay.nb,
+                              strip=lay.strip, rows=lay.rows, deep=deep)
+        least = tcp.gm_bytes_deep(n, shape[0] * row, rows * row, fuse_steps=t)
+        assert got >= least, (shape, r, t, deep, n)
+    # 2 passes of a 4-row 2D domain, one 4x4 tile, nothing cached: each
+    # pass reads and writes the 16 cells once
+    assert tcp.gm_bytes_tb(4, (4, 4), 4, radius=1, fuse_steps=2,
+                           cached_rows=0, bands=0, strip=(1, 4), rows=4,
+                           deep=False) == 2 * 2 * 16 * 4
+
+
+# -- the H100 planner -----------------------------------------------------------
+
+def _meta(shape, n, name, dtype=torch.float32):
+    return StencilProblem(torch.empty(shape, device="meta", dtype=dtype),
+                          get_spec(name), n, device="meta")
+
+
+@pytest.mark.parametrize("shape,n,name,dtype", [
+    ((8192, 8192), 100, "2d5pt", torch.float32),
+    ((3072, 1152), 1000, "2d5pt", torch.float32),
+    ((160, 160, 128), 50, "3d7pt", torch.float32),
+    ((4096, 2048), 100, "2ds25pt", torch.bfloat16),
+])
+def test_planner_offers_fitting_shallow_and_deep_candidates(shape, n, name,
+                                                            dtype):
+    h100 = thw.H100
+    limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    spec = get_spec(name)
+    eb = torch.empty((), dtype=dtype).element_size()
+    cands = plan_candidates(_meta(shape, n, name, dtype), chip=h100)
+    res = [c for c in cands if c.tier == "resident"]
+    assert {c.schedule for c in res if c.fuse_steps > 1} == {"shallow",
+                                                             "deep"}
+    for c in res:
+        if c.fuse_steps == 1 and c.schedule == "shallow":
+            need = stencil2d.band_smem_bytes(
+                c.cached_rows, spec.radius, int(np.prod(shape[1:])) * eb,
+                h100.sms)
+        else:
+            lay = stencil2d.tb_layout(shape, spec.radius, c.fuse_steps, eb,
+                                      deep=c.schedule == "deep",
+                                      ctas=h100.sms, limit=limit,
+                                      cached_rows=c.cached_rows)
+            assert lay is not None, c
+            need = lay.smem
+        assert need <= limit, c
+        assert c.cached_rows == plan_resident_planes(
+            shape, eb, spec, chip=h100, fuse_steps=c.fuse_steps,
+            schedule=c.schedule)
+        c.validate(radius=spec.radius, domain_rows=shape[0])
+    assert cands == sorted(cands, key=lambda c: (c.predicted_s, c.barriers,
+                                                 -c.cached_bytes))
+
+
+@pytest.mark.parametrize("shape,n,name,dtype", [
+    ((8192, 8192), 100, "2d5pt", torch.float32),
+    ((3072, 1152), 1000, "2d5pt", torch.float32),
+    ((256, 256, 256), 100, "3d7pt", torch.float32),
+    ((4096, 2048), 100, "2ds25pt", torch.bfloat16),
+])
+def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
+    """A candidate that runs csrc/stencil_tb.cu is priced at its byte
+    model (gm_bytes_tb at the kernel's layout) and at least its cells x
+    steps x TB_CELL_STEP_S; the others keep Eq. 5. On these shapes the
+    one-step plans are priced lower, so the pick is the one-step kernel."""
+    from repro_torch.exec import plan, planner
+    h100 = thw.H100
+    limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    spec = get_spec(name)
+    problem = _meta(shape, n, name, dtype)
+    eb = problem.x.element_size()
+    row = int(np.prod(shape[1:])) * eb
+    for c in plan_candidates(problem, chip=h100):
+        if c.tier != "resident":
+            continue
+        secs, by = planner.stencil_model_s(problem, c, chip=h100)
+        assert c.predicted_s == pytest.approx(
+            secs + planner.DISPATCH_OVERHEAD_S)
+        assert c.predicted_bound == by
+        got = planner.stencil_model_bytes(problem, c, chip=h100)
+        if c.cached_rows < shape[0] and (c.schedule == "deep"
+                                         or c.fuse_steps > 1):
+            lay = stencil2d.tb_layout(shape, spec.radius, c.fuse_steps, eb,
+                                      deep=c.schedule == "deep",
+                                      ctas=h100.sms, limit=limit,
+                                      cached_rows=c.cached_rows)
+            assert got == tcp.gm_bytes_tb(
+                n, shape, eb, radius=spec.radius, fuse_steps=c.fuse_steps,
+                cached_rows=c.cached_rows, bands=lay.nb, strip=lay.strip,
+                rows=lay.rows, deep=c.schedule == "deep")
+            assert secs >= np.prod(shape) * n * planner.TB_CELL_STEP_S
+        else:
+            assert got == tcp.gm_bytes_fused(
+                n, shape[0] * row, c.cached_rows * row, row_bytes=row,
+                radius=spec.radius, fuse_steps=1)
+            assert by != "compute"
+    best = plan(problem, chip=h100)
+    assert (best.tier, best.schedule, best.fuse_steps) == (
+        "resident", "shallow", 1)
+
+
+def test_plan_resident_planes_doubles_for_bf16():
+    from repro_torch.kernels.stencil2d import rows_per_cta
+    h100 = thw.H100
+    limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    spec = get_spec("2d5pt")
+    # 8192 cells: 7 f32 rows or 14 bf16 rows a CTA, less the 1-row ring
+    assert rows_per_cta(8192, 4, 1, limit) == 6
+    assert rows_per_cta(8192, 2, 1, limit) == 13
+    assert plan_resident_planes((8192, 8192), 2, spec, chip=h100) == 132 * 13
+    assert plan_resident_planes((8192, 8192), 4, spec, chip=h100) == 132 * 6
+    # with temporal blocking a band takes half a CTA beside its 2rt halo
+    # rows: none at f32, (7 - 4 - 1) rows a CTA at bf16 and t = 2
+    assert plan_resident_planes((8192, 8192), 4, spec, chip=h100,
+                                fuse_steps=2) == 0
+    assert plan_resident_planes((8192, 8192), 2, spec, chip=h100,
+                                fuse_steps=2) == 132 * 2
+    with pytest.raises(ValueError, match="schedule"):
+        plan_resident_planes((64, 64), 4, spec, chip=h100, schedule="wide")
+
+
+# -- reference plans with temporal blocking run in the port ---------------------
+
+@pytest.mark.parametrize("name", ["2d5pt", "2ds25pt", "3d13pt"])
+def test_reference_fused_and_deep_plans_execute(name):
+    spec = get_spec(name)
+    x = _domain(spec, seed=3)
+    jp = JaxStencilProblem(jnp.asarray(x), JAX_SPECS[name], 9)
+    tp = StencilProblem(x, spec, 9, device="cpu")
+    jcands = jax_plan_candidates(jp, max_fuse=4)
+    picked = [next(c for c in jcands if c.tier == "resident"
+                   and c.schedule == "shallow" and c.fuse_steps > 1),
+              next(c for c in jcands if c.tier == "resident"
+                   and c.schedule == "deep"),
+              JaxPlan(tier="resident", schedule="deep", fuse_steps=8,
+                      cached_rows=4 * spec.radius + 1, sub_rows=9,
+                      n_steps=9)]
+    for jplan in picked:
+        tplan = plan_from_reference(jplan.to_json())
+        assert tplan.fuse_steps == jplan.fuse_steps > 1
+        assert tplan.schedule == jplan.schedule
+        got = execute(tp, tplan)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jax_execute(jp, jplan)),
+                                   rtol=0, atol=ATOL)
+        assert torch.equal(got, tp.oracle())
+
+
+# -- bf16 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", NAMES)
+def test_bf16_plain_versions_match_reference(name):
+    spec = get_spec(name)
+    x = torch.from_numpy(_domain(spec, seed=5)).to(torch.bfloat16)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)   # same values
+    jspec = JAX_SPECS[name]
+    r = spec.radius
+    cases = [
+        (ops.stencil_resident(x, spec=spec, steps=4),
+         jk.stencil_resident(xj, jspec, steps=4)),
+        (ops.stencil_baseline_step(x, spec=spec),
+         jk.stencil_baseline_step(xj, jspec, sub_rows=8)),
+        (ops.stencil_perks(x, spec=spec, steps=4, cached_rows=4 * r + 1,
+                           sub_rows=8),
+         jk.stencil_perks(xj, jspec, steps=4, cached_rows=4 * r + 1,
+                          sub_rows=8)),
+        (ops.stencil_perks(x, spec=spec, steps=5, cached_rows=0,
+                           sub_rows=2 * r, fuse_steps=2),
+         jk.stencil_perks(xj, jspec, steps=5, cached_rows=0, sub_rows=2 * r,
+                          fuse_steps=2)),
+        (ops.stencil_perks_deep(x, spec=spec, steps=5, cached_rows=4 * r + 1,
+                                sub_rows=9, fuse_steps=4),
+         jk.stencil_perks_deep(xj, jspec, steps=5, cached_rows=4 * r + 1,
+                               sub_rows=9, fuse_steps=4)),
+    ]
+    for got, want in cases:
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=BF16_ATOL)

@@ -142,9 +142,10 @@ def test_host_loop_stops_at_on_sync():
 def test_execute_rejects_what_is_not_ported():
     spec = get_spec("2d5pt")
     p = StencilProblem(_domain(spec), spec, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="stencil_perks_deep"):
-        execute(p, Plan(tier="resident", schedule="deep", cached_rows=8,
-                        fuse_steps=2, sub_rows=8))
+    # the deep schedule is ported: it runs
+    assert torch.equal(execute(p, Plan(tier="resident", schedule="deep",
+                                       cached_rows=8, fuse_steps=2,
+                                       sub_rows=8)), p.oracle())
     with pytest.raises(NotImplementedError, match="distributed"):
         execute(p, Plan(tier="distributed", shard_axis="data"))
     with pytest.raises(ValueError, match="n_steps"):
@@ -224,15 +225,40 @@ def _meta_problem(shape, n, name="2d5pt"):
                           n, device="meta")
 
 
+def _fits_one_cta(c, shape, radius, dtype_bytes, chip):
+    """Whether the kernel of resident candidate ``c`` holds its layout in
+    one CTA's shared memory on ``chip``."""
+    from repro_torch.kernels import stencil2d
+    limit = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    if c.fuse_steps == 1 and c.schedule == "shallow":
+        row_bytes = int(np.prod(shape[1:])) * dtype_bytes
+        return stencil2d.band_smem_bytes(c.cached_rows, radius, row_bytes,
+                                         chip.sms) <= limit
+    lay = stencil2d.tb_layout(shape, radius, c.fuse_steps, dtype_bytes,
+                              deep=c.schedule == "deep", ctas=chip.sms,
+                              limit=limit, cached_rows=c.cached_rows)
+    return lay is not None and lay.smem <= limit
+
+
 @pytest.mark.parametrize("shape,n", [((8192, 8192), 100), ((3072, 1152), 1000),
                                      ((160, 160, 128), 50), ((48, 64), 7)])
 def test_planner_offers_the_three_tiers_and_nothing_unported(shape, n):
     name = "2d5pt" if len(shape) == 2 else "3d7pt"
     cands = plan_candidates(_meta_problem(shape, n, name), chip="h100")
-    assert sorted(c.tier for c in cands) == ["device_loop", "host_loop",
-                                             "resident"]
-    assert all(c.schedule == "shallow" for c in cands)
-    assert all(c.fuse_steps == 1 for c in cands if c.tier == "resident")
+    assert {c.tier for c in cands} == {"device_loop", "host_loop",
+                                       "resident"}
+    assert sorted(c.tier for c in cands if c.tier != "resident") == [
+        "device_loop", "host_loop"]
+    res = [c for c in cands if c.tier == "resident"]
+    shallow = sorted(c.fuse_steps for c in res if c.schedule == "shallow")
+    deep = sorted(c.fuse_steps for c in res if c.schedule == "deep")
+    assert shallow == [t for t in (1, 2, 4) if t <= n]
+    assert deep and deep == [2 ** k for k in range(1, len(deep) + 1)]
+    assert deep[-1] <= min(32, n)
+    for c in res:
+        assert _fits_one_cta(c, shape, get_spec(name).radius, 4, thw.H100), c
+        assert c.sub_rows >= get_spec(name).radius * (
+            c.fuse_steps if c.schedule == "shallow" else 1)
     assert all(c.chip == "h100" for c in cands)
     assert cands == sorted(cands, key=lambda c: c.predicted_s)
 
@@ -246,6 +272,14 @@ def test_planner_caches_whole_small_domain_and_part_of_large():
     # one band of 6 rows (32 KiB each) per SM on the H100's 132 SMs
     assert large.cached_rows == 132 * 6
     assert plan(_meta_problem((160, 160, 128), 50, "3d7pt")).cached_rows == 132
+    # temporal blocking keeps 2*r*t halo rows beside a band: at 8192
+    # columns no band fits beside them, and its levels cost more than the
+    # one-step kernel's bytes, so the picks above are the one-step kernel
+    for c in plan_candidates(_meta_problem((8192, 8192), 100)):
+        if c.tier == "resident" and c.fuse_steps > 1:
+            assert c.cached_rows == 0, c
+    assert (large.fuse_steps, large.schedule) == (1, "shallow")
+    assert (small.fuse_steps, small.schedule) == (1, "shallow")
 
 
 def test_planner_charges_the_device_loop_its_capture_until_kept(monkeypatch):

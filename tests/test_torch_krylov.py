@@ -525,3 +525,84 @@ def test_the_chip_cells_are_the_reference_convdiff():
     assert got.data.shape == (576, 5)
     np.testing.assert_array_equal(got.data, want.data)
     np.testing.assert_array_equal(got.cols, want.cols)
+
+
+# -- kept graphs of changed problems --------------------------------------------
+
+@pytest.mark.parametrize("kind", ["cg", "bicgstab", "gmres"])
+def test_changed_problems_share_the_kept_graph(kind, monkeypatch):
+    """A mixed-precision copy is made once, and every solve_refined round
+    runs its step function: the b-swapped rounds resolve to the first
+    round's graph key (the device loop keys by step function and shapes)."""
+    from repro_torch.core import perks
+    e = banded_spd(192, 4, seed=14).to_ell()
+    b = _rhs(192, seed=3)
+    cls = {"cg": CGProblem, "bicgstab": BiCGStabProblem,
+           "gmres": GMRESProblem}[kind]
+    kw = {"m": 4} if kind == "gmres" else {}
+    prob = cls.from_ell(e.data, e.cols, b, 3, device="cpu", **kw)
+    mixed = prob.with_precision("mixed")
+    assert prob.with_precision("mixed") is mixed
+    assert mixed.with_precision("uniform") is mixed.with_precision("uniform")
+    assert mixed.step_fn() is not prob.step_fn()
+    copy = prob.with_rhs(_t(_rhs(192, seed=4)))
+    assert copy.step_fn() is prob.step_fn()
+    assert copy.with_precision("mixed").step_fn() is mixed.step_fn()
+    assert perks._graph_key(copy.step_fn(), copy.initial_state(), 3) == \
+        perks._graph_key(prob.step_fn(), prob.initial_state(), 3)
+    seen = []
+    real = perks.persistent
+
+    def spy(step_fn, n_steps, config, *, on_sync=None):
+        seen.append(step_fn)
+        return real(step_fn, n_steps, config, on_sync=on_sync)
+
+    monkeypatch.setattr(perks, "persistent", spy)
+    solve_refined(prob, Plan(tier="device_loop", precision="mixed"), rounds=3)
+    assert len(seen) == 3 and all(f is mixed.step_fn() for f in seen)
+
+
+def test_kept_graph_replays_from_the_state_it_is_given(monkeypatch):
+    """The kept path with a stand-in for CUDA graph capture: a b-swapped
+    copy replays the original's graph (one capture in all) and gets its
+    own answer, not the original's (its b is copied into the graph's
+    input buffers), and an entry goes with its step function."""
+    import collections
+    import gc
+    import weakref
+
+    from repro_torch.core import perks
+    captured = []
+
+    def fake_capture(step_fn, x, n_steps):
+        captured.append(x)
+        step = weakref.ref(step_fn)    # a CUDA graph holds no Python object
+
+        def loop():
+            cur, bufs = x, perks._buffers(x)
+            for k in range(n_steps):
+                cur = step()(cur, bufs[k % 2])
+            return cur
+
+        out = perks._clone(loop())
+
+        class Graph:
+            def replay(self):
+                perks._copy_into(out, loop())
+
+        return Graph(), perks._buffers(x), out
+
+    monkeypatch.setattr(perks, "capture", fake_capture)
+    monkeypatch.setattr(perks, "_GRAPHS", collections.OrderedDict())
+    e = banded_spd(192, 4, seed=15).to_ell()
+    prob = CGProblem.from_ell(e.data, e.cols, _rhs(192, seed=5), 6,
+                              device="cpu")
+    copy = prob.with_rhs(_t(_rhs(192, seed=6)))
+    for p in (prob, copy, prob):
+        x, rr = p.finalize(perks._kept(p.step_fn(), p.initial_state(), 6))
+        want = execute(p, Plan(tier="host_loop"))
+        assert torch.equal(x, want[0]) and torch.equal(rr, want[1])
+    assert len(captured) == 1 and len(perks._GRAPHS) == 1
+    del prob, copy, p
+    gc.collect()
+    assert len(perks._GRAPHS) == 0, "the entry outlived its step function"
