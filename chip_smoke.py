@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's stencil, conjugate-gradient and Krylov
-(BiCGStab, GMRES(m)) paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's stencil, conjugate-gradient, Krylov
+(BiCGStab, GMRES(m)), SSD-scan and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -55,8 +55,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``precision="mixed"`` host loop on bicgstab-small, and the kept graph
    reused on bicgstab-small: the mixed-precision device loop's first run
    and its replays, and ``solve_refined`` rounds (no launch on a replay);
-11. one ``{"kernels": [...]}`` line with all ten kernels, the card's name
-   and power limit, and ``{"ok": true, "device": {...}}`` as the last
+11. the ML kernels against their plain versions: ``ssm_scan`` at the
+   reference test's shapes and at mamba2-780m's SSD widths (H = 48, P = 64,
+   N = 128, T = 8192) in f32 and bf16 at chunks 128, 15 and 1;
+   ``decode_attention`` over four (Hq, Hkv) pairs with and without
+   ``length`` in f32 and bf16, and at B = 8, S = 32768, Hq = 14, Hkv = 2,
+   D = 64 bf16; each with its time, its plain version's and (decode) one
+   ``scaled_dot_product_attention`` call's;
+12. the SSD scan path, counted: ``SSMScanProblem`` at those widths through
+   ``plan`` -> ``execute`` on all three tiers, each held to the oracle at
+   1e-3, and each tier's time;
+13. the serving path, counted: the ``Engine`` on qwen2-0.5b at full width
+   (seeded random weights on the card), 8 requests, prompt 128, 32 new
+   tokens, in the persistent and the host-loop mode, then
+   ``DecodeAttentionProblem`` on every tier from one prefill: tokens
+   identical everywhere, ``decode_attention`` 24 launches a token on the
+   host loop, times per tier; and the smoke config in float32 on the card
+   against the CPU;
+14. one ``{"kernels": [...]}`` line with all twelve kernels, the card's
+   name and power limit, and ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Without a CUDA device it prints no result and exits non-zero.
@@ -171,6 +188,24 @@ KRYLOV_KERNELS = {
                           "src/repro/kernels/krylov_fused.py:235"),
 }
 
+ML_KERNELS = {
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:72"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:61"),
+}
+# The ML kernels against their plain versions: the reference's bounds
+# (tests/test_kernels_linalg.py), the SSD scan at rtol = atol 1e-3 (f32) /
+# 5e-2 (bf16), decode attention at rtol 1e-4, atol 1e-5 (f32) / 5e-2 (bf16).
+SSM_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+DECODE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+              torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+SSM_H, SSM_P, SSM_N, SSM_T = 48, 64, 128, 8192   # mamba2-780m's SSD widths
+DECODE_HEADS = [(8, 8), (8, 2), (4, 1), (14, 2)]
+DECODE_LONG = (8, 32768, 14, 2, 64)    # B, S, Hq, Hkv, D: qwen2-0.5b heads
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+
 FAILS: list[str] = []
 
 
@@ -186,6 +221,20 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
     if not ok:
         FAILS.append(what)
     return err
+
+
+def check_decode_bf16(what: str, got: torch.Tensor,
+                      want: torch.Tensor) -> float:
+    """bf16 ``decode_attention`` against its plain version on float32 copies
+    of the same inputs: rtol 5e-2 and an atol of 5e-2 times the rms of
+    ``want`` over its last three axes (one call's (B, Hq, D)), so an output
+    of zeros or one missing a KV split fails however small the outputs are
+    (about sqrt(1/S) on random inputs)."""
+    tol = DECODE_TOL[torch.bfloat16]
+    rms = want.double().pow(2).mean(dim=(-3, -2, -1), keepdim=True).sqrt()
+    return check_close(f"{what} (atol {tol['atol']} x rms, rms >= "
+                       f"{rms.min().item()!r})", got, want, tol["rtol"],
+                       tol["atol"] * rms)
 
 
 def check(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -209,6 +258,24 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 50) -> float:
+    """Milliseconds of one call of ``fn`` on the card alone: ``calls`` calls
+    captured into a CUDA graph, the replay timed (median of three, CUDA
+    events) and divided by ``calls``. For kernels shorter than the host's
+    cost of a call, which ``cuda_ms`` would measure instead."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, 3) / calls
 
 
 def bound(spec, shape, steps: int, moved_bytes: float) -> tuple[float, str]:
@@ -931,6 +998,390 @@ def krylov_phases(rng):
     return errs, timing, launches
 
 
+def ssd_scan_flops(t_len: int, heads: int, p: int, n: int,
+                   chunk: int) -> float:
+    """Float32 operations of the SSD scan as ``ssm_scan`` does it (multiply
+    and add apart): per output the intra-chunk sum over its row of the
+    chunk and the cross term over N, per state entry the update over the
+    chunk, and the chunks' score matrices (shared by the heads)."""
+    ck = min(chunk, t_len)
+    full, rem = divmod(t_len, ck)
+    tri = full * ck * (ck + 1) // 2 + rem * (rem + 1) // 2
+    return float(heads * 2 * p * (tri + 2 * t_len * n) + 2 * tri * n)
+
+
+def ssd_scan_bytes(t_len: int, heads: int, p: int, n: int,
+                   itemsize: int) -> float:
+    """Bytes the SSD scan must move: x, dt, b, c read once, y written once,
+    a and d (float32) read once."""
+    return float(itemsize * (2 * t_len * heads * p + t_len * heads
+                             + 2 * t_len * n) + 8 * heads)
+
+
+def decode_bytes(bsz: int, seq: int, hq: int, hkv: int, dim: int,
+                 itemsize: int) -> float:
+    """Bytes decode attention must move over a full cache: every K and V
+    row read once, q read and the output written once."""
+    return float(itemsize * (2 * bsz * seq * hkv * dim + 2 * bsz * hq * dim))
+
+
+def sdpa_decode(q, k, v, length):
+    """One ``F.scaled_dot_product_attention`` call computing the same
+    masked GQA decode (the yardstick for ``decode_attention``; the port
+    never calls it)."""
+    import torch.nn.functional as F
+    qh = q[:, :, None, :]                      # (B, Hq, 1, D)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)   # (B, Hkv, S, D) views
+    mask = None
+    if length is not None:
+        mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+                < length[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def ml_phases(rng):
+    """Phases 11-13: the ML kernels against their plain versions, the SSD
+    scan path and the serving path, each counted. Returns (errors, timing,
+    launches) by kernel name."""
+    from repro_torch import (DecodeAttentionProblem, Engine, Model, Plan,
+                             SSMScanProblem, execute, plan)
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import perks
+    from repro_torch.exec import plan_candidates
+    from repro_torch.kernels import decode_attn, ops, ref
+    from repro_torch.nn.param import tree_map
+    from repro_torch.runtime.server import Request, ServeConfig
+
+    errs = {k: 0.0 for k in ML_KERNELS}
+    timing, launches = {}, {}
+
+    def keep(k, e):
+        errs[k] = max(errs[k], e)
+
+    def put(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dtype)
+
+    def ssd_inputs(bsz, t, h, p, n):
+        x = put(0.5 * rng.standard_normal((bsz, t, h, p)))
+        dt = torch.nn.functional.softplus(put(rng.standard_normal((bsz, t, h))))
+        a = -torch.exp(put(rng.standard_normal(h)))
+        b = put(0.5 * rng.standard_normal((bsz, t, n)))
+        c = put(0.5 * rng.standard_normal((bsz, t, n)))
+        d = put(rng.standard_normal(h))
+        return x, dt, a, b, c, d
+
+    def plain_ssd(x, dt, a, b, c, d):
+        return torch.stack([ref.ssm_scan(x[i].float(), dt[i].float(), a,
+                                         b[i].float(), c[i].float(), d)
+                            for i in range(x.shape[0])])
+
+    # -- 11. kernels against their plain versions ------------------------------
+    print(f"[ml kernels] ssm_scan at the reference test's shapes and at "
+          f"mamba2-780m widths (H={SSM_H}, P={SSM_P}, N={SSM_N}, "
+          f"T={SSM_T}); rtol=atol {SSM_TOL}")
+    for bsz, t, h, p, n, chunks in ((2, 64, 4, 8, 16, (8, 16, 64, 15)),
+                                    (1, SSM_T, SSM_H, SSM_P, SSM_N,
+                                     (128, 15, 1))):
+        inputs = ssd_inputs(bsz, t, h, p, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, b, c, d = (v.to(dtype) if v.dim() > 1 else v
+                                 for v in inputs)
+            want = plain_ssd(x, dt, a, b, c, d)
+            tol = SSM_TOL[dtype]
+            for ck in chunks:
+                got = ops.ssd_scan(x, dt, a, b, c, d, chunk=ck)
+                keep("ssm_scan", check_close(
+                    f"ssm_scan B={bsz} T={t} H={h} P={p} N={n} "
+                    f"{str(dtype)[6:]} chunk={ck}", got.float(), want, tol,
+                    tol))
+            if t == SSM_T and dtype == torch.float32:
+                mamba = inputs, want
+    (x, dt, a, b, c, d), ssm_want = mamba
+    run = lambda: ops.ssd_scan(x, dt, a, b, c, d, chunk=128)
+    flops = ssd_scan_flops(SSM_T, SSM_H, SSM_P, SSM_N, 128)
+    moved = ssd_scan_bytes(SSM_T, SSM_H, SSM_P, SSM_N, 4)
+    t_ops, t_bytes = flops / FP32_FLOPS, moved / HBM_BW
+    timing["ssm_scan"] = dict(
+        ms=cuda_ms(run, 5), graph_ms=graph_ms(run, 5),
+        plain_ms=cuda_ms(lambda: plain_ssd(x, dt, a, b, c, d), 1),
+        bound=(1e3 * max(t_ops, t_bytes),
+               "operations" if t_ops >= t_bytes else "bytes"),
+        library_ms=None, flops=flops, bytes=moved)
+    print(f"  ssm_scan mamba2-780m f32 chunk=128: "
+          f"{json.dumps(timing['ssm_scan'])}")
+    for ck in (15, 1):
+        print(f"  ssm_scan mamba2-780m f32 chunk={ck}: ms="
+              f"{cuda_ms(lambda: ops.ssd_scan(x, dt, a, b, c, d, chunk=ck), 2)!r}")
+    xb = [v.to(torch.bfloat16) if v.dim() > 1 else v for v in (x, dt, a, b, c, d)]
+    print(f"  ssm_scan mamba2-780m bf16 chunk=128: ms="
+          f"{cuda_ms(lambda: ops.ssd_scan(*xb, chunk=128), 5)!r}")
+
+    print(f"[ml kernels] decode_attention over (Hq, Hkv) {DECODE_HEADS}, "
+          f"with and without length; f32 rtol/atol {DECODE_TOL[torch.float32]}"
+          f", bf16 {DECODE_TOL[torch.bfloat16]}")
+    for hq, hkv in DECODE_HEADS:
+        dim = 64 if hq == 14 else 32
+        for s in (96, 128, 1000):
+            base = [put(rng.standard_normal(shape)) for shape in (
+                (2, hq, dim), (2, s, hkv, dim), (2, s, hkv, dim))]
+            length = torch.tensor([s, s // 3 + 1], dtype=torch.int32,
+                                  device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                for ln in (None, length):
+                    got = ops.decode_attention(q, k, v, length=ln)
+                    want = ref.decode_attention(q.float(), k.float(),
+                                                v.float(), length=ln)
+                    what = (f"decode_attention Hq={hq} Hkv={hkv} S={s} "
+                            f"D={dim} {str(dtype)[6:]} "
+                            f"length={ln is not None}")
+                    keep("decode_attention", check_close(
+                        what, got.float(), want, **DECODE_TOL[dtype])
+                        if dtype == torch.float32 else
+                        check_decode_bf16(what, got.float(), want))
+    bsz, s, hq, hkv, dim = DECODE_LONG
+    q = put(rng.standard_normal((bsz, hq, dim)), torch.bfloat16)
+    k = put(rng.standard_normal((bsz, s, hkv, dim)), torch.bfloat16)
+    v = put(rng.standard_normal((bsz, s, hkv, dim)), torch.bfloat16)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    for ln in (None, torch.tensor([s - 37 * i for i in range(bsz)],
+                                  dtype=torch.int32, device="cuda")):
+        got = ops.decode_attention(q, k, v, length=ln)
+        want = ref.decode_attention(q32, k32, v32, length=ln)
+        what = (f"decode_attention B={bsz} S={s} Hq={hq} Hkv={hkv} D={dim} "
+                f"length={ln is not None}")
+        keep("decode_attention", check_decode_bf16(f"{what} bf16",
+                                                   got.float(), want))
+        # the float32 kernel on the same values: the multi-split combine
+        # held at the f32 tolerance
+        keep("decode_attention", check_close(
+            f"{what} f32", ops.decode_attention(q32, k32, v32, length=ln),
+            want, **DECODE_TOL[torch.float32]))
+        lib = sdpa_decode(q, k, v, ln)
+        check_close(f"  (SDPA yardstick against the plain version, "
+                    f"length={ln is not None})", lib()[:, :, 0].float(), want,
+                    **DECODE_TOL[torch.bfloat16])
+    del q32, k32, v32
+    run = lambda: ops.decode_attention(q, k, v)
+    moved = decode_bytes(bsz, s, hq, hkv, dim, 2)
+    timing["decode_attention"] = dict(
+        ms=cuda_ms(run, 20), graph_ms=graph_ms(run, 20),
+        plain_ms=cuda_ms(lambda: ref.decode_attention(q, k, v), 5),
+        bound=(1e3 * moved / HBM_BW, "bytes"),
+        library_ms=cuda_ms(sdpa_decode(q, k, v, None), 20), bytes=moved,
+        splits=decode_attn.splits_for(bsz, hkv, s, torch.cuda.
+                                      get_device_properties(0)
+                                      .multi_processor_count))
+    print(f"  decode_attention B={bsz} S={s} bf16: "
+          f"{json.dumps(timing['decode_attention'])}")
+
+    # -- 12. the SSD scan path, counted -----------------------------------------
+    print(f"[ssm path] SSMScanProblem mamba2-780m widths T={SSM_T}, chunk "
+          f"128, f32; counters set to 0")
+    problem = SSMScanProblem(x[0], dt[0], a, b[0], c[0], d, chunk=128)
+    best = plan(problem)
+    print(f"  plan: {best.to_json(indent=None)}")
+    want = ssm_want[0]
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    for p in (best, Plan(tier="host_loop"), Plan(tier="device_loop"),
+              Plan(tier="device_loop"), Plan(tier="resident")):
+        before = ops.launch_counts()
+        y = execute(problem, p)
+        torch.cuda.synchronize()
+        delta = {k: v_ - before[k] for k, v_ in ops.launch_counts().items()
+                 if v_ != before[k]}
+        e = check_close(f"execute ssm {p.tier} launches={delta}", y, want,
+                        1e-3, 1e-3)
+        if p.tier == "resident":
+            keep("ssm_scan", e)
+    launches["ssm_scan"] = ops.launch_counts()["ssm_scan"]
+    print(f"[ssm path] launches {json.dumps(ops.launch_counts())}")
+    if launches["ssm_scan"] == 0:
+        FAILS.append("ssm_scan was not launched on the SSD scan path")
+    if best.tier != "resident":
+        FAILS.append(f"the SSD scan plan is not resident: {best}")
+    for p in plan_candidates(problem):
+        first = None
+        if p.tier == "device_loop":
+            perks.clear_graphs()
+            first = cuda_ms(lambda: execute(problem, p), 0)
+        ms = cuda_ms(lambda: execute(problem, p), 3)
+        print("  " + json.dumps(dict(cell="ssm", tier=p.tier, ms=ms,
+                                     first_ms=first,
+                                     predicted_ms=1e3 * p.predicted_s)))
+    perks.clear_graphs()
+
+    # -- 13. the serving path, counted --------------------------------------------
+    cfg = get_config(SERVE_ARCH)
+    print(f"[serve] Engine on {SERVE_ARCH} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}), seeded init "
+          f"on the card; {SERVE_REQUESTS} requests, prompt {SERVE_PROMPT}, "
+          f"{SERVE_NEW} new tokens; counters set to 0")
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - t0:.2f} s, "
+          f"{model.n_params()} parameters")
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT, dtype=np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    outs = {}
+    for persistent in (True, False):
+        # one engine per mode, two batches: the first persistent batch
+        # captures the decode graph, the second replays it
+        eng = Engine(model, params, ServeConfig(max_batch=SERVE_REQUESTS,
+                                                persistent=persistent))
+        for batch in range(2):
+            for pr in prompts:
+                eng.submit(Request(prompt=pr, max_new_tokens=SERVE_NEW))
+            before = ops.launch_counts()["decode_attention"]
+            out, stats = eng.run_batch()
+            n = ops.launch_counts()["decode_attention"] - before
+            ok = (out.shape == (SERVE_REQUESTS, SERVE_NEW)
+                  and bool(((out >= 0) & (out < cfg.vocab)).all()))
+            stats.update(batch_index=batch, decode_attention_launches=n,
+                         tokens_ok=ok)
+            print("  " + json.dumps(stats))
+            if not ok:
+                FAILS.append(f"the Engine returned tokens of shape "
+                             f"{out.shape} or outside the vocabulary")
+            if not persistent and n != cfg.n_layers * (SERVE_NEW - 1):
+                FAILS.append(f"host-loop serving launched decode_attention "
+                             f"{n} times, not {cfg.n_layers} a token")
+            if persistent and batch and n:
+                FAILS.append(f"the second persistent batch launched "
+                             f"decode_attention {n} times (no graph replay)")
+            outs.setdefault(stats["mode"], []).append(out)
+    toks = outs["persistent"][0]
+    if not all(np.array_equal(toks, o) for os_ in outs.values() for o in os_):
+        FAILS.append("the Engine's tokens differ between modes or runs")
+    # DecodeAttentionProblem on every tier from one prefill
+    cparams = model.compute_params(params)
+    tokens = torch.from_numpy(np.stack(prompts)).cuda()
+    logits, cache = model.prefill(cparams, {"tokens": tokens},
+                                  cache_seq=SERVE_PROMPT + SERVE_NEW)
+    if not bool(torch.isfinite(logits).all()):
+        FAILS.append("the prefill logits are not finite")
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    prob = DecodeAttentionProblem(model=model, params=cparams, cache=cache,
+                                  first_tokens=first, n_steps=SERVE_NEW - 1)
+    best = plan(prob)
+    print(f"  plan: {best.to_json(indent=None)}")
+    tiers = {}
+    for p in (Plan(tier="host_loop"), Plan(tier="device_loop"),
+              Plan(tier="device_loop"), Plan(tier="resident"),
+              Plan(tier="resident")):
+        before = ops.launch_counts()["decode_attention"]
+        got, _ = execute(prob, p)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["decode_attention"] - before
+        same = np.array_equal(np.concatenate(
+            [first.cpu().numpy()[:, None], got.cpu().numpy()], 1), toks)
+        print(f"  execute decode {p.tier}: launches={n} tokens equal the "
+              f"Engine's: {same}")
+        if not same:
+            FAILS.append(f"decode {p.tier} tokens differ from the Engine's")
+        tiers[p.tier] = p
+    launches["decode_attention"] = ops.launch_counts()["decode_attention"]
+    print(f"[serve] launches {json.dumps(ops.launch_counts())}")
+    if launches["decode_attention"] == 0:
+        FAILS.append("decode_attention was not launched on the serving path")
+    # the kernel against its plain version at the shapes and on the values
+    # the serving path gives it: every layer's q, cache and length of the
+    # first and the last decode step, recorded from decode_step on a copy
+    # of the prefilled cache (these launches come after the count is read)
+    print(f"[serve] decode_attention against its plain version on the "
+          f"served inputs: B={SERVE_REQUESTS}, S={cache['k'].shape[2]}, "
+          f"Hq/Hkv={cfg.n_heads}/{cfg.n_kv_heads}, D={cfg.head_dim}, "
+          f"{str(cache['k'].dtype)[6:]}, length=pos+1; bf16 and float32")
+    import repro_torch.models.transformer as tfm
+    real, calls = tfm.decode_attention, []
+
+    def record(q, k, v, *, length=None):
+        calls.append((q.clone(), k.clone(), v.clone(), length.clone()))
+        return real(q, k, v, length=length)
+
+    rec_cache = {n: t.clone() for n, t in prob.cache.items()}
+    tok, rec_toks = first, [first]
+    for i in range(SERVE_NEW - 1):
+        tfm.decode_attention = record if i in (0, SERVE_NEW - 2) else real
+        try:
+            lg, rec_cache = model.decode_step(cparams, rec_cache, tok)
+        finally:
+            tfm.decode_attention = real
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        rec_toks.append(tok)
+    if not np.array_equal(torch.stack(rec_toks, 1).cpu().numpy(), toks):
+        FAILS.append("the recorded decode_step tokens differ from the "
+                     "Engine's")
+    for step, part in (("first", calls[:cfg.n_layers]),
+                       ("last", calls[cfg.n_layers:])):
+        q, k, v, ln = (torch.stack(t) for t in zip(*part))
+        want = torch.stack([ref.decode_attention(
+            qi.float(), ki.float(), vi.float(), length=li)
+            for qi, ki, vi, li in part])
+        got = torch.stack([ops.decode_attention(qi, ki, vi, length=li)
+                           for qi, ki, vi, li in part])
+        got32 = torch.stack([ops.decode_attention(
+            qi.float(), ki.float(), vi.float(), length=li)
+            for qi, ki, vi, li in part])
+        what = (f"decode_attention served, {cfg.n_layers} layers of the "
+                f"{step} step, length={int(ln[0, 0])}")
+        keep("decode_attention", check_decode_bf16(
+            f"{what} {str(q.dtype)[6:]}", got.float(), want))
+        keep("decode_attention", check_close(
+            f"{what} f32", got32, want, **DECODE_TOL[torch.float32]))
+    del calls, rec_cache
+    for name, p in tiers.items():
+        ms = cuda_ms(lambda: execute(prob, p), 3)
+        print("  " + json.dumps(dict(
+            cell="serve", tier=name, decode_ms=ms,
+            ms_per_token=ms / (SERVE_NEW - 1),
+            tok_per_s=SERVE_REQUESTS * (SERVE_NEW - 1) / (ms / 1e3))))
+    ms = cuda_ms(lambda: model.prefill(cparams, {"tokens": tokens},
+                                       cache_seq=SERVE_PROMPT + SERVE_NEW), 3)
+    print("  " + json.dumps(dict(cell="serve", prefill_ms=ms)))
+    kc = prob.cache["k"][0]
+    ln = torch.full((SERVE_REQUESTS,), SERVE_PROMPT, dtype=torch.int32,
+                    device="cuda")
+    qd = torch.randn((SERVE_REQUESTS, cfg.n_heads, cfg.head_dim),
+                     device="cuda").to(kc.dtype)
+    one = lambda: ops.decode_attention(qd, kc, prob.cache["v"][0], length=ln)
+    lib = sdpa_decode(qd, kc, prob.cache["v"][0], ln)
+    print("  " + json.dumps(dict(
+        cell="serve", what="one layer's decode attention, S = "
+        f"{kc.shape[1]}, in a graph of 50 calls",
+        decode_attention_ms=graph_ms(one), sdpa_ms=graph_ms(lib),
+        decode_attention_host_ms=cuda_ms(one, 20))))
+    perks.clear_graphs()
+
+    # the port's card path against its CPU path on a small input: the smoke
+    # config in float32, the same weights on both
+    import dataclasses
+    small = Model(dataclasses.replace(get_smoke_config(SERVE_ARCH),
+                                      compute_dtype=torch.float32))
+    sp = small.init(torch.Generator(device="cuda").manual_seed(SEED))
+    spc = tree_map(torch.Tensor.cpu, sp)
+    pr = torch.from_numpy(rng.integers(0, small.cfg.vocab, (2, 16),
+                                       dtype=np.int32))
+    lg_c, cache_c = small.prefill(sp, {"tokens": pr.cuda()}, cache_seq=24)
+    lg_h, cache_h = small.prefill(spc, {"tokens": pr}, cache_seq=24)
+    check_close("smoke f32 prefill logits, card vs CPU", lg_c.cpu(), lg_h,
+                1e-4, 1e-4)
+    tok = torch.argmax(lg_h, -1).to(torch.int32)
+    for i in range(4):
+        lg_c, cache_c = small.decode_step(sp, cache_c, tok.cuda())
+        lg_h, cache_h = small.decode_step(spc, cache_h, tok)
+        check_close(f"smoke f32 decode step {i} logits, card vs CPU",
+                    lg_c.cpu(), lg_h, 1e-4, 1e-4)
+        tok = torch.argmax(lg_h, -1).to(torch.int32)
+    return errs, timing, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1216,12 +1667,16 @@ def main() -> int:
     # -- 8-10. the Krylov path ------------------------------------------------------------
     kr_errs, kr_timing, kr_launches = krylov_phases(rng)
 
-    # -- 11. report -------------------------------------------------------------------
+    # -- 11-13. the ML kernels, the SSD scan path and the serving path ---------------
+    ml_errs, ml_timing, ml_launches = ml_phases(rng)
+
+    # -- 14. report -------------------------------------------------------------------
     kernels = []
     for table, e, tm, ln in ((STENCIL_KERNELS, errs, timing, launches),
                              (CG_KERNELS, cg_errs, cg_timing, cg_launches),
                              (KRYLOV_KERNELS, kr_errs, kr_timing,
-                              kr_launches)):
+                              kr_launches),
+                             (ML_KERNELS, ml_errs, ml_timing, ml_launches)):
         for k, (source, replaces) in table.items():
             t = tm[k]
             kernels.append(dict(

@@ -30,11 +30,29 @@ it. The stencil, conjugate-gradient and Krylov paths::
     problem = GMRESProblem.from_ell(data, cols, b, 4, m=16, matrix=matrix)
     x, rr = execute(problem, plan(problem))                   # 4 cycles
 
+The ML serving path::
+
+    from repro_torch import Engine, Model, SSMScanProblem
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.server import Request
+
+    model = Model(get_config("qwen2-0.5b"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    engine = Engine(model, params)
+    engine.submit(Request(prompt, max_new_tokens=32))
+    tokens, stats = engine.run_batch()      # DecodeAttentionProblem inside
+    problem = SSMScanProblem(x, dt, a, b, c, d, chunk=128)
+    y = execute(problem, plan(problem))     # resident: ssm_scan
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the plain torch versions of the kernels run.
 """
-from repro_torch.exec import (BiCGStabProblem, CGProblem, GMRESProblem, Plan,
-                              StencilProblem, execute, plan)
+from repro_torch.exec import (BiCGStabProblem, CGProblem,
+                              DecodeAttentionProblem, GMRESProblem, Plan,
+                              SSMScanProblem, StencilProblem, execute, plan)
+from repro_torch.models.lm import Model
+from repro_torch.runtime.server import Engine
 
-__all__ = ["BiCGStabProblem", "CGProblem", "GMRESProblem", "Plan",
+__all__ = ["BiCGStabProblem", "CGProblem", "DecodeAttentionProblem",
+           "Engine", "GMRESProblem", "Model", "Plan", "SSMScanProblem",
            "StencilProblem", "execute", "plan"]

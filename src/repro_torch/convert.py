@@ -1,6 +1,7 @@
 """Carry the reference package's objects into the port without importing
 the reference: specs and sparse operators by duck typing, plans through
-their JSON schema, domains through numpy."""
+their JSON schema, domains, model parameters and decode caches through
+numpy."""
 from __future__ import annotations
 
 import json
@@ -66,3 +67,32 @@ def sell_from_reference(sell: Any, device: _device.DeviceLike = None):
                         put(sell.slice_offsets), put(sell.slice_k),
                         put(sell.positions), int(sell.c), int(sell.k_max),
                         int(sell.n_rows), matrix=sell.matrix)
+
+
+def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """One numpy array (bf16 ones, as numpy holds jax's bfloat16, included)
+    as a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device).contiguous()
+
+
+def params_from_reference(tree: Any, device: _device.DeviceLike = None):
+    """The port's parameter tree (nested dicts of tensors, the same keys) on
+    ``device`` (default ``"cuda"``) from the reference's parameters as
+    numpy arrays (``jax.tree.map(np.asarray, params)``)."""
+    dev = _device.resolve(device)
+
+    def conv(t):
+        return ({k: conv(v) for k, v in t.items()} if isinstance(t, dict)
+                else _tensor_from_numpy(t, dev))
+
+    return conv(tree)
+
+
+def cache_from_reference(tree: Any, device: _device.DeviceLike = None):
+    """A prefilled decode cache (``{"k", "v", "pos"}``) from the reference's
+    as numpy arrays, on ``device`` (default ``"cuda"``)."""
+    return params_from_reference(tree, device)

@@ -5,7 +5,8 @@
 * :class:`StencilProblem`, :class:`CGProblem` (``adapters.py``) — the
   paper's stencil and conjugate-gradient workloads;
   :class:`BiCGStabProblem`, :class:`GMRESProblem` (``krylov.py``) — the
-  nonsymmetric Krylov family.
+  nonsymmetric Krylov family; :class:`DecodeAttentionProblem`,
+  :class:`SSMScanProblem` (``ml.py``) — LM decode and the Mamba2 SSD scan.
 * :class:`Plan` (``plan.py``) — how to run, with the reference's JSON
   schema.
 * :func:`plan` (``planner.py``) — ranks host_loop / device_loop / resident
@@ -21,6 +22,7 @@ from repro_torch.exec.adapters import (
 )
 from repro_torch.exec.executor import execute, honors_on_sync
 from repro_torch.exec.krylov import BiCGStabProblem, GMRESProblem
+from repro_torch.exec.ml import DecodeAttentionProblem, SSMScanProblem
 from repro_torch.exec.plan import SCHEDULES, TIERS, CacheDecision, Plan
 from repro_torch.exec.planner import cg_policy, plan, plan_candidates
 from repro_torch.exec.precision import compensated_vdot, solve_refined
@@ -30,11 +32,13 @@ __all__ = [
     "BiCGStabProblem",
     "CGProblem",
     "CacheDecision",
+    "DecodeAttentionProblem",
     "HaloSpec",
     "GMRESProblem",
     "Plan",
     "Problem",
     "SCHEDULES",
+    "SSMScanProblem",
     "StencilProblem",
     "TIERS",
     "cg_policy",

@@ -1,9 +1,9 @@
-"""``plan(problem)``: the planner of the port — the ``_stencil_candidates``
-and ``_cg_candidates`` branches of ``repro/exec/planner.py`` for one
-instance on one card. The CG branch serves the Krylov family (``"cg"``,
-``"bicgstab"``, ``"gmres"``) with the reference's gates: no VEC candidate
-for GMRES, and its MIX only when all of A fits beside the basis (the cycle
-kernel streams no row of A).
+"""``plan(problem)``: the planner of the port — the ``_stencil_candidates``,
+``_cg_candidates`` and ``_ml_candidates`` branches of
+``repro/exec/planner.py`` for one instance on one card. The CG branch
+serves the Krylov family (``"cg"``, ``"bicgstab"``, ``"gmres"``) with the
+reference's gates: no VEC candidate for GMRES, and its MIX only when all
+of A fits beside the basis (the cycle kernel streams no row of A).
 
 It enumerates the host_loop, device_loop and resident candidates, prices
 each with the paper's performance model (``core.perf_model``; the
@@ -25,6 +25,13 @@ arithmetic, whatever the bytes (``stencil_model_bytes`` and
 shared memory (``stencil2d.tb_layout``, the card's per-block limit, or the
 H100 data sheet's on the CPU): a depth the kernel cannot run is not
 offered, and the first deep overflow ends the deep sweep.
+
+The ML branch (``_ml_candidates``) prices ``DecodeAttentionProblem`` and
+``SSMScanProblem`` with the reference's traffic model on the H100: per-step
+streamed bytes from ``cacheable_arrays``, the resident tier eliding the
+``carry_names`` round trips and offered only when
+``resident_scratch_bytes`` fits 0.9 of the on-chip bytes and no
+convergence check is declared (EOS decode lands on a chunked device loop).
 
 A Krylov host loop pays its kind's launches per step (the reference
 charges one): ``problem.step_launches()``, i.e.
@@ -301,6 +308,57 @@ def _cg_candidates(problem, chip: Chip, *,
     return cands
 
 
+def _ml_candidates(problem, chip: Chip, *,
+                   sync_every: Optional[int]) -> list[Plan]:
+    """Candidates for the ML problems (``exec/ml.py``), the reference's
+    formulas for one instance: the loop tiers stream every
+    ``cacheable_arrays`` byte each step, the resident tier all but the
+    ``carry_names`` arrays' (kept on chip for the whole loop). Where the
+    problem keeps its carry on chip on every tier
+    (``carry_on_chip_every_tier``: the port's decode, whose every tier runs
+    the flash-decode kernel), no tier is charged the carry."""
+    arrays = list(problem.cacheable_arrays())
+    n = problem.n_steps
+    carry_names = frozenset(getattr(problem, "carry_names", ()))
+    total = sum(a.bytes * (a.loads_per_step + a.stores_per_step)
+                for a in arrays)
+    carry = sum(a.bytes * (a.loads_per_step + a.stores_per_step)
+                for a in arrays if a.name in carry_names)
+    carry_bytes = sum(a.bytes for a in arrays if a.name in carry_names)
+    if getattr(problem, "carry_on_chip_every_tier", False):
+        total -= carry
+        carry = carry_bytes = 0.0
+    has_sync = problem.on_sync() is not None
+    if sync_every is None and has_sync and n > 1:
+        # decode declares a convergence check (EOS); a short cadence, as
+        # the reference's
+        sync_every = min(8, max(1, n - 1))
+    common = dict(n_steps=n, problem=problem.name, chip=chip.name,
+                  sync_every=sync_every)
+    cands = [
+        Plan(tier="host_loop",
+             predicted_s=n * (total / chip.hbm_bw + DISPATCH_OVERHEAD_S),
+             predicted_bound="main_memory", **common),
+        Plan(tier="device_loop",
+             predicted_s=n * total / chip.hbm_bw + DISPATCH_OVERHEAD_S,
+             predicted_bound="main_memory", **common),
+    ]
+    # RESIDENT: the whole loop in one fused program with the carry on chip;
+    # never with a convergence check (it has no host-sync point)
+    if (not has_sync and n > 0
+            and problem.resident_scratch_bytes() <= chip.onchip_bytes * 0.9):
+        t_gm = n * max(0.0, total - carry) / chip.hbm_bw
+        t_sm = sm_bytes_accessed(n, carry_bytes) / chip.onchip_bw
+        cands.append(Plan(
+            tier="resident", fuse_steps=max(1, n),
+            cache=tuple(CacheDecision(a.name, a.bytes, a.bytes)
+                        for a in arrays if a.name in carry_names),
+            predicted_s=max(t_gm, t_sm) + DISPATCH_OVERHEAD_S,
+            predicted_bound=("main_memory" if t_gm >= t_sm
+                             else "onchip_memory"), **common))
+    return cands
+
+
 def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
                     max_fuse: int = 4, sub_rows: int = 128,
                     budget_bytes: Optional[int] = None,
@@ -319,6 +377,8 @@ def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
                                     max_fuse=max_fuse)
     elif problem.kind in ("cg", "bicgstab", "gmres"):
         cands = _cg_candidates(problem, chip, sync_every=sync_every)
+    elif problem.kind in ("decode", "ssm"):
+        cands = _ml_candidates(problem, chip, sync_every=sync_every)
     else:
         raise NotImplementedError(
             f"no candidate generator for problem kind {problem.kind!r}")

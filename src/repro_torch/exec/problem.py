@@ -57,7 +57,10 @@ def _sample_elements(a, shape, k: int = 16):
     if isinstance(a, np.ndarray):
         return a.reshape(-1)[idx]
     if isinstance(a, torch.Tensor) and a.device.type != "meta":
-        return a.reshape(-1)[torch.from_numpy(idx).to(a.device)].cpu().numpy()
+        t = a.reshape(-1)[torch.from_numpy(idx).to(a.device)].cpu()
+        if t.dtype == torch.bfloat16:    # numpy has no bf16: the same bytes
+            t = t.view(torch.int16)
+        return t.numpy()
     return None
 
 

@@ -11,6 +11,10 @@
 - ``krylov_fused`` — PERKS BiCGStab (the iteration loop in one cooperative
   launch) and one GMRES(m) restart cycle (the Arnoldi basis and the matrix
   in shared memory for the cycle).
+- ``ssm_scan`` — the Mamba2 SSD chunk scan, each CTA walking the chunks of
+  its sequence with its head's state in shared memory.
+- ``decode_attn`` — GQA flash-decode: one query token against its KV cache,
+  split over CTAs along the sequence.
 
 ``ops.py`` holds the keyword wrappers and launch counters; ``ref.py`` the
 plain torch versions every kernel is held against.

@@ -36,6 +36,8 @@ SOURCES = {
     "cg_fused": "cg_fused.cu",
     "bicgstab_fused": "bicgstab_fused.cu",
     "gmres_cycle_fused": "gmres_cycle_fused.cu",
+    "ssm_scan": "ssm_scan.cu",
+    "decode_attn": "decode_attn.cu",
 }
 HEADERS = ("stencil_common.cuh", "krylov_common.cuh")
 
@@ -124,6 +126,16 @@ _SIGNATURES = {
                                           _P, _I, _I, _I, _I, _I, _I, _P]),
         "gmres_cycle_fused_max_ctas": (_I, [_I, _IP]),
         "gmres_cycle_fused_smem": (_I, [_IP, _IP]),
+    },
+    "ssm_scan": {
+        "ssm_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P]),
+        "ssm_scan_smem_bytes": (_I, [_I, _I]),
+        "ssm_scan_smem": (_I, [_IP, _IP]),
+    },
+    "decode_attn": {
+        "decode_attn_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _P]),
     },
 }
 

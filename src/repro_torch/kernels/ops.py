@@ -1,6 +1,7 @@
 """Public keyword wrappers for the port's kernels, as in
-``repro/kernels/ops.py``: the stencils (temporal blocking included), the ELL and SELL-C-σ SpMVs, the
-fused conjugate gradient, BiCGStab and the GMRES(m) cycle.
+``repro/kernels/ops.py``: the stencils (temporal blocking included), the
+ELL and SELL-C-σ SpMVs, the fused conjugate gradient, BiCGStab, the
+GMRES(m) cycle, the Mamba2 SSD scan and flash-decode attention.
 
 Each call dispatches on the tensor's device: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor runs the plain torch version. ``launch_counts``/``reset_launch_counts`` read and
@@ -13,9 +14,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cg_fused as _cg
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import krylov_fused as _kry
 from repro_torch.kernels import spmv_ell as _spmv
 from repro_torch.kernels import spmv_sell as _sell
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import stencil2d as _s2d
 from repro_torch.kernels.common import StencilSpec
 
@@ -33,6 +36,8 @@ KERNELS = {
     "cg_fused": (_cg.cg_fused, "launches"),
     "bicgstab_fused": (_kry.bicgstab_fused, "launches"),
     "gmres_cycle_fused": (_kry.gmres_cycle_fused, "launches"),
+    "ssm_scan": (_ssm.ssd_scan, "launches"),
+    "decode_attention": (_da.decode_attention, "launches"),
 }
 
 
@@ -114,6 +119,21 @@ def gmres_cycle(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     least-squares solve included. Returns (V, H, beta, x_new): the
     reference's (V, H, beta), and x + y V[:m]."""
     return _kry.gmres_cycle_fused(data, cols, x, b, m=m)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Batched Mamba2 SSD scan with the state on chip: x (B,T,H,P), dt
+    (B,T,H), a (H,), b/c (B,T,N), d (H,) -> y (B,T,H,P)."""
+    return _ssm.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-decode GQA attention against a KV cache, with optional (B,)
+    valid lengths."""
+    return _da.decode_attention(q, k, v, length=length)
 
 
 def launch_counts() -> dict[str, int]:

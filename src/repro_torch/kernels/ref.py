@@ -1,6 +1,6 @@
 """Plain torch versions of the port's kernels (the port's
 ``repro/kernels/ref.py``: the stencils, the two SpMVs, conjugate
-gradient, BiCGStab and GMRES(m)).
+gradient, BiCGStab, GMRES(m), the Mamba2 SSD scan and decode attention).
 
 They are what the CPU path runs and what ``chip_smoke.py`` holds each CUDA
 kernel against on the card. No custom kernel, no scratch: torch ops only.
@@ -290,3 +290,58 @@ def gmres_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
         state = gmres_cycle_matvec(state, lambda q: spmv_ell(data, cols, q),
                                    b, m)
     return state
+
+
+# -- Mamba2 / SSD scan --------------------------------------------------------
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor,
+             d: torch.Tensor) -> torch.Tensor:
+    """Selective-state-space (Mamba2 SSD) reference via the per-step
+    recurrence, single sequence:
+
+      x (T, H, P), dt (T, H) softplus-activated steps, a (H,) negative
+      decays, b/c (T, N) input/output projections (shared across heads),
+      d (H,) skip. Returns y (T, H, P).
+
+      h_t = exp(dt_t * a_h) * h_{t-1} + dt_t * outer(b_t, x_t)
+      y_t = c_t @ h_t + d_h * x_t
+
+    The state starts as zeros of ``x``'s dtype, as the reference's does;
+    callers upcast bf16 streams first.
+    """
+    t_len, h, p = x.shape
+    n = b.shape[-1]
+    state = torch.zeros((h, n, p), dtype=x.dtype, device=x.device)
+    ys = []
+    for t in range(t_len):
+        xt, dtt, bt, ct = x[t], dt[t], b[t], c[t]
+        decay = torch.exp(dtt * a)
+        upd = dtt[:, None, None] * bt[None, :, None] * xt[:, None, :]
+        state = decay[:, None, None] * state + upd
+        ys.append(torch.einsum("n,hnp->hp", ct, state) + d[:, None] * xt)
+    if not ys:
+        return torch.zeros((0, h, p), dtype=x.dtype, device=x.device)
+    return torch.stack(ys)
+
+
+# -- decode attention ---------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token GQA attention against a KV cache (the oracle of
+    ``kernels/decode_attn.py``): q (B, Hq, D); k, v (B, S, Hkv, D),
+    Hq % Hkv == 0; ``length`` optional (B,) valid-prefix lengths, the rest
+    masked with -inf. Logits in q's dtype, the softmax in float32, cast
+    back to q's dtype for the value product. Returns (B, Hq, D)."""
+    bsz, hq, dim = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(bsz, hkv, hq // hkv, dim)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k) / torch.sqrt(
+        torch.tensor(float(dim))).to(q.dtype)
+    if length is not None:
+        mask = torch.arange(s, device=q.device)[None, :] < length[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v)
+    return out.reshape(bsz, hq, dim)

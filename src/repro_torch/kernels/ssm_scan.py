@@ -1,0 +1,110 @@
+"""Mamba2 SSD chunk scan on Hopper: the port of ``repro/kernels/ssm_scan.py``
+(and of the batch ``vmap`` of ``repro/kernels/ops.py:ssd_scan``).
+
+``ssd_scan(x, dt, a, b, c, d, chunk=)`` scans a batch of sequences:
+x (B, T, H, P), dt (B, T, H), a (H,), b/c (B, T, N), d (H,) -> y
+(B, T, H, P) in x's dtype. ``ssm_scan`` is the single-sequence form of the
+reference (no batch axis). A CPU tensor runs the plain version (the
+per-step recurrence ``ref.ssm_scan`` on float32 copies of the streams, y
+cast back to x's dtype); a CUDA tensor launches ``csrc/ssm_scan.cu`` or
+raises — there is no fallback. The streams are float32 or bf16; a and d are
+read as float32. The chunk may be any length from 1 to 128 (a longer one
+runs as 128: the result is the same function) and need not divide T (the
+last chunk is shorter), where the reference's TPU kernel asserts
+``T % chunk == 0``. The wrapper counts its launches in
+``ssd_scan.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+#: The kernel's largest chunk (``SSM_MAX_CHUNK`` in ``csrc/ssm_scan.cu``).
+MAX_CHUNK = 128
+#: Columns of a head one CTA takes (the kernel's ``SSM_MAX_SLICE``): a
+#: thread's register tile spans them whatever the slice, so the widest
+#: slice makes the fewest CTAs for the same work.
+MAX_SLICE = 32
+#: The kernel's largest state (``SSM_MAX_STATE``).
+MAX_STATE = 256
+
+
+def _plain(x, dt, a, b, c, d):
+    ys = [ref.ssm_scan(x[i].float(), dt[i].float(), a.float(), b[i].float(),
+                       c[i].float(), d.float()) for i in range(x.shape[0])]
+    return torch.stack(ys).to(x.dtype)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Batched SSD scan: x (B,T,H,P), dt (B,T,H), a (H,), b/c (B,T,N), d (H,)
+    -> y (B,T,H,P)."""
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x must be (B, T, H, P), got "
+                         f"{tuple(x.shape)}")
+    bsz, t_len, h, p = x.shape
+    n = b.shape[-1]
+    if (tuple(dt.shape) != (bsz, t_len, h) or tuple(b.shape) != (bsz, t_len, n)
+            or tuple(c.shape) != (bsz, t_len, n) or a.shape != (h,)
+            or d.shape != (h,)):
+        raise ValueError(
+            f"ssd_scan: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
+            f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, d "
+            f"{tuple(d.shape)} do not fit (B,T,H,P), (B,T,H), (H,), (B,T,N)")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if n > MAX_STATE and x.device.type == "cuda":
+        raise ValueError(f"ssd_scan: the CUDA kernel takes a state of at "
+                         f"most {MAX_STATE}, got N = {n}")
+    if _build.is_cpu(x, "ssd_scan"):
+        return _plain(x, dt, a, b, c, d)
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != x.dtype for t in (dt, b, c)):
+        raise TypeError(f"ssd_scan: the CUDA kernel takes float32 or bf16 "
+                        f"streams of one dtype, got x {x.dtype}, dt "
+                        f"{dt.dtype}, b {b.dtype}, c {c.dtype}")
+    if any(t.device != x.device for t in (dt, a, b, c, d)):
+        raise ValueError("ssd_scan: every operand must lie on x's device")
+    if x.numel() >= 2**31 or bsz * t_len * n >= 2**31:
+        raise ValueError("ssd_scan: the streams exceed 32-bit indexing")
+    ck = min(chunk, t_len, MAX_CHUNK)
+    x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
+    a32, d32 = a.float().contiguous(), d.float().contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _build.load("ssm_scan")
+    ps = min(p, MAX_SLICE)
+    with _build.on_device(x):
+        smem = lib.ssm_scan_smem_bytes(ck, n)
+        limit = _build.smem_limit(lib, "ssm_scan")
+        if smem > limit:
+            raise ValueError(
+                f"ssd_scan: chunk {ck} with state {n} needs {smem} B "
+                f"of shared memory a CTA; the card gives {limit}")
+        chunks = -(-t_len // ck)
+        scores = torch.empty(bsz * chunks * ck * ck, dtype=torch.float32,
+                             device=x.device)
+        err = lib.ssm_scan_launch(
+            x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d32.data_ptr(), y.data_ptr(), scores.data_ptr(),
+            bsz, t_len, h, p, n, ck, ps, int(x.dtype == torch.bfloat16),
+            _build.stream())
+    _build.check(err, "ssm_scan_launch")
+    ssd_scan.launches += 1
+    return y
+
+
+ssd_scan.launches = 0
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Single-sequence SSD scan, as the reference's kernel: x (T,H,P), dt
+    (T,H), a (H,), b/c (T,N), d (H,) -> y (T,H,P)."""
+    return ssd_scan(x[None], dt[None], a, b[None], c[None], d,
+                    chunk=chunk)[0]

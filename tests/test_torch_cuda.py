@@ -434,3 +434,166 @@ def test_cuda_mixed_precision_runs_the_loop_tiers(cuda):
     assert torch.equal(xm, xd)
     assert (xm - xu).abs().max().item() <= 1e-3 * xu.abs().max().item()
     perks.clear_graphs()
+
+
+# -- the ML serving slice: ssm_scan, decode_attention, the decode tiers ------
+
+# The reference's tolerances (tests/test_kernels_linalg.py): the SSD scan
+# at 1e-3 (float32) / 5e-2 (bf16), decode attention at rtol 1e-4 / atol
+# 1e-5 (float32) / 5e-2 (bf16).
+SSM_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+DECODE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+              torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+def _ssd_inputs(bsz, t, h, p, n, dtype, device, seed=0):
+    g = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    x = put(0.5 * g.standard_normal((bsz, t, h, p))).to(dtype)
+    dt = torch.nn.functional.softplus(
+        put(g.standard_normal((bsz, t, h)))).to(dtype)
+    a = -torch.exp(put(g.standard_normal(h)))
+    b = put(0.5 * g.standard_normal((bsz, t, n))).to(dtype)
+    c = put(0.5 * g.standard_normal((bsz, t, n))).to(dtype)
+    d = put(g.standard_normal(h))
+    return x, dt, a, b, c, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(64, 16), (64, 64), (60, 15), (64, 15),
+                                     (13, 8), (200, 128), (37, 1)])
+def test_cuda_ssd_scan_matches_plain_version(t, chunk, dtype, cuda):
+    x, dt, a, b, c, d = _ssd_inputs(2, t, 4, 8, 16, dtype, cuda, seed=t)
+    got = ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+    want = ops.ssd_scan(*(v.cpu() for v in (x, dt, a, b, c, d)), chunk=chunk)
+    tol = SSM_TOL[dtype]
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2), (4, 1), (14, 2)])
+@pytest.mark.parametrize("s", [96, 128, 700, 3000])
+def test_cuda_decode_attention_matches_plain_version(hq, hkv, s, dtype, cuda):
+    g = np.random.default_rng(s + hq)
+    bsz, dim = 3, 32 if hq != 14 else 64
+
+    def put(*shape):
+        return torch.from_numpy(
+            g.standard_normal(shape).astype(np.float32)).to(cuda).to(dtype)
+
+    q, k, v = put(bsz, hq, dim), put(bsz, s, hkv, dim), put(bsz, s, hkv, dim)
+    length = torch.tensor([s, 1, max(1, s // 3)], dtype=torch.int32,
+                          device=cuda)
+    for ln in (None, length):
+        got = ops.decode_attention(q, k, v, length=ln)
+        want = ref.decode_attention(q.float(), k.float(), v.float(),
+                                    length=ln)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.cpu().numpy(), **DECODE_TOL[dtype])
+
+
+def _smoke_decode(cuda, n_steps=7, eos_id=None):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.exec import DecodeAttentionProblem
+    from repro_torch.models.lm import Model
+    cfg = get_smoke_config("qwen2-0.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 6)).astype(np.int32)).to(cuda)
+    logits, cache = model.prefill(model.compute_params(params),
+                                  {"tokens": prompts},
+                                  cache_seq=6 + n_steps + 1)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    return DecodeAttentionProblem(model=model, params=params, cache=cache,
+                                  first_tokens=first, n_steps=n_steps,
+                                  eos_id=eos_id)
+
+
+def test_cuda_decode_tiers_token_identical(cuda):
+    prob = _smoke_decode(cuda)
+    k0 = prob.cache["k"].clone()
+    want, cache = prob.oracle()
+    ops.reset_launch_counts()
+    for tier in ("host_loop", "device_loop", "device_loop", "resident",
+                 "resident"):
+        toks, got = execute(prob, Plan(tier=tier))
+        assert torch.equal(toks, want), tier
+        assert torch.equal(got["k"], cache["k"]), tier
+        assert int(got["pos"]) == int(cache["pos"])
+    assert torch.equal(prob.cache["k"], k0), "the problem's cache was written"
+    # the host loop launches every step; the device loop's first run
+    # captures (its warm-up step included), its replay and the resident
+    # tier (the same step, the same kept graph) launch nothing
+    layers = prob.model.cfg.n_layers
+    assert ops.launch_counts()["decode_attention"] == 7 * layers + 8 * layers
+    perks.clear_graphs()
+
+
+def test_cuda_decode_eos_and_chunked_device_loop(cuda):
+    base = _smoke_decode(cuda, n_steps=8)
+    want = base.oracle()[0]
+    eos = int(want[0, 0])
+    prob = _smoke_decode(cuda, n_steps=8, eos_id=eos)
+    done = (want == eos).all(dim=0).nonzero()
+    k = int(done[0]) + 1 if len(done) else 8    # steps up to the stop
+    assert all(p.tier != "resident" for p in plan_candidates(prob))
+    k0 = prob.cache["k"].clone()
+    for p in (Plan(tier="device_loop", sync_every=3), plan(prob)):
+        toks, _ = execute(prob, p)
+        assert torch.equal(toks[:, :k], want[:, :k])
+    # the chunked device loop's captures wrote no slot of the problem's cache
+    assert torch.equal(prob.cache["k"], k0)
+    perks.clear_graphs()
+
+
+def test_cuda_engine_modes_token_identical(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import Model
+    from repro_torch.runtime.server import Engine, Request, ServeConfig
+    cfg = get_smoke_config("qwen2-0.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    outs = []
+    for persistent in (True, False):
+        eng = Engine(model, params, ServeConfig(max_batch=4,
+                                                persistent=persistent))
+        for batch in range(2):
+            rng = np.random.default_rng(3)
+            for n in (8, 5, 8, 3):
+                eng.submit(Request(prompt=rng.integers(0, cfg.vocab, n,
+                                                       dtype=np.int32),
+                                   max_new_tokens=6))
+            before = ops.launch_counts()["decode_attention"]
+            out, stats = eng.run_batch()
+            launched = ops.launch_counts()["decode_attention"] - before
+            assert out.shape == (4, 6)
+            if persistent and batch:
+                assert launched == 0, "the kept decode graph was not replayed"
+            if not persistent:
+                assert launched == 5 * cfg.n_layers
+            outs.append(out)
+    for out in outs[1:]:
+        np.testing.assert_array_equal(outs[0], out)
+    perks.clear_graphs()
+
+
+def test_cuda_ssm_tiers_match_oracle(cuda):
+    from repro_torch.exec import SSMScanProblem
+    x, dt, a, b, c, d = _ssd_inputs(1, 60, 3, 8, 16, torch.float32, cuda)
+    prob = SSMScanProblem(x[0], dt[0], a, b[0], c[0], d, chunk=16,
+                          device=cuda)
+    want = prob.oracle()
+    ops.reset_launch_counts()
+    for tier in ("host_loop", "device_loop", "device_loop", "resident"):
+        y = execute(prob, Plan(tier=tier))
+        np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3, err_msg=tier)
+    assert ops.launch_counts()["ssm_scan"] == 1
+    assert plan(prob).tier == "resident"
+    perks.clear_graphs()

@@ -30,6 +30,15 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.exec.precision, repro_torch.kernels.cg_fused\n"
         "import repro_torch.kernels.spmv_ell, repro_torch.kernels.spmv_sell\n"
         "import repro_torch.exec.krylov, repro_torch.kernels.krylov_fused\n"
+        "import repro_torch.configs, repro_torch.configs.registry\n"
+        "from repro_torch.configs import registry\n"
+        "for arch in registry.ARCHS: registry.get_config(arch)\n"
+        "import repro_torch.nn.param, repro_torch.nn.layers\n"
+        "import repro_torch.nn.rope, repro_torch.nn.attention\n"
+        "import repro_torch.models.transformer, repro_torch.models.lm\n"
+        "import repro_torch.runtime.server, repro_torch.launch.serve\n"
+        "import repro_torch.exec.ml, repro_torch.kernels.ssm_scan\n"
+        "import repro_torch.kernels.decode_attn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")
@@ -110,4 +119,23 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError):
         domain_from_numpy(x)
     p = StencilProblem(x, get_spec("2d5pt"), 3, device="cpu")
+    assert p.x.device.type == "cpu"
+
+
+def test_ml_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import SSMScanProblem
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import serve
+    x = np.zeros((8, 2, 4), np.float32)
+    args = (x, np.ones((8, 2), np.float32), -np.ones(2, np.float32),
+            np.zeros((8, 3), np.float32), np.zeros((8, 3), np.float32),
+            np.zeros(2, np.float32))
+    for call in (lambda: SSMScanProblem(*args),
+                 lambda: params_from_reference({"w": x}),
+                 lambda: serve.main(["--arch", "qwen2-0.5b", "--smoke"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = SSMScanProblem(*args, device="cpu")
     assert p.x.device.type == "cpu"
