@@ -30,7 +30,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 5. the CG kernels against their plain versions: every SPD registry entry
    at its own size (50 iterations of ``cg_fused``, VEC and MIX), then each
    kernel at the CG path's full shapes with its time, its plain version's
-   and (for the SpMVs) one cuSPARSE call's;
+   and (for the SpMVs) one cuSPARSE call's; ``spmv_ell`` on cg-large also
+   bit for bit against its plain version;
 6. the CG path, with every launch counter set to 0 just before and read
    just after: ``CGProblem`` -> ``plan`` -> ``execute`` and every offered
    tier by hand, 100 iterations each, on cg-small (``poisson2d(512)``,
@@ -59,9 +60,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    reference test's shapes and at mamba2-780m's SSD widths (H = 48, P = 64,
    N = 128, T = 8192) in f32 and bf16 at chunks 128, 15 and 1;
    ``decode_attention`` over four (Hq, Hkv) pairs with and without
-   ``length`` in f32 and bf16, and at B = 8, S = 32768, Hq = 14, Hkv = 2,
-   D = 64 bf16; each with its time, its plain version's and (decode) one
-   ``scaled_dot_product_attention`` call's;
+   ``length`` in f32 and bf16, its tensor-core kernel (bf16) at D = 64, 80,
+   128, 256, four head layouts (groups 1-16), S = 1-1000 and four lengths,
+   both decode kernels (and SDPA) timed in a graph at every configuration's
+   (Hq, Hkv, D), B = 8, S = 4096, beside the kernel ``kernel_for`` picks,
+   and at B = 8, S = 32768, Hq = 14, Hkv = 2, D = 64 bf16 (and f32); each
+   with its time, its plain version's, (decode) one
+   ``scaled_dot_product_attention`` call's and the CUDA-core kernel's on
+   the same bf16 inputs;
 12. the SSD scan path, counted: ``SSMScanProblem`` at those widths through
    ``plan`` -> ``execute`` on all three tiers, each held to the oracle at
    1e-3, and each tier's time;
@@ -70,8 +76,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tokens, in the persistent and the host-loop mode, then
    ``DecodeAttentionProblem`` on every tier from one prefill: tokens
    identical everywhere, ``decode_attention`` 24 launches a token on the
-   host loop, times per tier; and the smoke config in float32 on the card
-   against the CPU;
+   host loop, every one on the tensor cores, times per tier; and the smoke
+   config in float32 on the card against the CPU;
 14. one ``{"kernels": [...]}`` line with all twelve kernels, the card's
    name and power limit, and ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -203,6 +209,11 @@ DECODE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 SSM_H, SSM_P, SSM_N, SSM_T = 48, 64, 128, 8192   # mamba2-780m's SSD widths
 DECODE_HEADS = [(8, 8), (8, 2), (4, 1), (14, 2)]
 DECODE_LONG = (8, 32768, 14, 2, 64)    # B, S, Hq, Hkv, D: qwen2-0.5b heads
+# the tensor-core kernel's shapes: the configs' head dims and groups of 1-16
+TC_DIMS = (64, 80, 128, 256)
+TC_HEADS = [(16, 16), (40, 8), (14, 2), (64, 4)]
+TC_SEQS = (1, 63, 64, 65, 160, 1000)
+DECODE_BY_CONFIG = (8, 4096)           # B, S: both kernels at each config
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
 
@@ -210,21 +221,23 @@ FAILS: list[str] = []
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
-                rtol: float, atol: float) -> float:
+                rtol: float, atol: float, quiet: bool = False) -> float:
     """Max abs error of ``got`` against ``want``; a FAIL unless every
-    element lies within atol + rtol * |want| and all are finite."""
+    element lies within atol + rtol * |want| and all are finite. ``quiet``
+    prints the line only for a FAIL."""
     diff = (got.double() - want.double()).abs()
     err = diff.max().item() if diff.numel() else 0.0
     ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
           and bool((diff <= atol + rtol * want.double().abs()).all()))
-    print(f"  {what}: max_abs_err={err!r} {'ok' if ok else 'FAIL'}")
+    if not (ok and quiet):
+        print(f"  {what}: max_abs_err={err!r} {'ok' if ok else 'FAIL'}")
     if not ok:
         FAILS.append(what)
     return err
 
 
 def check_decode_bf16(what: str, got: torch.Tensor,
-                      want: torch.Tensor) -> float:
+                      want: torch.Tensor, quiet: bool = False) -> float:
     """bf16 ``decode_attention`` against its plain version on float32 copies
     of the same inputs: rtol 5e-2 and an atol of 5e-2 times the rms of
     ``want`` over its last three axes (one call's (B, Hq, D)), so an output
@@ -234,7 +247,7 @@ def check_decode_bf16(what: str, got: torch.Tensor,
     rms = want.double().pow(2).mean(dim=(-3, -2, -1), keepdim=True).sqrt()
     return check_close(f"{what} (atol {tol['atol']} x rms, rms >= "
                        f"{rms.min().item()!r})", got, want, tol["rtol"],
-                       tol["atol"] * rms)
+                       tol["atol"] * rms, quiet)
 
 
 def check(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -258,6 +271,20 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds of one call of ``fn``: ``calls`` calls enqueued
+    back to back, timed on the host's clock before the card catches up (the
+    wrapper's own cost, which ``cuda_ms`` adds to a short kernel's time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
 
 
 def graph_ms(fn, calls: int = 50) -> float:
@@ -394,7 +421,7 @@ def cg_phases(rng):
     from repro_torch.core import perks
     from repro_torch.exec import plan_candidates
     from repro_torch.exec.adapters import CG_STEP_LAUNCHES
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, spmv_ell
     from repro_torch.solvers.cg import SellOperator
     from repro_torch.sparse import generate, symmetric_names
     from repro_torch.sparse.generate import fem_variable_band, poisson2d
@@ -507,15 +534,25 @@ def cg_phases(rng):
     print("[cg kernels] main-path shapes")
     timing = {}
     pl, x = large["problem"], large["problem"].b
-    keep("spmv_ell", check_close(
-        "spmv_ell cg-large", ops.spmv(pl.data, pl.cols, x),
-        ref.spmv_ell(pl.data, pl.cols, x), SPMV_RTOL, SPMV_ATOL))
+    got, want = ops.spmv(pl.data, pl.cols, x), ref.spmv_ell(pl.data, pl.cols, x)
+    keep("spmv_ell", check_close("spmv_ell cg-large", got, want, SPMV_RTOL,
+                                 SPMV_ATOL))
+    # the kernel sums in the plain version's slot order: bit for bit
+    same = torch.equal(got, want)
+    print(f"  spmv_ell cg-large bit-equal to ref.spmv_ell: {same} "
+          f"({'ok' if same else 'FAIL'}); rows a run: "
+          f"{spmv_ell.run_rows(pl.data.shape[1])}")
+    if not same:
+        FAILS.append("spmv_ell cg-large is not bit-equal to ref.spmv_ell")
     n_l = x.shape[0]
+    run = lambda: ops.spmv(pl.data, pl.cols, x)
+    lib = cusparse_mv(large["csr"], x)
     timing["spmv_ell"] = dict(
-        ms=cuda_ms(lambda: ops.spmv(pl.data, pl.cols, x), 20),
+        ms=cuda_ms(run, 20), graph_ms=graph_ms(run), host_us=host_us(run),
         plain_ms=cuda_ms(lambda: ref.spmv_ell(pl.data, pl.cols, x), 10),
         bound=spmv_bound(n_l, n_l, large["slots"], 0),
-        library_ms=cuda_ms(cusparse_mv(large["csr"], x), 20))
+        library_ms=cuda_ms(lib, 20), library_graph_ms=graph_ms(lib))
+    print(f"  spmv_ell cg-large: {json.dumps(timing['spmv_ell'])}")
     op, xs = sellc["op"], sellc["problem"].b
     args = (op.data, op.cols, op.slice_offsets, op.slice_k, xs)
     keep("spmv_sell", check_close(
@@ -1040,13 +1077,46 @@ def sdpa_decode(q, k, v, length):
                                                   enable_gqa=True)
 
 
+def direct_decode(kernel, q, k, v, length=None):
+    """A call of one decode kernel of ``csrc/decode_attn.cu`` on these
+    inputs through its C entry point, whatever ``kernel_for`` names:
+    ``"cuda_cores"`` (``decode_attn_launch``) or ``"tensor_cores"``
+    (``decode_attn_mma_launch``), each with its own ``splits_for`` rule, to
+    time the two kernels side by side on the same bf16 inputs (not counted;
+    the port never calls them so)."""
+    from repro_torch.kernels import _build, decode_attn
+    bsz, hq, dim = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    splits, per = decode_attn.splits_for(
+        bsz, hkv, s, torch.cuda.get_device_properties(0).multi_processor_count,
+        kernel=kernel)
+    out = torch.empty_like(q)
+    part = torch.empty(bsz * hq * splits * (dim + 2), dtype=torch.float32,
+                       device=q.device)
+    lib = _build.load("decode_attn")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if length is None else length.data_ptr(), out.data_ptr(),
+            part.data_ptr(), bsz, s, hq, hkv, dim, splits, per)
+    if kernel == "tensor_cores":
+        entry = "decode_attn_mma_launch"
+        last = decode_attn.mma_layout(dim)[0]
+    else:
+        entry = "decode_attn_launch"
+        last = int(q.dtype == torch.bfloat16)
+
+    def run():
+        _build.check(getattr(lib, entry)(*args, last, _build.stream()), entry)
+        return out
+    return run
+
+
 def ml_phases(rng):
     """Phases 11-13: the ML kernels against their plain versions, the SSD
     scan path and the serving path, each counted. Returns (errors, timing,
     launches) by kernel name."""
     from repro_torch import (DecodeAttentionProblem, Engine, Model, Plan,
                              SSMScanProblem, execute, plan)
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
     from repro_torch.core import perks
     from repro_torch.exec import plan_candidates
     from repro_torch.kernels import decode_attn, ops, ref
@@ -1140,6 +1210,74 @@ def ml_phases(rng):
                         what, got.float(), want, **DECODE_TOL[dtype])
                         if dtype == torch.float32 else
                         check_decode_bf16(what, got.float(), want))
+    print(f"[ml kernels] decode_attention on the tensor cores, bf16: D in "
+          f"{TC_DIMS}, (Hq, Hkv) in {TC_HEADS}, B = 2, S in {TC_SEQS}, "
+          f"length None, 1, S // 3 + 1, S (the second sequence S); one line "
+          f"per (D, Hq, Hkv), and one per FAIL")
+    for dim in TC_DIMS:
+        for hq, hkv in TC_HEADS:
+            before = ops.launch_counts()["decode_attention_tc"]
+            calls, worst = 0, 0.0
+            for s in TC_SEQS:
+                q, k, v = (put(rng.standard_normal(shape), torch.bfloat16)
+                           for shape in ((2, hq, dim), (2, s, hkv, dim),
+                                         (2, s, hkv, dim)))
+                for ln in (None, 1, s // 3 + 1, s):
+                    length = None if ln is None else torch.tensor(
+                        [ln, s], dtype=torch.int32, device="cuda")
+                    got = ops.decode_attention(q, k, v, length=length)
+                    want = ref.decode_attention(q.float(), k.float(),
+                                                v.float(), length=length)
+                    e = check_decode_bf16(
+                        f"decode_attention tensor cores D={dim} Hq={hq} "
+                        f"Hkv={hkv} S={s} length={ln}", got.float(), want,
+                        quiet=True)
+                    keep("decode_attention", e)
+                    worst = max(worst,
+                                e / want.double().pow(2).mean().sqrt().item())
+                    calls += 1
+            ran = ops.launch_counts()["decode_attention_tc"] - before
+            print(f"  D={dim} Hq={hq} Hkv={hkv}: {calls} calls, {ran} on "
+                  f"the tensor cores, max_abs_err / rms = {worst!r}")
+            if ran != calls:
+                FAILS.append(f"decode_attention D={dim} Hq={hq} Hkv={hkv} "
+                             f"bf16 ran {ran} of {calls} calls on the tensor "
+                             f"cores")
+    # the two kernels side by side at every attention config's (Hq, Hkv, D)
+    bsz, s = DECODE_BY_CONFIG
+    print(f"[ml kernels] decode_attention by attention config, bf16, "
+          f"B = {bsz}, S = {s}, length S - 37 b: the tensor-core and the "
+          f"CUDA-core kernel on the same inputs and one SDPA call, each in a "
+          f"graph of 20 calls; kernel_for's choice")
+    seen = set()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        hq, hkv, dim = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if dim < 16 or (hq // hkv, dim) in seen:  # the SSD model: no attention
+            continue
+        seen.add((hq // hkv, dim))
+        q = put(rng.standard_normal((bsz, hq, dim)), torch.bfloat16)
+        k = put(rng.standard_normal((bsz, s, hkv, dim)), torch.bfloat16)
+        v = put(rng.standard_normal((bsz, s, hkv, dim)), torch.bfloat16)
+        ln = torch.tensor([s - 37 * i for i in range(bsz)], dtype=torch.int32,
+                          device="cuda")
+        want = ref.decode_attention(q.float(), k.float(), v.float(), length=ln)
+        row = dict(arch=arch, group=hq // hkv, D=dim, Hq=hq, Hkv=hkv,
+                   kernel=decode_attn.kernel_for(q.dtype, hq // hkv, dim))
+        for kind in ("tensor_cores", "cuda_cores"):
+            run = direct_decode(kind, q, k, v, ln)
+            keep("decode_attention", check_decode_bf16(
+                f"decode_attention {kind} {arch} B={bsz} S={s}",
+                run().float(), want, quiet=True))
+            row[f"{kind}_graph_ms"] = graph_ms(run, 20)
+        row["sdpa_graph_ms"] = graph_ms(sdpa_decode(q, k, v, ln), 20)
+        row["bound_ms"] = 1e3 * decode_bytes(bsz, s, hq, hkv, dim, 2) / HBM_BW
+        faster = min(("tensor_cores", "cuda_cores"),
+                     key=lambda kd: row[f"{kd}_graph_ms"])
+        row["kernel_for_is_faster"] = row["kernel"] == faster
+        print("  " + json.dumps(row))
+        del q, k, v
+
     bsz, s, hq, hkv, dim = DECODE_LONG
     q = put(rng.standard_normal((bsz, hq, dim)), torch.bfloat16)
     k = put(rng.standard_normal((bsz, s, hkv, dim)), torch.bfloat16)
@@ -1162,17 +1300,32 @@ def ml_phases(rng):
         check_close(f"  (SDPA yardstick against the plain version, "
                     f"length={ln is not None})", lib()[:, :, 0].float(), want,
                     **DECODE_TOL[torch.bfloat16])
+        check_decode_bf16(f"  (the CUDA-core kernel on the same bf16 inputs, "
+                          f"length={ln is not None})",
+                          direct_decode("cuda_cores", q, k, v, ln)().float(),
+                          want)
+    run32 = lambda: ops.decode_attention(q32, k32, v32)
+    f32_ms = dict(kernel=decode_attn.kernel_for(q32.dtype, hq // hkv, dim),
+                  ms=cuda_ms(run32, 20), graph_ms=graph_ms(run32, 20))
     del q32, k32, v32
     run = lambda: ops.decode_attention(q, k, v)
     moved = decode_bytes(bsz, s, hq, hkv, dim, 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kind = decode_attn.kernel_for(q.dtype, hq // hkv, dim)
+    cc = direct_decode("cuda_cores", q, k, v)
     timing["decode_attention"] = dict(
-        ms=cuda_ms(run, 20), graph_ms=graph_ms(run, 20),
+        kernel=kind, ms=cuda_ms(run, 20), graph_ms=graph_ms(run, 20),
         plain_ms=cuda_ms(lambda: ref.decode_attention(q, k, v), 5),
         bound=(1e3 * moved / HBM_BW, "bytes"),
-        library_ms=cuda_ms(sdpa_decode(q, k, v, None), 20), bytes=moved,
-        splits=decode_attn.splits_for(bsz, hkv, s, torch.cuda.
-                                      get_device_properties(0)
-                                      .multi_processor_count))
+        library_ms=cuda_ms(sdpa_decode(q, k, v, None), 20),
+        library_graph_ms=graph_ms(sdpa_decode(q, k, v, None), 20),
+        host_us=host_us(run), bytes=moved,
+        splits=decode_attn.splits_for(bsz, hkv, s, sms, kernel=kind),
+        stages=decode_attn.mma_layout(dim)[0],
+        cuda_cores_ms=cuda_ms(cc, 20), cuda_cores_graph_ms=graph_ms(cc, 20),
+        cuda_cores_host_us=host_us(cc), f32=f32_ms)
+    timing["decode_attention"]["graph_TBps"] = (
+        moved / (timing["decode_attention"]["graph_ms"] / 1e3) / 1e12)
     print(f"  decode_attention B={bsz} S={s} bf16: "
           f"{json.dumps(timing['decode_attention'])}")
 
@@ -1238,13 +1391,14 @@ def ml_phases(rng):
         for batch in range(2):
             for pr in prompts:
                 eng.submit(Request(prompt=pr, max_new_tokens=SERVE_NEW))
-            before = ops.launch_counts()["decode_attention"]
+            before = ops.launch_counts()
             out, stats = eng.run_batch()
-            n = ops.launch_counts()["decode_attention"] - before
+            n, n_tc = (ops.launch_counts()[k] - before[k] for k in (
+                "decode_attention", "decode_attention_tc"))
             ok = (out.shape == (SERVE_REQUESTS, SERVE_NEW)
                   and bool(((out >= 0) & (out < cfg.vocab)).all()))
             stats.update(batch_index=batch, decode_attention_launches=n,
-                         tokens_ok=ok)
+                         tensor_core_launches=n_tc, tokens_ok=ok)
             print("  " + json.dumps(stats))
             if not ok:
                 FAILS.append(f"the Engine returned tokens of shape "
@@ -1252,6 +1406,10 @@ def ml_phases(rng):
             if not persistent and n != cfg.n_layers * (SERVE_NEW - 1):
                 FAILS.append(f"host-loop serving launched decode_attention "
                              f"{n} times, not {cfg.n_layers} a token")
+            if not persistent and n_tc != cfg.n_layers * (SERVE_NEW - 1):
+                FAILS.append(f"host-loop serving launched the tensor-core "
+                             f"decode_attention {n_tc} times, not "
+                             f"{cfg.n_layers} a token")
             if persistent and batch and n:
                 FAILS.append(f"the second persistent batch launched "
                              f"decode_attention {n} times (no graph replay)")
@@ -1290,6 +1448,10 @@ def ml_phases(rng):
     print(f"[serve] launches {json.dumps(ops.launch_counts())}")
     if launches["decode_attention"] == 0:
         FAILS.append("decode_attention was not launched on the serving path")
+    if ops.launch_counts()["decode_attention_tc"] != launches[
+            "decode_attention"]:
+        FAILS.append("the serving path ran decode_attention off the tensor "
+                     "cores")
     # the kernel against its plain version at the shapes and on the values
     # the serving path gives it: every layer's q, cache and length of the
     # first and the last decode step, recorded from decode_step on a copy
@@ -1355,7 +1517,11 @@ def ml_phases(rng):
     print("  " + json.dumps(dict(
         cell="serve", what="one layer's decode attention, S = "
         f"{kc.shape[1]}, in a graph of 50 calls",
+        kernel=decode_attn.kernel_for(qd.dtype, cfg.n_heads // cfg.n_kv_heads,
+                                      cfg.head_dim),
         decode_attention_ms=graph_ms(one), sdpa_ms=graph_ms(lib),
+        cuda_cores_ms=graph_ms(direct_decode("cuda_cores", qd, kc,
+                                             prob.cache["v"][0], ln)),
         decode_attention_host_ms=cuda_ms(one, 20))))
     perks.clear_graphs()
 

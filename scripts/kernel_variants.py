@@ -1,6 +1,7 @@
 """Time build variants of the port's stencil kernels on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py [--variants NAME,NAME,...] [--src SRC]
+    python3 scripts/kernel_variants.py --kernels spmv_decode [--src SRC]
 
 Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` overrides
 of the kernels' tuning macros (all variants compile at once), prints its
@@ -22,6 +23,17 @@ two commits on one card, unpack the other one (``git archive <commit> |
 tar -x -C build/parent``) and run both in one call, in turns: ``--src
 build/parent/src --variants shipped --rounds 1``, this tree, this tree,
 the other.
+
+``--kernels spmv_decode`` times the shipped ``spmv_ell`` and
+``decode_attention`` instead, at the main path's shapes, each beside the
+PyTorch call that computes the same function: ``spmv_ell`` on cg-large
+(``poisson2d(1024)``, n = 2^20, K = 5; bit-equal to ``ref.spmv_ell``) eager
+and in a CUDA graph of 50 calls, beside cuSPARSE's CSR ``A @ x`` in a graph,
+and CG's host and device loop tiers there (100 iterations); and bf16
+``decode_attention`` at B = 8, S = 32768, 14/2 heads of 64 (qwen2-0.5b's,
+held to ``ref.decode_attention`` at rtol 5e-2 and atol 5e-2 times the
+output's rms) in a graph, beside one ``scaled_dot_product_attention``.
+With ``--src`` and a parent tree this is the before/after of those kernels.
 """
 from __future__ import annotations
 
@@ -78,18 +90,97 @@ def spills(log: str) -> dict:
     return {"max_registers": regs, "max_spill_store_bytes": stores}
 
 
+def graph_ms(fn, calls: int = 50) -> float:
+    """Milliseconds of one call of ``fn`` on the card alone: ``calls`` calls
+    captured into a CUDA graph, the replay's median over three runs divided
+    by ``calls``."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, 3) / calls
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def spmv_decode(src: str, rounds: int) -> int:
+    """``--kernels spmv_decode``: one JSON line per round."""
+    import torch.nn.functional as F
+    from repro_torch import CGProblem, Plan, execute
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.sparse.generate import poisson2d
+
+    _build.build_all(("spmv_ell", "decode_attn"))
+    rng = np.random.default_rng(0)
+    csr = poisson2d(1024)
+    ell = csr.to_ell()
+    b = rng.standard_normal(csr.shape[0]).astype(np.float32)
+    problem = CGProblem.from_ell(ell.data, ell.cols, b, 100, matrix=csr)
+    data, cols, x = problem.data, problem.cols, problem.b
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.indices.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.data).cuda(), size=csr.shape)
+    bsz, s, hq, hkv, dim = 8, 32768, 14, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .cuda().bfloat16()
+               for sh in ((bsz, hq, dim), (bsz, s, hkv, dim),
+                          (bsz, s, hkv, dim)))
+    want = ref.decode_attention(q.float(), k.float(), v.float())
+    rms = want.double().pow(2).mean().sqrt().item()
+    qh, kh, vh = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    spmv = lambda: ops.spmv(data, cols, x)
+    decode = lambda: ops.decode_attention(q, k, v)
+    bad = []
+    if not torch.equal(spmv(), ref.spmv_ell(data, cols, x)):
+        bad.append("spmv_ell is not bit-equal to ref.spmv_ell")
+    if not torch.allclose(decode().float(), want, rtol=5e-2, atol=5e-2 * rms):
+        bad.append("decode_attention misses the bf16 rule")
+    for rnd in range(rounds):
+        line = {"src": src, "round": rnd,
+                "spmv_ell_ms": cuda_ms(spmv, 20),
+                "spmv_ell_graph_ms": graph_ms(spmv),
+                "cusparse_graph_ms": graph_ms(lambda: a @ x)}
+        for tier in ("host_loop", "device_loop"):
+            run = lambda: execute(problem, Plan(tier=tier))
+            line[f"cg_{tier}_ms_per_iter"] = cuda_ms(run, 3) / 100
+        line["decode_attention_graph_ms"] = graph_ms(decode, 20)
+        line["sdpa_graph_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=True), 20)
+        print(json.dumps(line), flush=True)
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    ap.add_argument("--kernels", choices=("stencil", "spmv_decode"),
+                    default="stencil")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
+    if args.kernels == "spmv_decode":
+        return spmv_decode(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks
@@ -145,10 +236,7 @@ def main() -> int:
             print(json.dumps(line), flush=True)
     _build.EXTRA_FLAGS = ()
     stencil2d.PERKS_MAX_ROW_CELLS = shipped_cells
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True)
-    print(card.stdout.strip().splitlines()[0])
+    print(card_name())
     if bad:
         print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
         return 1

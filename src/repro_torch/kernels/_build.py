@@ -104,7 +104,7 @@ _SIGNATURES = {
         "stencil_tb_max_row_cells": (_I, []),
     },
     "spmv_ell": {
-        "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _P]),
+        "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     },
     "spmv_sell": {
         "spmv_sell_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
@@ -136,6 +136,8 @@ _SIGNATURES = {
     "decode_attn": {
         "decode_attn_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _P]),
+        "decode_attn_mma_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _P]),
     },
 }
 

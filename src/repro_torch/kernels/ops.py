@@ -24,7 +24,9 @@ from repro_torch.kernels.common import StencilSpec
 
 #: kernel name -> (the wrapper that carries its launch counter, the
 #: counter's attribute): ``stencil_perks`` counts its ``fuse_steps>1``
-#: launches (``csrc/stencil_tb.cu``) apart, as ``stencil_perks_fused``
+#: launches (``csrc/stencil_tb.cu``) apart, as ``stencil_perks_fused``;
+#: ``decode_attention`` counts all its launches, and its tensor-core and
+#: CUDA-core kernels' apart
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
     "stencil_perks_fused": (_s2d.stencil_perks, "fused_launches"),
@@ -38,6 +40,8 @@ KERNELS = {
     "gmres_cycle_fused": (_kry.gmres_cycle_fused, "launches"),
     "ssm_scan": (_ssm.ssd_scan, "launches"),
     "decode_attention": (_da.decode_attention, "launches"),
+    "decode_attention_tc": (_da.decode_attention, "tc_launches"),
+    "decode_attention_cc": (_da.decode_attention, "cc_launches"),
 }
 
 
@@ -71,10 +75,10 @@ def stencil_baseline_step(x: torch.Tensor, *, spec: StencilSpec,
     return _s2d.stencil_baseline_step(x, spec, sub_rows=sub_rows, out=out)
 
 
-def spmv(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
-         block_rows: int = 256) -> torch.Tensor:
+def spmv(data: torch.Tensor, cols: torch.Tensor,
+         x: torch.Tensor) -> torch.Tensor:
     """ELL SpMV, y = A @ x (the loop tiers' SpMV for ELL planes)."""
-    return _spmv.spmv_ell(data, cols, x, block_rows=block_rows)
+    return _spmv.spmv_ell(data, cols, x)
 
 
 def spmv_sell(data: torch.Tensor, cols: torch.Tensor,

@@ -7,9 +7,9 @@ data 0 and column 0). A CPU tensor runs the plain torch version
 there is no fallback. The wrapper counts its launches in ``launches``.
 
 The reference pads the rows to a block multiple for its TPU grid; the CUDA
-kernel takes any n, so ``block_rows`` is accepted for the reference's
-signature and not used. The host helpers ``dense_to_ell`` and
-``poisson2d_ell`` build ELL planes with numpy, as the reference's do.
+kernel takes any n, in runs of ``run_rows(K)`` rows that it stages through
+shared memory. The host helpers ``dense_to_ell`` and ``poisson2d_ell``
+build ELL planes with numpy, as the reference's do.
 """
 from __future__ import annotations
 
@@ -59,13 +59,31 @@ def check_vector(v: torch.Tensor, like: torch.Tensor, what: str) -> None:
                         f"float32 vector, got {v.dtype}")
 
 
-def spmv_ell(
-    data: torch.Tensor,
-    cols: torch.Tensor,
-    x: torch.Tensor,
-    *,
-    block_rows: int = 256,
-) -> torch.Tensor:
+#: Rows of one run (the kernel's threads), at most; the shared memory two
+#: runs of both planes take without the opt-in, and a CTA's opt-in maximum
+#: on an H100.
+RUN_ROWS = 256
+RUN_SMEM = 48 * 1024
+SMEM_OPTIN = 232448
+
+
+def run_rows(k: int) -> int:
+    """Rows of one run of the CUDA kernel for K slots a row: 256, or the
+    most multiples of 32 whose two runs of data and cols (16 K bytes a
+    row) fit 48 KB; 32 where fewer would (up to K = 453, with the opt-in);
+    fewer rows only for wider rows still."""
+    per_row = 16 * max(k, 1)
+    r = min(RUN_ROWS, RUN_SMEM // per_row // 32 * 32)
+    if r < 32:
+        r = min(32, (SMEM_OPTIN - 64) // per_row)
+    if r < 1:
+        raise ValueError(f"spmv_ell: rows of {k} slots exceed the shared "
+                         f"memory of one CTA ({SMEM_OPTIN} B)")
+    return r
+
+
+def spmv_ell(data: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
     """y = A @ x, A in ELL format: data/cols (n_rows, K), x (n_cols,)."""
     check_ell(data, cols, "spmv_ell")
     check_vector(x, data, "spmv_ell")
@@ -77,7 +95,7 @@ def spmv_ell(
     with _build.on_device(data):
         err = lib.spmv_ell_launch(data.data_ptr(), cols.data_ptr(),
                                   x.data_ptr(), out.data_ptr(), n, k,
-                                  _build.stream())
+                                  run_rows(k), _build.stream())
     _build.check(err, "spmv_ell_launch")
     spmv_ell.launches += 1
     return out

@@ -21,7 +21,7 @@ from repro_torch.exec import plan_candidates
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import BENCHMARKS, get_spec
 from repro_torch.solvers.cg import SellOperator
-from repro_torch.sparse import generate, symmetric_names
+from repro_torch.sparse import generate, nonsymmetric_names, symmetric_names
 from repro_torch.sparse.generate import poisson2d
 
 NAMES = sorted(BENCHMARKS)
@@ -495,6 +495,117 @@ def test_cuda_decode_attention_matches_plain_version(hq, hkv, s, dtype, cuda):
                                     length=ln)
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.cpu().numpy(), **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dim", [64, 80, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(16, 16), (40, 8), (14, 2), (64, 4)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 160, 1000])
+def test_cuda_decode_tensor_cores_match_plain_version(dim, hq, hkv, s, cuda):
+    """The bf16 tensor-core kernel against the plain version on float32
+    copies, under chip_smoke's bf16 rule: rtol 5e-2 and an atol of 5e-2 x
+    the output's rms."""
+    g = np.random.default_rng(dim + 3 * hq + 7 * s)
+
+    def put(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(torch.bfloat16)
+
+    q, k, v = put(2, hq, dim), put(2, s, hkv, dim), put(2, s, hkv, dim)
+    tol = DECODE_TOL[torch.bfloat16]
+    for ln in (None, 1, s // 3 + 1, s):
+        length = None if ln is None else torch.tensor(
+            [ln, s], dtype=torch.int32, device=cuda)
+        before = ops.launch_counts()
+        got = ops.decode_attention(q, k, v, length=length)
+        after = ops.launch_counts()
+        assert after["decode_attention_tc"] == \
+            before["decode_attention_tc"] + 1
+        assert after["decode_attention_cc"] == before["decode_attention_cc"]
+        want = ref.decode_attention(q.float(), k.float(), v.float(),
+                                    length=length)
+        rms = want.double().pow(2).mean().sqrt().item()
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.cpu().numpy(), rtol=tol["rtol"],
+                                   atol=tol["atol"] * rms)
+
+
+def test_cuda_decode_runs_the_kernel_its_dtype_and_shape_name(cuda):
+    g = np.random.default_rng(5)
+
+    def put(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(g.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype)
+
+    flat = put(2 * 40 * 2 * 64 + 1)
+    cases = [  # (q, k, v, the kernel)
+        (put(2, 14, 64), put(2, 40, 2, 64), put(2, 40, 2, 64),
+         "decode_attention_tc"),
+        (put(2, 14, 64, dtype=torch.float32),
+         put(2, 40, 2, 64, dtype=torch.float32),
+         put(2, 40, 2, 64, dtype=torch.float32), "decode_attention_cc"),
+        (put(2, 14, 72), put(2, 40, 2, 72), put(2, 40, 2, 72),
+         "decode_attention_cc"),
+        # k a view 2 bytes past a 16-byte boundary
+        (put(2, 14, 64), flat[1:].view(2, 40, 2, 64), put(2, 40, 2, 64),
+         "decode_attention_cc"),
+    ]
+    for q, k, v, kernel in cases:
+        before = ops.launch_counts()
+        got = ops.decode_attention(q, k, v)
+        delta = {n: c - before[n] for n, c in ops.launch_counts().items()
+                 if c != before[n]}
+        assert delta == {"decode_attention": 1, kernel: 1}
+        want = ref.decode_attention(q.float(), k.float(), v.float())
+        tol = DECODE_TOL[q.dtype]
+        rms = want.double().pow(2).mean().sqrt().item()
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want.cpu().numpy(), rtol=tol["rtol"],
+            atol=tol["atol"] * (rms if q.dtype == torch.bfloat16 else 1.0))
+
+
+def _ell(k, n, seed, device):
+    g = np.random.default_rng(seed)
+    data = g.standard_normal((n, k)).astype(np.float32)
+    cols = g.integers(0, n, (n, k)).astype(np.int32)
+    x = g.standard_normal(n).astype(np.float32)
+    return (torch.from_numpy(a).to(device) for a in (data, cols, x))
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 5, 7, 9])
+@pytest.mark.parametrize("n", [1, 255, 257, 4099])
+def test_cuda_spmv_ell_is_bit_equal_to_plain_version(k, n, cuda):
+    data, cols, x = _ell(k, n, 100 * k + n, cuda)
+    assert torch.equal(ops.spmv(data, cols, x), ref.spmv_ell(data, cols, x))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+def test_cuda_spmv_ell_takes_misaligned_planes(k, cuda):
+    n = 4099
+    data, cols, x = _ell(k, n, k, cuda)
+    # data and cols as views one element (4 bytes) past a 16-byte boundary
+    bd = torch.empty(n * k + 1, dtype=torch.float32, device=cuda)
+    bc = torch.empty(n * k + 1, dtype=torch.int32, device=cuda)
+    bd[1:].copy_(data.reshape(-1))
+    bc[1:].copy_(cols.reshape(-1))
+    dv, cv = bd[1:].view(n, k), bc[1:].view(n, k)
+    assert dv.data_ptr() % 16 and cv.data_ptr() % 16
+    want = ref.spmv_ell(data, cols, x)
+    assert torch.equal(ops.spmv(dv, cv, x), want)
+    assert torch.equal(ops.spmv(dv, cols, x), want)
+    assert torch.equal(ops.spmv(data, cv, x), want)
+
+
+@pytest.mark.parametrize("name", sorted(SPD + nonsymmetric_names()))
+def test_cuda_spmv_ell_is_bit_equal_on_the_registry(name, cuda):
+    """Every ELL width of the registry (5 to 328 slots a row: the template
+    widths and the generic loop)."""
+    csr = generate(name)
+    ell = csr.to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    x = torch.from_numpy(_rhs(csr.shape[0], seed=3)).to(cuda)
+    assert torch.equal(ops.spmv(data, cols, x), ref.spmv_ell(data, cols, x))
 
 
 def _smoke_decode(cuda, n_steps=7, eos_id=None):
