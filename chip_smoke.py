@@ -10,11 +10,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. hold each stencil kernel against its plain torch version on the card,
    at atol 5e-6, rtol 0: all 13 Table-III specs at a moderate size, the
    temporally blocked ``stencil_perks`` (t = 2, 4) and
-   ``stencil_perks_deep`` (t = 2, 8, 32) with 0 and 4r+1 cached rows
-   included (a layout one CTA cannot hold is listed, not run); then the
-   same in bf16 at atol 2e-2; then each kernel at the stencil path's full
-   shapes, with its time, its plain version's time and (for the one-step
-   kernel) a cuDNN convolution's;
+   ``stencil_perks_deep`` (t = 2, 8, 32; bit for bit) with 0 and 4r+1
+   cached rows included (a layout one CTA cannot hold is listed, not run);
+   then the same in bf16 at atol 2e-2 (the deep kernel bit for bit); then
+   each kernel at the stencil path's full shapes, with its time, its plain
+   version's time and (for the one-step kernel) a cuDNN convolution's; the
+   deep kernel there must load level 0 by TMA;
 3. the stencil path, with every launch counter set to 0 just before and
    read just after: ``StencilProblem`` -> ``plan`` -> ``execute`` for
    2d5pt at 8192x8192 f32 (100 steps) and at 3072x1152 f32 (1000 steps),
@@ -22,7 +23,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``stencil_perks``; the whole small domain, ``stencil_resident``),
    shallow (t = 4) and deep (t = 8, 32) resident plans, and plans in the
    JAX package's JSON form with ``fuse_steps>1`` and ``schedule="deep"``;
-   each result against the plain version;
+   each result against the plain version, and every deep launch must
+   have loaded level 0 by TMA;
 4. each stencil tier's median time, cells/s and effective bandwidth; then
    each temporal-blocking depth of both schedules on 2d5pt 8192x8192 and
    3d7pt 256^3 f32 (100 steps): time, cells/s, and the port's byte model
@@ -31,7 +33,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    at its own size (50 iterations of ``cg_fused``, VEC and MIX), then each
    kernel at the CG path's full shapes with its time, its plain version's
    and (for the SpMVs) one cuSPARSE call's; ``spmv_ell`` on cg-large also
-   bit for bit against its plain version;
+   bit for bit against its plain version; ``spmv_sell`` bit for bit on
+   every registry entry (c = 8 and 32) and on cg-sell, where it and cuSPARSE
+   are also timed inside a CUDA graph;
 6. the CG path, with every launch counter set to 0 just before and read
    just after: ``CGProblem`` -> ``plan`` -> ``execute`` and every offered
    tier by hand, 100 iterations each, on cg-small (``poisson2d(512)``,
@@ -143,6 +147,9 @@ MAIN = [  # (spec, shape, n_steps, what the one-step resident plan caches)
 FUSED_T = 4              # stencil_perks_fused's depth on the main path
 DEEP_T = 8               # stencil_perks_deep's in the kernels line
 TB_STEPS = 37            # moderate-size temporal-blocking checks: 37 % t != 0
+# Every temporal-blocking depth of the [depths] sweep: each is timed beside
+# the planner's price of it (planner_ms), so the levels' prices
+# (planner.TB_SHALLOW_CELL_STEP_S, TB_DEEP_LANE_CELL_S) can be read off it.
 DEPTHS = [("shallow", 1), ("shallow", 2), ("shallow", 4), ("deep", 2),
           ("deep", 4), ("deep", 8), ("deep", 16), ("deep", 32)]
 SWEEP = [("2d5pt", (8192, 8192), 100), ("3d7pt", (256, 256, 256), 100)]
@@ -248,6 +255,14 @@ def check_decode_bf16(what: str, got: torch.Tensor,
     return check_close(f"{what} (atol {tol['atol']} x rms, rms >= "
                        f"{rms.min().item()!r})", got, want, tol["rtol"],
                        tol["atol"] * rms, quiet)
+
+
+def bit_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """A FAIL unless ``got`` equals ``want`` bit for bit (a kernel that
+    sums in its plain version's order); prints only a FAIL."""
+    if not torch.equal(got, want):
+        print(f"  {what}: not bit-equal to its plain version FAIL")
+        FAILS.append(f"{what} is not bit-equal")
 
 
 def check(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -455,11 +470,11 @@ def cg_phases(rng):
         for c, sigma in ((8, 64), (32, 256)):
             op = SellOperator.from_matrix(csr.to_sell(c=c, sigma=sigma))
             args = (op.data, op.cols, op.slice_offsets, op.slice_k, x)
-            keep("spmv_sell", check_close(
-                f"{name} spmv_sell c={c}",
-                ops.spmv_sell(*args, c=c, k_max=op.k_max),
-                ref.spmv_sell(*args, c=c, k_max=op.k_max),
-                SPMV_RTOL, SPMV_ATOL))
+            got = ops.spmv_sell(*args, c=c, k_max=op.k_max)
+            want = ref.spmv_sell(*args, c=c, k_max=op.k_max)
+            keep("spmv_sell", check_close(f"{name} spmv_sell c={c}", got,
+                                          want, SPMV_RTOL, SPMV_ATOL))
+            bit_equal(f"{name} spmv_sell c={c}", got, want)
         wx, wrr = ref.cg_run(data, cols, b, 50)
         x64, rr64 = ref.cg_run(data.double(), cols, b.double(), 50)
         bx, _ = plain_cg(lambda p: ref.spmv_ell(data, cols, p), b, 50,
@@ -555,17 +570,22 @@ def cg_phases(rng):
     print(f"  spmv_ell cg-large: {json.dumps(timing['spmv_ell'])}")
     op, xs = sellc["op"], sellc["problem"].b
     args = (op.data, op.cols, op.slice_offsets, op.slice_k, xs)
-    keep("spmv_sell", check_close(
-        "spmv_sell cg-sell", ops.spmv_sell(*args, c=op.c, k_max=op.k_max),
-        ref.spmv_sell(*args, c=op.c, k_max=op.k_max), SPMV_RTOL, SPMV_ATOL))
+    got = ops.spmv_sell(*args, c=op.c, k_max=op.k_max)
+    want = ref.spmv_sell(*args, c=op.c, k_max=op.k_max)
+    keep("spmv_sell", check_close("spmv_sell cg-sell", got, want, SPMV_RTOL,
+                                  SPMV_ATOL))
+    bit_equal("spmv_sell cg-sell", got, want)
     n_slices = op.slice_k.shape[0]
+    run = lambda: ops.spmv_sell(*args, c=op.c, k_max=op.k_max)
+    lib = cusparse_mv(sellc["csr"], xs)
     timing["spmv_sell"] = dict(
-        ms=cuda_ms(lambda: ops.spmv_sell(*args, c=op.c, k_max=op.k_max), 20),
+        ms=cuda_ms(run, 20), graph_ms=graph_ms(run), host_us=host_us(run),
         plain_ms=cuda_ms(lambda: ref.spmv_sell(*args, c=op.c,
                                                k_max=op.k_max), 5),
         bound=spmv_bound(xs.shape[0], n_slices * op.c, sellc["slots"],
                          8 * n_slices),
-        library_ms=cuda_ms(cusparse_mv(sellc["csr"], xs), 20))
+        library_ms=cuda_ms(lib, 20), library_graph_ms=graph_ms(lib))
+    print(f"  spmv_sell cg-sell: {json.dumps(timing['spmv_sell'])}")
     for c in (small, large):
         p, best = c["problem"], c["best"]
         rows = p.resident_matrix_rows(best)
@@ -1107,6 +1127,10 @@ def direct_decode(kernel, q, k, v, length=None):
     def run():
         _build.check(getattr(lib, entry)(*args, last, _build.stream()), entry)
         return out
+    # the launch writes through out's and part's pointers: both must live
+    # as long as run (a freed part was reused, or unmapped under a graph
+    # replay, which then faulted)
+    run.buffers = (out, part)
     return run
 
 
@@ -1615,6 +1639,8 @@ def main() -> int:
                 got = fn(x, spec=spec, steps=steps, cached_rows=R,
                          sub_rows=max(128, spec.radius * t), fuse_steps=t)
                 keep(table, kname, check_close(what, got, want, 0.0, tol))
+                if kname == "stencil_perks_deep":
+                    bit_equal(what, got, want)
 
     print(f"[kernels] all specs, moderate size, 7 steps (odd); temporal "
           f"blocking {TB_STEPS} steps")
@@ -1706,8 +1732,15 @@ def main() -> int:
             R = plan_resident_planes(shape, x.element_size(), spec,
                                      fuse_steps=t, schedule=sched)
             run = lambda: fn(x, spec=spec, steps=n, cached_rows=R, fuse_steps=t)
+            tma = ops.launch_counts()["stencil_perks_deep_tma"]
+            got = run()
             keep(errs, kname, check(f"{kname} {shape} {n} steps t={t} "
-                                    f"cached_rows={R}", run(), want))
+                                    f"cached_rows={R}", got, want))
+            if sched == "deep":
+                bit_equal(f"{kname} {shape}", got, want)
+                if ops.launch_counts()["stencil_perks_deep_tma"] == tma:
+                    FAILS.append(f"{kname} {shape} did not load level 0 "
+                                 f"by TMA")
             least = (gm_bytes_deep(n, dom, R * row, fuse_steps=t)
                      if sched == "deep" else
                      gm_bytes_fused(n, dom, R * row, row_bytes=row,
@@ -1750,6 +1783,10 @@ def main() -> int:
     for k in STENCIL_KERNELS:
         if launches[k] == 0:
             FAILS.append(f"{k} was not launched on the stencil path")
+    if launches["stencil_perks_deep_tma"] != launches["stencil_perks_deep"]:
+        FAILS.append(f"stencil_perks_deep loaded level 0 by TMA in "
+                     f"{launches['stencil_perks_deep_tma']} of its "
+                     f"{launches['stencil_perks_deep']} main-path launches")
     b_big, b_small = (best for _, best, _, _, _ in main_inputs)
     H_big, H_small = MAIN[0][1][0], MAIN[1][1][0]
     if not (b_big.tier == "resident" and 0 < b_big.cached_rows < H_big):

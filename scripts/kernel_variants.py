@@ -2,6 +2,8 @@
 
     python3 scripts/kernel_variants.py [--variants NAME,NAME,...] [--src SRC]
     python3 scripts/kernel_variants.py --kernels spmv_decode [--src SRC]
+    python3 scripts/kernel_variants.py --kernels sell_deep [--src SRC]
+    python3 scripts/kernel_variants.py --kernels deep_profile
 
 Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` overrides
 of the kernels' tuning macros (all variants compile at once), prints its
@@ -34,6 +36,22 @@ and CG's host and device loop tiers there (100 iterations); and bf16
 held to ``ref.decode_attention`` at rtol 5e-2 and atol 5e-2 times the
 output's rms) in a graph, beside one ``scaled_dot_product_attention``.
 With ``--src`` and a parent tree this is the before/after of those kernels.
+
+``--kernels sell_deep`` times ``spmv_sell`` and ``stencil_perks_deep``:
+``spmv_sell`` on cg-sell (``fem_variable_band(2**20)`` as SELL-32-256;
+bit-equal to ``ref.spmv_sell``) eager and in a CUDA graph, beside
+cuSPARSE's CSR ``A @ x`` of the same matrix eager and in a graph, and CG's
+host and device loop tiers on it (100 iterations, microseconds an
+iteration); then ``stencil_perks_deep`` with no cached row, 100 steps, on
+2d5pt 8192x8192 at t = 8 and 32 and on 3d7pt 256^3 at t = 2, 4 and 8
+(bit-equal to ``ref.stencil_run``). In turns with a parent tree
+(``--src build/parent/src --rounds 1``, this tree, this tree, the parent)
+it is the before/after of those two kernels.
+
+``--kernels deep_profile`` times ``stencil_perks_deep`` on the same
+stencil cells as built and built with ``-DDEEP_PROFILE``, which sums its
+warps' clock cycles by what they wait for (the loader for a free slot,
+level warps for input rows or for a free slot) beside their totals.
 """
 from __future__ import annotations
 
@@ -165,13 +183,120 @@ def spmv_decode(src: str, rounds: int) -> int:
     return 0
 
 
+#: (spec, shape, t): stencil_perks_deep's A/B cells, 100 steps, no cached row
+DEEP_CELLS = [("2d5pt", (8192, 8192), 8), ("2d5pt", (8192, 8192), 32),
+              ("3d7pt", (256, 256, 256), 2), ("3d7pt", (256, 256, 256), 4),
+              ("3d7pt", (256, 256, 256), 8)]
+
+
+def sell_deep(src: str, rounds: int) -> int:
+    """``--kernels sell_deep``: one JSON line per round."""
+    from repro_torch import CGProblem, Plan, execute
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.common import get_spec
+    from repro_torch.solvers.cg import SellOperator
+    from repro_torch.sparse.generate import fem_variable_band
+
+    _build.build_all(("spmv_sell", "stencil_tb"))
+    rng = np.random.default_rng(0)
+    csr = fem_variable_band(2**20)
+    op = SellOperator.from_matrix(csr.to_sell(c=32, sigma=256))
+    b = rng.standard_normal(csr.shape[0]).astype(np.float32)
+    problem = CGProblem.from_matvec(op.matvec, b, 100, matrix=op.matrix)
+    x = problem.b
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.indices.astype(np.int32)).cuda(),
+        torch.from_numpy(csr.data).cuda(), size=csr.shape)
+    args = (op.data, op.cols, op.slice_offsets, op.slice_k, x)
+    spmv = lambda: ops.spmv_sell(*args, c=op.c, k_max=op.k_max)
+    bad = []
+    if not torch.equal(spmv(), ref.spmv_sell(*args, c=op.c, k_max=op.k_max)):
+        bad.append("spmv_sell is not bit-equal to ref.spmv_sell")
+    domains = {}
+    for name, shape, t in DEEP_CELLS:
+        if (name, shape) not in domains:
+            d = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                 ).cuda()
+            domains[name, shape] = (d, ref.stencil_run(d, get_spec(name), 100))
+    for rnd in range(rounds):
+        line = {"src": src, "round": rnd,
+                "spmv_sell_ms": cuda_ms(spmv, 20),
+                "spmv_sell_graph_ms": graph_ms(spmv),
+                "cusparse_ms": cuda_ms(lambda: a @ x, 20),
+                "cusparse_graph_ms": graph_ms(lambda: a @ x)}
+        for tier in ("host_loop", "device_loop"):
+            run = lambda: execute(problem, Plan(tier=tier))
+            line[f"cg_sell_{tier}_us_per_iter"] = 1e3 * cuda_ms(run, 3) / 100
+        for name, shape, t in DEEP_CELLS:
+            d, want = domains[name, shape]
+            run = lambda: ops.stencil_perks_deep(
+                d, spec=get_spec(name), steps=100, cached_rows=0,
+                fuse_steps=t)
+            key = f"deep_{name}_{shape[0]}_t{t}"
+            if rnd == 0 and not torch.equal(run(), want):
+                bad.append(f"{key} is not bit-equal to ref.stencil_run")
+            line[f"{key}_ms"] = cuda_ms(run, 3)
+        print(json.dumps(line), flush=True)
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+def deep_profile(src: str, rounds: int) -> int:
+    """``--kernels deep_profile``: ``stencil_perks_deep`` on the sell_deep
+    cells, shipped and built with -DDEEP_PROFILE (its warps' clock cycles
+    by what they wait for): one JSON line per build, cell and round."""
+    import ctypes
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.common import get_spec
+
+    variants = {"profile": ("-DDEEP_PROFILE",), "shipped": ()}
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda v: _build.build_all(("stencil_tb",), extra=v),
+                      variants.values()))
+    rng = np.random.default_rng(0)
+    kinds = ("load_wait_slot", "level_wait_input", "level_wait_slot",
+             "level_all", "load_all")
+    for rnd in range(rounds):
+        for name, shape, t in DEEP_CELLS:
+            d = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                 ).cuda()
+            run = lambda: ops.stencil_perks_deep(
+                d, spec=get_spec(name), steps=100, cached_rows=0,
+                fuse_steps=t)
+            for v, flags in variants.items():
+                _build.EXTRA_FLAGS = flags
+                lib = _build.load("stencil_tb")
+                tma = ops.launch_counts()["stencil_perks_deep_tma"]
+                line = {"variant": v, "cell": f"{name} {shape} t={t}",
+                        "round": rnd, "ms": cuda_ms(run, 2),
+                        "tma": ops.launch_counts()["stencil_perks_deep_tma"]
+                        > tma}
+                if flags:
+                    out = (ctypes.c_ulonglong * 5)()
+                    lib.stencil_tb_profile.argtypes = [ctypes.c_void_p]
+                    _build.check(lib.stencil_tb_profile(out), "profile")
+                    run()
+                    torch.cuda.synchronize()
+                    _build.check(lib.stencil_tb_profile(out), "profile")
+                    line.update(zip(kinds, (int(c) for c in out)))
+                print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    print(card_name())
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
-    ap.add_argument("--kernels", choices=("stencil", "spmv_decode"),
+    ap.add_argument("--kernels", choices=("stencil", "spmv_decode",
+                                          "sell_deep", "deep_profile"),
                     default="stencil")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -181,6 +306,10 @@ def main() -> int:
     sys.path.insert(0, src)
     if args.kernels == "spmv_decode":
         return spmv_decode(src, args.rounds)
+    if args.kernels == "sell_deep":
+        return sell_deep(src, args.rounds)
+    if args.kernels == "deep_profile":
+        return deep_profile(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks

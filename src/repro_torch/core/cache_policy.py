@@ -194,11 +194,27 @@ def deep_scratch_rows(sub_rows: int, radius: int, fuse_steps: int) -> int:
     return (2 * fuse_steps + 3) * sub_rows + (fuse_steps + 1) * radius
 
 
-def _window_sum(n: int, size: int, halo: int) -> int:
+def _window_sum(n: int, size: int, halo: int, width: int = 0) -> int:
     """Sum over the ``size``-wide pieces [lo, hi) of [0, n) of their
-    windows [lo - halo, hi + halo) clamped to [0, n)."""
-    return sum(min(n, lo + size + halo) - max(0, lo - halo)
+    windows [lo - halo, hi + halo), or [lo - halo, lo - halo + width) when
+    ``width`` is given, clamped to [0, n)."""
+    span = width or size + 2 * halo
+    return sum(min(n, lo - halo + span) - max(0, lo - halo)
                for lo in range(0, n, size))
+
+
+def deep_window(strip_cols: int, radius: int, t: int, dtype_bytes: int,
+                ndim: int) -> tuple[int, int]:
+    """``(left, width)``: the columns [x0 - left, x0 - left + width) of the
+    deep schedule's level 0 for a strip of ``strip_cols`` columns from x0
+    (a multiple of 16 bytes). A TMA box starts only on a 16-byte column,
+    so the r*t halo on the left is rounded up to 16 bytes; the width
+    covers r*t on the right too and is whole boxes, 128 bytes in 2D and
+    16 in 3D."""
+    align = 16 // dtype_bytes
+    left = -(-radius * t // align) * align
+    box = (128 if ndim == 2 else 16) // dtype_bytes
+    return left, -(-(left + strip_cols + radius * t) // box) * box
 
 
 def gm_bytes_tb(
@@ -224,8 +240,10 @@ def gm_bytes_tb(
     * shallow: every ``rows`` x ``strip`` tile of the streamed rows read
       with an r*ct halo on every side (clamped at the domain border) and
       its interior written, once a pass;
-    * deep: every strip read over rows [R - r*ct, H) with an r*ct side
-      halo, and the streamed rows written, once a pass.
+    * deep: every strip x segment of ``rows`` streamed rows read with
+      r*ct warm-up rows above and below it over level 0's window
+      (``deep_window``; clamped at the domain border), and the streamed
+      rows written, once a pass.
 
     ``strip`` is (plane rows, columns); plane rows are 1 in 2D. Never below
     ``gm_bytes_deep`` at the same cached rows."""
@@ -248,13 +266,15 @@ def gm_bytes_tb(
             per += (top - b0) + (b1 - max(b1 - r * t, top))
         per *= row_bytes
         if R < H:
-            hy = h if len(shape) == 3 else 0
-            plane = _window_sum(D1, sy, hy) * _window_sum(D2, sx, h)
             if deep:
-                per += (H - max(0, R - h)) * plane * dtype_bytes
+                left, width = deep_window(sx, r, t, dtype_bytes, len(shape))
+                plane = (_window_sum(D1, sy, r * t if len(shape) == 3 else 0)
+                         * _window_sum(D2, sx, left, width))
             else:
-                per += sum(min(H, lo + rows + h) - max(0, lo - h)
-                           for lo in range(R, H, rows)) * plane * dtype_bytes
+                plane = (_window_sum(D1, sy, h if len(shape) == 3 else 0)
+                         * _window_sum(D2, sx, h))
+            per += sum(min(H, lo + rows + h) - max(0, lo - h)
+                       for lo in range(R, H, rows)) * plane * dtype_bytes
             per += (H - R) * D1 * D2 * dtype_bytes
         total += passes * per
     return total

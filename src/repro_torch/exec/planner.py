@@ -18,13 +18,18 @@ schedule at t = 1, 2, 4, ... up to ``max_fuse`` (default 4), and the deep
 schedule at t = 2, 4, ... up to ``DEEP_MAX_FUSE``. t = 1 is
 ``csrc/stencil_perks.cu`` priced by Eq. 5 (``gm_bytes_fused``); t > 1 is
 ``csrc/stencil_tb.cu``, priced by the port's own byte model of it
-(``gm_bytes_tb``: halo re-reads of its tiles or strips included) and by
-its levels: each costs every cell ``TB_CELL_STEP_S`` of barriers and index
-arithmetic, whatever the bytes (``stencil_model_bytes`` and
-``stencil_model_s`` give both for any plan). Each candidate's cached rows and layout are those the kernel takes in ONE CTA's
-shared memory (``stencil2d.tb_layout``, the card's per-block limit, or the
-H100 data sheet's on the CPU): a depth the kernel cannot run is not
-offered, and the first deep overflow ends the deep sweep.
+(``gm_bytes_tb``: halo re-reads of its tiles or strips and the deep
+segments' warm-up rows included) and by its levels, whatever the bytes
+(``tb_compute_s``): the shallow tiles (barriers and index arithmetic) at
+``TB_SHALLOW_CELL_STEP_S`` every cell a step, the deep level pipeline at
+``TB_DEEP_LANE_CELL_S`` for each lane-cell of its passes'
+``stencil2d.deep_pass_cost``, which counts the strips' side halos, the
+segments' warm-up rows and the levels' lag, so it grows with the depth
+(``stencil_model_bytes`` and ``stencil_model_s`` give both for any plan). Each candidate's cached rows
+and layout are those the kernel takes in ONE CTA's shared memory
+(``stencil2d.tb_layout``, the card's per-block limit, or the H100 data
+sheet's on the CPU): a depth the kernel cannot run is not offered, and the
+first deep overflow ends the deep sweep.
 
 The ML branch (``_ml_candidates``) prices ``DecodeAttentionProblem`` and
 ``SSMScanProblem`` with the reference's traffic model on the H100: per-step
@@ -73,14 +78,22 @@ DISPATCH_OVERHEAD_S = 25e-6
 #: depths run past ``max_fuse`` as far as the kernel's layout fits.
 DEEP_MAX_FUSE = 32
 
-#: Seconds one cell of one level costs ``csrc/stencil_tb.cu`` whatever its
-#: bytes: every level of a tile or strip is two ``__syncthreads`` and index
-#: arithmetic a cell, so the kernel runs far below its byte bound. The
-#: fastest rate ``chip_smoke.py``'s depth sweep measured for it (2d5pt
-#: 8192x8192 x 100, shallow t = 4: 45.78 ms for 6.71e9 cell-steps, on an
-#: H100 SXM at a 700 W power limit); deep and 3D levels measured slower
-#: (up to 18 ps), so this is the optimistic end.
-TB_CELL_STEP_S = 6.8e-12
+#: What the levels of ``csrc/stencil_tb.cu`` cost whatever their bytes, by
+#: schedule. Shallow: seconds a cell a step; every level of a tile is two
+#: ``__syncthreads`` and index arithmetic a cell; the fastest rate
+#: ``chip_smoke.py``'s depth sweep measured for it (2d5pt 8192x8192 x 100,
+#: t = 4: 45.78 ms for 6.71e9 cell-steps, on an NVIDIA H100 80GB HBM3 at a
+#: 700 W power limit). Deep: seconds a lane-cell of
+#: ``stencil2d.deep_pass_cost`` (the level pipeline's cells over its
+#: lanes, its per-row set-up, warm-up rows and lag), fitted to one cell
+#: of ``chip_smoke.py``'s depth sweep (2d5pt 8192x8192 x 100, t = 8:
+#: 32.43 ms, on an NVIDIA H100 80GB HBM3 at a 700 W power limit). On the
+#: sweep's other depths it gives 0.77-1.19x the measured time (2d5pt t = 2
+#: to 32: 35.43, 27.10, 35.32, 47.32 ms; 3d7pt 256^3 t = 2 to 8: 11.22,
+#: 11.83, 18.16 ms), and 0.65x at 3d7pt t = 16 (181.5 ms), whose side
+#: halos it counts.
+TB_SHALLOW_CELL_STEP_S = 6.8e-12
+TB_DEEP_LANE_CELL_S = 3.711e-7
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -187,16 +200,42 @@ def stencil_model_bytes(problem, p: Plan, *,
     if not _runs_tb(problem, p):
         return gm_bytes_fused(n, shape[0] * row_bytes, rows * row_bytes,
                               row_bytes=row_bytes, radius=r, fuse_steps=1)
-    chip = _as_chip(chip)
-    deep = p.schedule == "deep"
-    t = min(p.fuse_steps, n)
-    lay = stencil2d.tb_layout(
-        shape, r, t, db, deep=deep, ctas=chip.sms,
-        limit=chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM,
-        cached_rows=rows)
-    return gm_bytes_tb(n, shape, db, radius=r, fuse_steps=t,
+    lay = _tb_layout(problem, p, _as_chip(chip))
+    return gm_bytes_tb(n, shape, db, radius=r, fuse_steps=min(p.fuse_steps, n),
                        cached_rows=rows, bands=lay.nb, strip=lay.strip,
-                       rows=lay.rows, deep=deep)
+                       rows=lay.rows, deep=p.schedule == "deep")
+
+
+def _tb_layout(problem, p: Plan, chip: Chip):
+    """The layout ``csrc/stencil_tb.cu`` takes for plan ``p`` in one CTA of
+    ``chip``."""
+    return stencil2d.tb_layout(
+        tuple(problem.x.shape), problem.spec.radius,
+        min(p.fuse_steps, problem.n_steps), problem.x.element_size(),
+        deep=p.schedule == "deep", ctas=chip.sms,
+        limit=chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM,
+        cached_rows=p.cached_rows or 0)
+
+
+def tb_compute_s(problem, p: Plan, *,
+                 chip: Union[str, Chip] = "h100") -> float:
+    """Seconds the levels of ``csrc/stencil_tb.cu`` cost plan ``p``
+    whatever its bytes: shallow, every cell a step at
+    ``TB_SHALLOW_CELL_STEP_S``; deep, each pass's ``deep_pass_cost`` over
+    the streamed rows (the last pass at ``n_steps % t`` levels) at
+    ``TB_DEEP_LANE_CELL_S``."""
+    shape, n = tuple(problem.x.shape), problem.n_steps
+    if p.schedule != "deep":
+        return math.prod(shape) * n * TB_SHALLOW_CELL_STEP_S
+    chip = _as_chip(chip)
+    lay = _tb_layout(problem, p, chip)
+    t = min(p.fuse_steps, n)
+    streamed = shape[0] - (p.cached_rows or 0)
+    cost = sum(stencil2d.deep_pass_cost(shape, problem.spec.radius,
+                                        min(t, n - s), lay.strip, lay.rows,
+                                        chip.sms, streamed)
+               for s in range(0, n, t))
+    return cost * TB_DEEP_LANE_CELL_S
 
 
 def stencil_model_s(problem, p: Plan, *,
@@ -205,7 +244,7 @@ def stencil_model_s(problem, p: Plan, *,
     ``p`` (no dispatch) and what bounds it: the larger of its model bytes
     at the device-memory rate, the cached bytes through on-chip memory
     (Eq. 7) and, for ``csrc/stencil_tb.cu``, its levels
-    (``TB_CELL_STEP_S`` a cell a step)."""
+    (``tb_compute_s``)."""
     chip = _as_chip(chip)
     shape, n = tuple(problem.x.shape), problem.n_steps
     row_bytes = int(math.prod(shape[1:])) * problem.x.element_size()
@@ -214,7 +253,7 @@ def stencil_model_s(problem, p: Plan, *,
         / chip.hbm_bw,
         "onchip_memory": sm_bytes_accessed(
             n, (p.cached_rows or 0) * row_bytes) / chip.onchip_bw,
-        "compute": (math.prod(shape) * n * TB_CELL_STEP_S
+        "compute": (tb_compute_s(problem, p, chip=chip)
                     if _runs_tb(problem, p) else 0.0),
     }
     bound_by = max(terms, key=terms.get)

@@ -49,9 +49,9 @@ NVCC_FLAGS = (
 
 #: ``-D`` overrides of the kernels' tuning macros (``PERKS_THREADS``,
 #: ``PERKS_CELLS_PER_THREAD``, ``PERKS_STREAM_ROWS``, ``STEP_STREAM_ROWS``)
-#: that ``load`` uses,
-#: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
-#: for the shipped kernels.
+#: and the deep schedule's wait profile (``DEEP_PROFILE``) that ``load``
+#: uses, for variant builds as ``scripts/kernel_variants.py`` makes them;
+#: empty for the shipped kernels.
 EXTRA_FLAGS: tuple[str, ...] = ()
 
 MAX_POINTS = 32
@@ -77,7 +77,8 @@ class TbArgs(ctypes.Structure):
     """Mirror of ``struct TbArgs`` in ``csrc/stencil_tb.cu``."""
 
     _fields_ = [(f, ctypes.c_int) for f in (
-        "steps", "t", "R", "nb", "deep", "sy", "sx", "rows", "band_bytes")]
+        "steps", "t", "R", "nb", "deep", "sy", "sx", "rows", "band_bytes",
+        "q0", "q", "h0", "w0")]
 
 
 _P = ctypes.c_void_p
@@ -98,7 +99,7 @@ _SIGNATURES = {
     },
     "stencil_tb": {
         "stencil_tb_launch": (_I, [_P, _P, _P, StencilArgs, TbArgs, _I, _I,
-                                   _I, _P]),
+                                   _I, _P, _IP]),
         "stencil_tb_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_tb_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_tb_max_row_cells": (_I, []),

@@ -12,8 +12,12 @@ float32 and bfloat16 cells:
     with ``fuse_steps=t>1`` every t steps, in tiles that recompute an r*t
     halo (``csrc/stencil_tb.cu``, the shallow schedule).
 ``stencil_perks_deep``
-    t steps a pass with no recompute along the rows: strip walkers keep a
-    ring of rows per level (``csrc/stencil_tb.cu``, the deep schedule).
+    t steps a pass with no recompute along the rows (``csrc/stencil_tb.cu``,
+    the deep schedule): each CTA runs units of one strip by one segment of
+    rows as a pipeline of levels, warp 0 feeding level-0 rows by TMA ahead
+    of use, the other warps each computing its share of levels 1..t from
+    small rings of rows in shared memory, meeting on mbarriers with no
+    block-wide barrier in the row walk.
 ``stencil_resident``
     ``csrc/stencil_perks.cu`` with every row cached; raises ``ValueError``
     when the domain does not fit the co-resident CTAs' shared memory.
@@ -25,7 +29,8 @@ Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
 wrapper counts its launches in its ``launches`` attribute;
 ``stencil_perks`` counts its ``fuse_steps>1`` launches apart, in
-``fused_launches``. ``tb_layout`` is the temporal-blocking kernel's shared
+``fused_launches``, and ``stencil_perks_deep`` those that loaded level 0
+by TMA in ``tma_launches``. ``tb_layout`` is the temporal-blocking kernel's shared
 memory layout, which the wrappers and the planner share, so the planner
 offers no plan the kernel refuses.
 
@@ -41,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.cache_policy import deep_window
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import StencilSpec
@@ -54,13 +60,22 @@ PERKS_MAX_ROW_CELLS = 20 * PERKS_THREADS
 #: give a CTA the opt-in per-block limit less this reserve; the wrappers
 #: check at each launch that the built kernel's static shared memory fits.
 PERKS_STATIC_SMEM = 2048
-#: Temporal blocking (``csrc/stencil_tb.cu``): the most rows of a shallow
-#: tile and of a deep block (the rows table holds PERKS_MAX_BLOCK_ROWS +
-#: 2 * MAX_RADIUS = 48 pointers), and the cells a deep block aims at per
-#: level (two a thread).
+#: Temporal blocking (``csrc/stencil_tb.cu``), shallow schedule: the most
+#: rows of a tile.
 TB_TILE_ROWS = 64
-TB_BLOCK_ROWS = 32
-TB_TARGET_CELLS = 2048
+#: Deep schedule: warp 0 keeps level-0 rows in flight into a ring of
+#: 2r + 1 + DEEP_PREFETCH slots, DEEP_WARPS warps compute levels 1..t from
+#: rings of 2r + 3 slots (less where those do not fit, ``deep_rings``).
+#: DEEP_ROW_CELLS and DEEP_UNIT_TICKS price a warp's row (its waits and
+#: arrivals, in cells a lane) and a unit's set-up (in ticks) in
+#: ``deep_pass_cost``.
+DEEP_PREFETCH = 3
+DEEP_WARPS = PERKS_THREADS // 32 - 1
+DEEP_ROW_CELLS = 4
+DEEP_UNIT_TICKS = 16
+#: The deep schedule's rows: its ring arithmetic (a multiply-high in place
+#: of a division) is exact below this.
+DEEP_MAX_ROWS = 2**23
 #: dtype -> the kernels' element-type code (STENCIL_F32, STENCIL_BF16)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -100,8 +115,10 @@ class TbLayout:
     """Shared memory of one CTA of ``csrc/stencil_tb.cu``: ``nb`` bands of
     at most ``maxband`` cached rows with their 2*r*t halo rows and r-row
     ring (``band_bytes``), then the streaming scratch (``scratch_bytes``)
-    for strips of ``strip`` = (plane rows, columns) and tiles (shallow) or
-    blocks (deep) of ``rows`` rows."""
+    for strips of ``strip`` = (plane rows, columns) and, shallow, tiles of
+    ``rows`` rows, or, deep, segments of ``rows`` output rows with rings
+    of ``rings`` = (level 0, levels 1..t-1) slots and level 0's columns
+    ``window`` = (left, width) (``cache_policy.deep_window``)."""
 
     nb: int
     maxband: int
@@ -109,6 +126,8 @@ class TbLayout:
     strip: tuple[int, int]
     rows: int
     scratch_bytes: int
+    rings: tuple[int, int] = (0, 0)
+    window: tuple[int, int] = (0, 0)
 
     @property
     def smem(self) -> int:
@@ -120,50 +139,169 @@ def _planes(shape: tuple[int, ...]) -> tuple[int, int]:
     return (shape[1] if len(shape) == 3 else 1), shape[-1]
 
 
+def deep_rings(radius: int) -> tuple[tuple[int, int], ...]:
+    """Ring slots (level 0, levels 1..t-1) the deep schedule takes, the
+    deepest first. Level k reads rows i - r .. i + r of level k - 1 while
+    level k - 1 writes row i + r + 1 (a lag of r + 1 rows), so 2r + 2 slots
+    a level is the least: with them the slot a level fills was freed a tick
+    before, and a warp holding two adjacent levels (lowest first) never
+    waits on itself. 2r + 3 lets a level run a row ahead; level 0 keeps
+    DEEP_PREFETCH rows in flight beyond its 2r + 1, or none."""
+    return ((2 * radius + 1 + DEEP_PREFETCH, 2 * radius + 3),
+            (2 * radius + 1 + DEEP_PREFETCH, 2 * radius + 2),
+            (2 * radius + 1, 2 * radius + 2))
+
+
+def deep_scratch_bytes(shape: tuple[int, ...], radius: int, t: int,
+                       dtype_bytes: int, strip: tuple[int, int],
+                       rings: tuple[int, int]) -> int:
+    """Streaming scratch of the deep schedule, as the kernel carves it
+    from a 128-byte boundary: the rings of levels 0..t-1, ``rings`` = (level
+    0's slots, each other level's) (level k >= 1 holds the strip widened by
+    r*(t - k) on each side in slots padded to 16 bytes, level 0 its window,
+    ``cache_policy.deep_window`` by the strip widened by r*t, in slots
+    padded to 128 bytes), a full and an empty mbarrier per slot, and a
+    table of t ring offsets."""
+    is3 = len(shape) == 3
+    sy, sx = strip
+    q0, q = rings
+    h = radius * t
+    width0 = deep_window(sx, radius, t, dtype_bytes, len(shape))[1]
+
+    def slot(cells: int, align: int) -> int:
+        return -(-cells * dtype_bytes // align) * align
+
+    ring0 = slot((sy + 2 * h if is3 else 1) * width0, 128)
+    rest = sum(slot((sy + 2 * radius * m if is3 else 1)
+                    * (sx + 2 * radius * m), 16) for m in range(1, t))
+    return 128 + q0 * ring0 + q * rest + 16 * (q0 + (t - 1) * q) + 4 * t
+
+
+def _deep_strips(shape, radius, t, dtype_bytes):
+    """Strip widths the deep schedule takes, narrowest first, in classes:
+    multiples of 16 bytes (TMA starts level 0's boxes there); in 2D a
+    class is the widths of one level-0 window width, in 3D each width
+    whose window is one box of at most 256 cells is its own."""
+    ndim = len(shape)
+    align = 16 // dtype_bytes
+    top = -(-shape[-1] // align) * align
+    classes = []
+    for sx in range(align, top + 1, align):
+        width = deep_window(sx, radius, t, dtype_bytes, ndim)[1]
+        if ndim == 3 and width > 256:
+            break
+        if ndim == 2 and classes and deep_window(
+                classes[-1][0], radius, t, dtype_bytes, 2)[1] == width:
+            classes[-1].append(sx)
+        else:
+            classes.append([sx])
+    return classes
+
+
+def deep_pass_cost(shape, radius, t, strip, rows, ctas, streamed) -> float:
+    """A deep pass of t levels over ``streamed`` rows in units of one
+    ``strip`` by ``rows`` output rows, in cells a lane: every unit ticks
+    once a row, for its rows, the 2 r t warm-up rows and the levels' lag
+    of t (r + 1), plus DEEP_UNIT_TICKS; a tick costs the cells of the t
+    levels over the 32 lanes of DEEP_WARPS warps, plus DEEP_ROW_CELLS; the
+    units run ceil(units / ctas) waves."""
+    D1, D2 = _planes(shape)
+    is3 = len(shape) == 3
+    sy, sx = strip
+    cells = sum((sy + 2 * radius * m if is3 else 1) * (sx + 2 * radius * m)
+                for m in range(t))
+    tick = cells / (32 * DEEP_WARPS) + DEEP_ROW_CELLS
+    units = -(-D1 // sy) * -(-D2 // sx) * -(-streamed // rows)
+    ticks = rows + 2 * radius * t + t * (radius + 1) + DEEP_UNIT_TICKS
+    return -(-units // ctas) * ticks * tick
+
+
+@functools.lru_cache(maxsize=256)
+def _deep_stream(shape, radius, t, dtype_bytes, ctas, budget, streamed):
+    """The deep schedule's ``(strip, segment rows, bytes, rings)`` within
+    ``budget`` bytes, or None: at the deepest rings (``deep_rings``) any
+    strip fits with, the strip and segment of least ``deep_pass_cost``
+    among the widest strip of each class of ``_deep_strips`` that fits
+    whole; a class that fits only in part gives its widest strip that fits
+    only where no class fits whole."""
+    D1, D2 = _planes(shape)
+    is3 = len(shape) == 3
+    h = radius * t
+    heights = sorted({min(D1, 1 << j) for j in range(9)} | {D1}) if is3 \
+        else [1]
+    for rings in deep_rings(radius):
+        best = None
+        for sy in heights:
+            if is3 and sy + 2 * h > 256:
+                break
+            for cls in _deep_strips(shape, radius, t, dtype_bytes):
+                fit = [(sx, b) for sx in cls
+                       for b in [deep_scratch_bytes(
+                           shape, radius, t, dtype_bytes, (sy, sx), rings)]
+                       if b <= budget]
+                if not fit or (best is not None and len(fit) < len(cls)):
+                    break
+                sx, b = fit[-1]
+                tiles = -(-D1 // sy) * -(-D2 // sx)
+                segs = {1, streamed}
+                for waves in range(1, 9):
+                    f = waves * ctas / tiles
+                    segs |= {max(1, min(streamed, int(f))),
+                             max(1, min(streamed, -(-waves * ctas // tiles)))}
+                for nseg in segs:
+                    rows = -(-streamed // nseg)
+                    cost = deep_pass_cost(shape, radius, t, (sy, sx), rows,
+                                          ctas, streamed)
+                    key = (cost, -sx * sy, rows)
+                    if best is None or key < best[0]:
+                        best = (key, (sy, sx), rows, b, rings)
+        if best is not None:
+            return best[1:]
+    return None
+
+
 def tb_scratch_bytes(shape: tuple[int, ...], radius: int, t: int,
-                     dtype_bytes: int, deep: bool, strip: tuple[int, int],
+                     dtype_bytes: int, strip: tuple[int, int],
                      rows: int) -> int:
-    """Streaming scratch of one CTA: shallow, two tile buffers of the
-    widest window ((rows + 2rt) x (strip + 2rt), clamped to the domain);
-    deep, a ring of rows + 2r strip-rows for each level 0..t-1, level k
-    r*(t-k) wider on each side."""
+    """Streaming scratch of one CTA of the shallow schedule: two tile
+    buffers of the widest window ((rows + 2rt) x (strip + 2rt), clamped to
+    the domain); the deep schedule's is ``deep_scratch_bytes``."""
     D1, D2 = _planes(shape)
     sy, sx = strip
     is3 = len(shape) == 3
-    if deep:
-        cells = sum((min(D1, sy + 2 * radius * m) if is3 else 1)
-                    * min(D2, sx + 2 * radius * m) for m in range(1, t + 1))
-        return (rows + 2 * radius) * cells * dtype_bytes
     h = radius * t
     return (2 * min(shape[0], rows + 2 * h) * (min(D1, sy + 2 * h) if is3
                                                else 1)
             * min(D2, sx + 2 * h) * dtype_bytes)
 
 
-def _tb_stream(shape, radius, t, dtype_bytes, deep, ctas, budget):
-    """The streaming layout ``(strip, rows, bytes)`` that fits ``budget``
-    bytes: the default strip (shallow 2D: 128 columns; deep 2D: the columns
-    over ``ctas`` strips, at least 32; 3D: 8 x 32), the most rows that fit,
-    halving the strip's wider side while even one row does not; None when
-    a one-cell strip of one row does not fit."""
+def tb_least_scratch(shape: tuple[int, ...], radius: int, t: int,
+                     dtype_bytes: int, deep: bool) -> int:
+    """The smallest streaming scratch the kernel can run t steps a pass
+    with (a one-cell strip, one row; deep: the narrowest level-0 window
+    at the shallowest rings)."""
+    if not deep:
+        return tb_scratch_bytes(shape, radius, t, dtype_bytes, (1, 1), 1)
+    return deep_scratch_bytes(shape, radius, t, dtype_bytes,
+                              (1, 16 // dtype_bytes), deep_rings(radius)[-1])
+
+
+def _tb_stream(shape, radius, t, dtype_bytes, ctas, budget):
+    """The shallow schedule's streaming layout ``(strip, rows, bytes)``
+    that fits ``budget`` bytes: the default strip (2D: 128 columns; 3D:
+    8 x 32), the most rows that fit, halving the strip's wider side while
+    even one row does not; None when a one-cell strip of one row does not
+    fit."""
     D1, D2 = _planes(shape)
     if len(shape) == 3:
         sy, sx = min(D1, 8), min(D2, 32)
-    elif deep:
-        sy, sx = 1, min(D2, max(32, -(-D2 // ctas)))
     else:
         sy, sx = 1, min(D2, 128)
     while True:
-        if deep:
-            want = 1
-            while want < TB_BLOCK_ROWS and want * sy * sx < TB_TARGET_CELLS:
-                want *= 2
-        else:
-            want = TB_TILE_ROWS
-        rows = want
+        rows = TB_TILE_ROWS
         while rows >= 1:
-            b = tb_scratch_bytes(shape, radius, t, dtype_bytes, deep,
-                                 (sy, sx), rows)
+            b = tb_scratch_bytes(shape, radius, t, dtype_bytes, (sy, sx),
+                                 rows)
             if b <= budget:
                 return (sy, sx), rows, b
             rows //= 2
@@ -194,8 +332,16 @@ def tb_layout(shape: tuple[int, ...], radius: int, t: int, dtype_bytes: int,
         return None
     if cached_rows >= H:
         return TbLayout(nb, maxband, band, (1, 1), 1, 0)
-    stream = _tb_stream(shape, radius, t, dtype_bytes, deep, ctas,
-                        limit - band)
+    if deep:
+        stream = _deep_stream(shape, radius, t, dtype_bytes, ctas,
+                              limit - band, H - cached_rows)
+        if stream is None:
+            return None
+        strip, rows, scratch, rings = stream
+        return TbLayout(nb, maxband, band, strip, rows, scratch, rings,
+                        deep_window(strip[1], radius, t, dtype_bytes,
+                                    len(shape)))
+    stream = _tb_stream(shape, radius, t, dtype_bytes, ctas, limit - band)
     if stream is None:
         return None
     strip, rows, scratch = stream
@@ -355,9 +501,10 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
 
 
 def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
-               cached_rows: int, deep: bool) -> torch.Tensor:
+               cached_rows: int, deep: bool) -> tuple[torch.Tensor, bool]:
     """Launch ``csrc/stencil_tb.cu`` (t steps a pass, shallow tiles or deep
-    strip walkers) on a checked CUDA tensor."""
+    level pipelines) on a checked CUDA tensor: the result, and whether the
+    deep schedule loaded level 0 by TMA."""
     lib = _build.load("stencil_tb")
     if lib.stencil_tb_max_row_cells() != PERKS_MAX_ROW_CELLS:
         raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
@@ -374,7 +521,7 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
             nb, maxband = band_layout(cached_rows, r, sms)
             band = (maxband + 2 * r * t + r) * math.prod(shape[1:]) * eb \
                 if nb else 0
-            least = tb_scratch_bytes(shape, r, t, eb, deep, (1, 1), 1)
+            least = tb_least_scratch(shape, r, t, eb, deep)
             raise ValueError(
                 f"{'stencil_perks_deep' if deep else 'stencil_perks'} "
                 f"cannot run {spec.name} on {shape} {x.dtype} at "
@@ -386,16 +533,17 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
         grid = _grid(lib, "stencil_tb", spec, x, lay.smem, lay.nb)
         g = _build.TbArgs(steps, t, cached_rows, lay.nb, int(deep),
                           lay.strip[0], lay.strip[1], lay.rows,
-                          lay.band_bytes)
+                          lay.band_bytes, *lay.rings, *lay.window)
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
+        tma = ctypes.c_int()
         err = lib.stencil_tb_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
             stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
-            _build.stream())
+            _build.stream(), ctypes.byref(tma))
     _build.check(err, "stencil_tb_launch")
     passes = -(-steps // t)
-    return buf0 if (passes - 1) % 2 == 0 else buf1
+    return (buf0 if (passes - 1) % 2 == 0 else buf1), bool(tma.value)
 
 
 def stencil_perks(
@@ -427,7 +575,7 @@ def stencil_perks(
         return x.clone()
     t = min(fuse_steps, steps)
     if t > 1:
-        out = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
+        out, _ = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
         stencil_perks.fused_launches += 1
         return out
     out = _launch_perks(x, spec, steps, cached_rows)
@@ -464,15 +612,21 @@ def stencil_perks_deep(
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
     _check_cuda(x, spec)
+    if x.shape[0] >= DEEP_MAX_ROWS:
+        raise ValueError(f"the deep schedule takes fewer than "
+                         f"{DEEP_MAX_ROWS} rows, got {x.shape[0]}")
     if steps == 0:
         return x.clone()
     t = max(1, min(fuse_steps, steps))
-    out = _launch_tb(x, spec, steps, t, cached_rows, deep=True)
+    out, tma = _launch_tb(x, spec, steps, t, cached_rows, deep=True)
     stencil_perks_deep.launches += 1
+    stencil_perks_deep.tma_launches += tma
     return out
 
 
 stencil_perks_deep.launches = 0
+#: the launches that loaded level 0 by TMA (the others load through L2)
+stencil_perks_deep.tma_launches = 0
 
 
 def stencil_resident(

@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import perks
 from repro_torch.exec import CGProblem, Plan, StencilProblem, execute, plan
 from repro_torch.exec import plan_candidates
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, stencil2d
 from repro_torch.kernels.common import BENCHMARKS, get_spec
 from repro_torch.solvers.cg import SellOperator
 from repro_torch.sparse import generate, nonsymmetric_names, symmetric_names
@@ -158,6 +158,96 @@ def test_cuda_tiers_agree_on_fused_and_deep_plans(name, cuda):
         assert torch.equal(execute(p, pl), want), pl
 
 
+# The deep schedule's level pipeline on domains its TMA loads do not take
+# (columns not a multiple of 4 or 16 cells, a view off a 16-byte boundary)
+# and on ones they do, f32 and bf16, 2D and 3D, with and without cached
+# bands, 13 steps (13 % t != 0): bit for bit against the plain version.
+DEEP_CASES = [  # (spec, shape, loads level 0 by TMA)
+    ("2d5pt", (45, 37), False), ("2d9pt", (50, 13), False),
+    ("2ds25pt", (61, 90), False), ("2d5pt", (64, 96), True),
+    ("2ds9pt", (40, 256), True), ("3d7pt", (19, 13, 11), False),
+    ("3d27pt", (21, 10, 7), False), ("3d7pt", (24, 16, 32), True),
+    ("3d13pt", (22, 24, 16), True), ("poisson", (17, 12, 40), True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape,aligned", DEEP_CASES)
+def test_cuda_deep_pipeline_is_bit_equal(name, shape, aligned, dtype, cuda):
+    spec = get_spec(name)
+    x = torch.from_numpy(np.random.default_rng(len(shape)).standard_normal(
+        shape).astype(np.float32)).to(cuda).to(dtype)
+    want = ref.stencil_run(x, spec, 13)
+    tma = aligned and (shape[-1] * x.element_size()) % 16 == 0
+    for rows in (0, 4 * spec.radius + 1):
+        for t in (2, 5, 8):
+            before = ops.launch_counts()
+            got = ops.stencil_perks_deep(x, spec=spec, steps=13,
+                                         cached_rows=rows, fuse_steps=t)
+            after = ops.launch_counts()
+            assert torch.equal(got, want), (rows, t)
+            assert after["stencil_perks_deep"] == \
+                before["stencil_perks_deep"] + 1
+            assert after["stencil_perks_deep_tma"] == \
+                before["stencil_perks_deep_tma"] + tma, (rows, t)
+    # the same domain as a view 4 bytes off a 16-byte boundary: no TMA
+    buf = torch.empty(x.numel() + 2, dtype=dtype, device=cuda)
+    view = buf[2:].view(shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    before = ops.launch_counts()["stencil_perks_deep_tma"]
+    got = ops.stencil_perks_deep(view, spec=spec, steps=13, cached_rows=0,
+                                 fuse_steps=5)
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["stencil_perks_deep_tma"] == before
+
+
+def test_cuda_deep_pipeline_at_the_depth_limit(cuda):
+    """t = 32 (a warp holds more than one level, the level rings fill a
+    CTA) and t = 31, with a last pass of one step, on several segments."""
+    spec = get_spec("2d5pt")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (300, 640)).astype(np.float32)).to(cuda)
+    for t, steps in ((32, 65), (31, 63), (32, 33)):
+        props = torch.cuda.get_device_properties(cuda)
+        lay = stencil2d.tb_layout(
+            tuple(x.shape), 1, t, 4, deep=True,
+            ctas=props.multi_processor_count, cached_rows=0,
+            limit=(props.shared_memory_per_block_optin
+                   - stencil2d.PERKS_STATIC_SMEM))
+        assert lay is not None and lay.rows < x.shape[0]
+        got = ops.stencil_perks_deep(x, spec=spec, steps=steps,
+                                     cached_rows=0, fuse_steps=t)
+        assert torch.equal(got, ref.stencil_run(x, spec, steps)), t
+
+
+@pytest.mark.parametrize("name,shape,dtype,t,rows,rings", [
+    ("2d17pt", (256, 384), torch.float32, 32, 0, 0),
+    ("2d13pt", (256, 384), torch.bfloat16, 32, 13, 0),
+    ("3d13pt", (48, 40, 56), torch.bfloat16, 8, 9, 1),
+    ("3d17pt", (48, 40, 56), torch.bfloat16, 8, 9, 1),
+])
+def test_cuda_deep_pipeline_on_fallback_layouts(name, shape, dtype, t, rows,
+                                                rings, cuda):
+    """Layouts that take a narrower strip of a window class or shallower
+    rings (2r + 2 a level) run bit for bit, with a last short pass."""
+    spec = get_spec(name)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32)).to(cuda).to(dtype)
+    props = torch.cuda.get_device_properties(cuda)
+    lay = stencil2d.tb_layout(
+        shape, spec.radius, t, x.element_size(), deep=True,
+        ctas=props.multi_processor_count, cached_rows=rows,
+        limit=props.shared_memory_per_block_optin - stencil2d.PERKS_STATIC_SMEM)
+    assert lay is not None and lay.rings == stencil2d.deep_rings(
+        spec.radius)[rings]
+    steps = t + 5
+    got = ops.stencil_perks_deep(x, spec=spec, steps=steps, cached_rows=rows,
+                                 sub_rows=max(128, spec.radius * t),
+                                 fuse_steps=t)
+    assert torch.equal(got, ref.stencil_run(x, spec, steps))
+
+
 def test_cuda_device_loop_keeps_its_graph(cuda):
     spec = get_spec("2d5pt")
     p = StencilProblem(_domain(spec, seed=10), spec, STEPS, device=cuda)
@@ -195,6 +285,53 @@ def test_cuda_spmv_kernels_match_plain_version(name, cuda):
         torch.testing.assert_close(
             ops.spmv_sell(*args, c=c, k_max=op.k_max),
             ref.spmv_sell(*args, c=c, k_max=op.k_max), **SPMV_TOL)
+
+
+def _sell(c, widths, seed, device):
+    """A SELL-C layout of one slice per entry of ``widths`` (its slots a
+    row), random values and columns, and its x."""
+    g = np.random.default_rng(seed)
+    k = np.asarray(widths, dtype=np.int32)
+    offsets = np.concatenate([[0], np.cumsum(k * c)[:-1]]).astype(np.int32)
+    n = len(widths) * c
+    data = g.standard_normal(int(k.sum()) * c).astype(np.float32)
+    cols = g.integers(0, n, data.shape).astype(np.int32)
+    x = g.standard_normal(n).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (data, cols, offsets, k,
+                                                     x)]
+
+
+@pytest.mark.parametrize("c", [1, 8, 32, 33])
+def test_cuda_spmv_sell_is_bit_equal_at_every_slice_width(c, cuda):
+    """Slices of 1..33 slots, in the plain version's slot order."""
+    data, cols, offsets, k, x = _sell(c, list(range(1, 34)), c, cuda)
+    assert torch.equal(ops.spmv_sell(data, cols, offsets, k, x, c=c,
+                                     k_max=33),
+                       ref.spmv_sell(data, cols, offsets, k, x, c=c,
+                                     k_max=33))
+
+
+def test_cuda_spmv_sell_takes_misaligned_streams(cuda):
+    data, cols, offsets, k, x = _sell(8, [3, 1, 7, 2, 5], 1, cuda)
+    want = ref.spmv_sell(data, cols, offsets, k, x, c=8, k_max=7)
+    bd = torch.empty(data.numel() + 1, dtype=data.dtype, device=cuda)
+    bc = torch.empty(cols.numel() + 1, dtype=cols.dtype, device=cuda)
+    bd[1:].copy_(data)
+    bc[1:].copy_(cols)
+    assert bd[1:].data_ptr() % 16 and bc[1:].data_ptr() % 16
+    assert torch.equal(ops.spmv_sell(bd[1:], bc[1:], offsets, k, x, c=8,
+                                     k_max=7), want)
+
+
+@pytest.mark.parametrize("name", SPD)
+def test_cuda_spmv_sell_is_bit_equal_on_the_registry(name, cuda):
+    csr = generate(name)
+    x = torch.from_numpy(_rhs(csr.shape[0], seed=12)).to(cuda)
+    for c, sigma in ((8, 64), (32, 256)):
+        op = SellOperator.from_matrix(csr.to_sell(c=c, sigma=sigma), cuda)
+        args = (op.data, op.cols, op.slice_offsets, op.slice_k, x)
+        assert torch.equal(ops.spmv_sell(*args, c=c, k_max=op.k_max),
+                           ref.spmv_sell(*args, c=c, k_max=op.k_max)), c
 
 
 @pytest.mark.parametrize("side", [16, 48, 101])

@@ -189,9 +189,12 @@ def test_planner_offers_fitting_shallow_and_deep_candidates(shape, n, name,
 ])
 def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
     """A candidate that runs csrc/stencil_tb.cu is priced at its byte
-    model (gm_bytes_tb at the kernel's layout) and at least its cells x
-    steps x TB_CELL_STEP_S; the others keep Eq. 5. On these shapes the
-    one-step plans are priced lower, so the pick is the one-step kernel."""
+    model (gm_bytes_tb at the kernel's layout) and at least its levels'
+    measured price: shallow, cells x steps x TB_SHALLOW_CELL_STEP_S; deep,
+    at least the streamed cell-steps over the lanes of every CTA's level
+    warps at TB_DEEP_LANE_CELL_S. The others keep Eq. 5. On these shapes
+    the one-step plans are priced lower, so the pick is the one-step
+    kernel."""
     from repro_torch.exec import plan, planner
     h100 = thw.H100
     limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
@@ -217,7 +220,15 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
                 n, shape, eb, radius=spec.radius, fuse_steps=c.fuse_steps,
                 cached_rows=c.cached_rows, bands=lay.nb, strip=lay.strip,
                 rows=lay.rows, deep=c.schedule == "deep")
-            assert secs >= np.prod(shape) * n * planner.TB_CELL_STEP_S
+            levels = planner.tb_compute_s(problem, c, chip=h100)
+            if c.schedule == "deep":
+                lanes = h100.sms * 32 * stencil2d.DEEP_WARPS
+                assert levels >= ((shape[0] - c.cached_rows) * row // eb
+                                  * n / lanes * planner.TB_DEEP_LANE_CELL_S)
+            else:
+                assert levels == pytest.approx(
+                    np.prod(shape) * n * planner.TB_SHALLOW_CELL_STEP_S)
+            assert secs >= levels
         else:
             assert got == tcp.gm_bytes_fused(
                 n, shape[0] * row, c.cached_rows * row, row_bytes=row,
@@ -226,6 +237,28 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
     best = plan(problem, chip=h100)
     assert (best.tier, best.schedule, best.fuse_steps) == (
         "resident", "shallow", 1)
+
+
+@pytest.mark.parametrize("shape,name,deep_t,deeper_t", [
+    ((8192, 8192), "2d5pt", 8, 32),
+    ((256, 256, 256), "3d7pt", 8, 16),
+])
+def test_planner_prices_deep_levels_by_depth(shape, name, deep_t, deeper_t):
+    """The deep levels' price follows the layout of each depth: the
+    deepest candidate is not the cheapest where the sweep measured it
+    slowest (2d5pt 8192^2 t = 32 against t = 8), and 3d7pt 256^3 at t = 16,
+    whose strips are mostly side halo, costs several times t = 8."""
+    from repro_torch.exec import planner
+    h100 = thw.H100
+    problem = _meta(shape, 100, name, torch.float32)
+    deep = {c.fuse_steps: c for c in plan_candidates(problem, chip=h100)
+            if c.tier == "resident" and c.schedule == "deep"}
+    price = {t: planner.tb_compute_s(problem, c, chip=h100)
+             for t, c in deep.items()}
+    assert price[deeper_t] > price[deep_t]
+    assert min(price, key=price.get) != max(price)
+    if len(shape) == 3:
+        assert price[deeper_t] > 4 * price[deep_t]
 
 
 def test_plan_resident_planes_doubles_for_bf16():
