@@ -15,7 +15,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    then the same in bf16 at atol 2e-2 (the deep kernel bit for bit); then
    each kernel at the stencil path's full shapes, with its time, its plain
    version's time and (for the one-step kernel) a cuDNN convolution's; the
-   deep kernel there must load level 0 by TMA;
+   deep kernel there must load level 0 by TMA, the shallow tiles
+   (``csrc/stencil_shallow.cu``) and ``stencil_resident``
+   (``csrc/stencil_resident.cu``) must copy their tiles and halo rows by
+   ``cp.async``;
 3. the stencil path, with every launch counter set to 0 just before and
    read just after: ``StencilProblem`` -> ``plan`` -> ``execute`` for
    2d5pt at 8192x8192 f32 (100 steps) and at 3072x1152 f32 (1000 steps),
@@ -23,9 +26,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``stencil_perks``; the whole small domain, ``stencil_resident``),
    shallow (t = 4) and deep (t = 8, 32) resident plans, and plans in the
    JAX package's JSON form with ``fuse_steps>1`` and ``schedule="deep"``;
-   each result against the plain version, and every deep launch must
-   have loaded level 0 by TMA;
-4. each stencil tier's median time, cells/s and effective bandwidth; then
+   each result against the plain version; every deep launch must have
+   loaded level 0 by TMA, the whole small domain must have run
+   ``csrc/stencil_resident.cu`` with its halo rows copied by ``cp.async``,
+   and the shallow t = 4 plan ``csrc/stencil_shallow.cu`` with its tiles
+   copied by ``cp.async``;
+4. each stencil tier's median time, cells/s and effective bandwidth, every
+   planner candidate's time beside its price, and the planner's pick
+   against the fastest candidate measured; then
    each temporal-blocking depth of both schedules on 2d5pt 8192x8192 and
    3d7pt 256^3 f32 (100 steps): time, cells/s, and the port's byte model
    against the measured time;
@@ -149,7 +157,8 @@ DEEP_T = 8               # stencil_perks_deep's in the kernels line
 TB_STEPS = 37            # moderate-size temporal-blocking checks: 37 % t != 0
 # Every temporal-blocking depth of the [depths] sweep: each is timed beside
 # the planner's price of it (planner_ms), so the levels' prices
-# (planner.TB_SHALLOW_CELL_STEP_S, TB_DEEP_LANE_CELL_S) can be read off it.
+# (planner.TB_SHALLOW_TERM_S, TB_DEEP_LANE_CELL_S, PERKS_TERM_S) can be read
+# off it; the loop tiers are timed there too, beside the planner's pick.
 DEPTHS = [("shallow", 1), ("shallow", 2), ("shallow", 4), ("deep", 2),
           ("deep", 4), ("deep", 8), ("deep", 16), ("deep", 32)]
 SWEEP = [("2d5pt", (8192, 8192), 100), ("3d7pt", (256, 256, 256), 100)]
@@ -176,11 +185,11 @@ REFERENCE_PLANS = [
 STENCIL_KERNELS = {
     "stencil_perks": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
                       "src/repro/kernels/stencil2d.py:203"),
-    "stencil_perks_fused": ("src/repro_torch/kernels/csrc/stencil_tb.cu",
+    "stencil_perks_fused": ("src/repro_torch/kernels/csrc/stencil_shallow.cu",
                             "src/repro/kernels/stencil2d.py:203"),
     "stencil_perks_deep": ("src/repro_torch/kernels/csrc/stencil_tb.cu",
                            "src/repro/kernels/stencil2d.py:468"),
-    "stencil_resident": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
+    "stencil_resident": ("src/repro_torch/kernels/csrc/stencil_resident.cu",
                          "src/repro/kernels/stencil2d.py:540"),
     "stencil_baseline_step": ("src/repro_torch/kernels/csrc/stencil_step.cu",
                               "src/repro/kernels/stencil2d.py:566"),
@@ -1703,9 +1712,14 @@ def main() -> int:
         else:
             kname = "stencil_resident"
             run = lambda: ops.stencil_resident(x, spec=spec, steps=n)
+        copied = ops.launch_counts()["stencil_resident_async"]
         keep(errs, kname, check(
             f"{kname} {shape} {n} steps cached_rows={one.cached_rows}",
             run(), want))
+        if (kname == "stencil_resident"
+                and ops.launch_counts()["stencil_resident_async"] == copied):
+            FAILS.append(f"stencil_resident {shape} did not copy its halo "
+                         f"rows by cp.async")
         # bytes it must move: Eq. 5 at the plan's cached rows (the streamed
         # rows twice a step, the cached ones once in all); with every row
         # cached that is the domain read once and written once
@@ -1733,6 +1747,7 @@ def main() -> int:
                                      fuse_steps=t, schedule=sched)
             run = lambda: fn(x, spec=spec, steps=n, cached_rows=R, fuse_steps=t)
             tma = ops.launch_counts()["stencil_perks_deep_tma"]
+            fed = ops.launch_counts()["stencil_perks_fused_async"]
             got = run()
             keep(errs, kname, check(f"{kname} {shape} {n} steps t={t} "
                                     f"cached_rows={R}", got, want))
@@ -1741,6 +1756,9 @@ def main() -> int:
                 if ops.launch_counts()["stencil_perks_deep_tma"] == tma:
                     FAILS.append(f"{kname} {shape} did not load level 0 "
                                  f"by TMA")
+            elif ops.launch_counts()["stencil_perks_fused_async"] == fed:
+                FAILS.append(f"{kname} {shape} did not copy its tiles by "
+                             f"cp.async")
             least = (gm_bytes_deep(n, dom, R * row, fuse_steps=t)
                      if sched == "deep" else
                      gm_bytes_fused(n, dom, R * row, row_bytes=row,
@@ -1778,6 +1796,18 @@ def main() -> int:
                   f"replay={replay} launches={delta}", y, want)
             if replay and delta:
                 FAILS.append(f"device_loop replay on {shape} launched {delta}")
+            # the redesigned kernels, known by the route only they take
+            if (p.tier == "resident" and p.cached_rows == shape[0]
+                    and delta.get("stencil_resident_async") != 1):
+                FAILS.append(f"the resident run on {shape} did not launch "
+                             f"csrc/stencil_resident.cu with cp.async halo "
+                             f"rows: {delta}")
+            if (p.tier == "resident" and p.schedule == "shallow"
+                    and p.fuse_steps == FUSED_T and p.cached_rows < shape[0]
+                    and delta.get("stencil_perks_fused_async") != 1):
+                FAILS.append(f"the shallow t={FUSED_T} plan on {shape} did "
+                             f"not launch csrc/stencil_shallow.cu with "
+                             f"cp.async tiles: {delta}")
     launches = ops.launch_counts()
     print(f"[main path] launches {json.dumps(launches)}")
     for k in STENCIL_KERNELS:
@@ -1789,8 +1819,9 @@ def main() -> int:
                      f"{launches['stencil_perks_deep']} main-path launches")
     b_big, b_small = (best for _, best, _, _, _ in main_inputs)
     H_big, H_small = MAIN[0][1][0], MAIN[1][1][0]
-    if not (b_big.tier == "resident" and 0 < b_big.cached_rows < H_big):
-        FAILS.append(f"8192x8192 plan is not partial caching: {b_big}")
+    if not (b_big.tier == "resident" and b_big.cached_rows < H_big):
+        FAILS.append(f"8192x8192 plan is not a streaming resident plan: "
+                     f"{b_big}")
     if not (b_small.tier == "resident" and b_small.cached_rows == H_small):
         FAILS.append(f"3072x1152 plan does not cache the domain: {b_small}")
 
@@ -1823,6 +1854,24 @@ def main() -> int:
               f"{best.fuse_steps} (predicted with no graph kept); fastest "
               f"measured: {min(tiers, key=tiers.get)}; planner now: "
               f"{plan(problem).tier}")
+        # every other candidate, beside its price
+        for p in plan_candidates(problem):
+            key = f"{p.tier}/{p.schedule}/{p.fuse_steps}"
+            if key in tiers:
+                continue
+            tiers[key] = cuda_ms(lambda: execute(problem, p), 2)
+            print("  " + json.dumps(dict(
+                shape=shape, n_steps=n, candidate=key,
+                cached_rows=p.cached_rows, ms=tiers[key],
+                predicted_ms=1e3 * p.predicted_s,
+                bound=p.predicted_bound)))
+        pick = f"{best.tier}/{best.schedule}/{best.fuse_steps}"
+        fastest = min(tiers, key=tiers.get)
+        print("  " + json.dumps(dict(
+            shape=shape, pick=pick, pick_ms=tiers[pick], fastest=fastest,
+            fastest_ms=tiers[fastest],
+            pick_over_fastest=tiers[pick] / tiers[fastest],
+            pick_predicted_ms=1e3 * best.predicted_s)))
         perks.clear_graphs()
     tiny = StencilProblem(domain((64, 64)), get_spec("2d5pt"), 1000)
     per_launch = cuda_ms(lambda: execute(tiny, Plan(tier="host_loop")), 3)
@@ -1831,13 +1880,16 @@ def main() -> int:
 
     print("[depths] each temporal-blocking depth, median ms over 2 runs; "
           "model = the port's byte model of its kernel, least = "
-          "gm_bytes_deep")
+          "gm_bytes_deep; then the loop tiers and the planner's pick "
+          "against the fastest of them all")
     for spec_name, shape, n in SWEEP:
         spec = get_spec(spec_name)
         x = domain(shape)
         problem = StencilProblem(x, spec, n)
+        best = plan(problem)
         want = ref.stencil_run(x, spec, n)
         dom = x.numel() * x.element_size()
+        swept = {}
         for sched, t in DEPTHS:
             if t > 1 and stencil2d.tb_cached_rows(
                     shape, spec.radius, t, x.element_size(),
@@ -1852,6 +1904,7 @@ def main() -> int:
             check(f"execute {shape} {sched} t={t} cached_rows={R}",
                   execute(problem, p), want)
             ms = cuda_ms(lambda: execute(problem, p), 2)
+            swept[f"resident/{sched}/{t}"] = ms
             model = stencil_model_bytes(problem, p)
             model_s, model_by = stencil_model_s(problem, p)
             least = gm_bytes_deep(n, dom, R * (dom // shape[0]), fuse_steps=t)
@@ -1863,6 +1916,21 @@ def main() -> int:
                 least_bytes=least, model_GBps=model / (ms / 1e3) / 1e9,
                 share_of_model_bound=1e3 * model / HBM_BW / ms,
                 planner_ms=1e3 * model_s, planner_bound=model_by)))
+        for p in (Plan(tier="host_loop"), Plan(tier="device_loop")):
+            perks.clear_graphs()
+            swept[f"{p.tier}/shallow/1"] = cuda_ms(
+                lambda: execute(problem, p), 2)
+        perks.clear_graphs()
+        pick = f"{best.tier}/{best.schedule}/{best.fuse_steps}"
+        fastest = min(swept, key=swept.get)
+        print("  " + json.dumps(dict(
+            shape=shape, spec=spec_name, host_loop_ms=swept[
+                "host_loop/shallow/1"], device_loop_ms=swept[
+                "device_loop/shallow/1"], pick=pick, pick_ms=swept.get(pick),
+            pick_predicted_ms=1e3 * best.predicted_s, fastest=fastest,
+            fastest_ms=swept[fastest],
+            pick_over_fastest=(swept[pick] / swept[fastest]
+                               if pick in swept else None))))
 
     # -- 5-7. the CG path ------------------------------------------------------------
     cg_errs, cg_timing, cg_launches = cg_phases(rng)

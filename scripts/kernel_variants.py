@@ -4,6 +4,8 @@
     python3 scripts/kernel_variants.py --kernels spmv_decode [--src SRC]
     python3 scripts/kernel_variants.py --kernels sell_deep [--src SRC]
     python3 scripts/kernel_variants.py --kernels deep_profile
+    python3 scripts/kernel_variants.py --kernels shallow_resident [--src SRC]
+    python3 scripts/kernel_variants.py --kernels resident_profile
 
 Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` overrides
 of the kernels' tuning macros (all variants compile at once), prints its
@@ -52,6 +54,23 @@ it is the before/after of those two kernels.
 stencil cells as built and built with ``-DDEEP_PROFILE``, which sums its
 warps' clock cycles by what they wait for (the loader for a free slot,
 level warps for input rows or for a free slot) beside their totals.
+
+``--kernels shallow_resident`` times the stencil kernels of the small and
+large cells, 1000 / 100 steps f32, each bit-equal to ``ref.stencil_run``:
+``stencil_resident`` on 2d5pt 3072x1152 beside the kept device loop
+there; ``stencil_perks`` at t = 4 (shallow tiles) and t = 1 (the one-step
+plan's cached rows), ``stencil_perks_deep`` at t = 4, 8 and 32 and the
+kept device loop on 2d5pt 8192x8192; shallow t = 2 and 4 and deep t = 2, 4
+and 8 on 3d7pt 256^3 (no cached row). It prints each stencil library's
+``ptxas`` registers and spills first. In turns with a parent tree
+(``--src build/parent/src --rounds 1``, this tree, this tree, the parent)
+it is the before/after of the shallow tiles and ``stencil_resident``.
+
+``--kernels resident_profile`` times ``stencil_resident`` on 2d5pt
+3072x1152 x 1000 as shipped and built with ``-DRES_PROFILE`` (in turns,
+each bit-equal to ``ref.stencil_run``), which sums thread 0's clock cycles
+a step by phase (computing blocks, writing them back, ``grid.sync()``, the
+halo copies), read back through ``stencil_resident_profile``.
 """
 from __future__ import annotations
 
@@ -289,6 +308,140 @@ def deep_profile(src: str, rounds: int) -> int:
     return 0
 
 
+#: (key, spec, shape, steps, kernel, t): the shallow_resident cells
+SR_CELLS = [
+    ("resident_2d5pt_3072", "2d5pt", (3072, 1152), 1000, "resident", 1),
+    ("device_loop_2d5pt_3072", "2d5pt", (3072, 1152), 1000, "device_loop", 1),
+    ("shallow_2d5pt_8192_t4", "2d5pt", (8192, 8192), 100, "shallow", 4),
+    ("perks_2d5pt_8192_t1", "2d5pt", (8192, 8192), 100, "perks", 1),
+    ("deep_2d5pt_8192_t4", "2d5pt", (8192, 8192), 100, "deep", 4),
+    ("deep_2d5pt_8192_t8", "2d5pt", (8192, 8192), 100, "deep", 8),
+    ("deep_2d5pt_8192_t32", "2d5pt", (8192, 8192), 100, "deep", 32),
+    ("device_loop_2d5pt_8192", "2d5pt", (8192, 8192), 100, "device_loop", 1),
+    ("shallow_3d7pt_256_t2", "3d7pt", (256, 256, 256), 100, "shallow", 2),
+    ("shallow_3d7pt_256_t4", "3d7pt", (256, 256, 256), 100, "shallow", 4),
+    ("deep_3d7pt_256_t2", "3d7pt", (256, 256, 256), 100, "deep", 2),
+    ("deep_3d7pt_256_t4", "3d7pt", (256, 256, 256), 100, "deep", 4),
+    ("deep_3d7pt_256_t8", "3d7pt", (256, 256, 256), 100, "deep", 8),
+]
+
+
+def shallow_resident(src: str, rounds: int) -> int:
+    """``--kernels shallow_resident``: one JSON line per round."""
+    from repro_torch import Plan, StencilProblem, execute
+    from repro_torch.core import perks
+    from repro_torch.exec import plan_candidates
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.common import get_spec
+
+    libs = [n for n in ("stencil_perks", "stencil_resident",
+                        "stencil_shallow", "stencil_tb")
+            if n in _build.SOURCES]
+    secs = _build.build_all(libs)
+    for n in libs:
+        print(json.dumps({"src": src, "library": n, "build_s": secs.get(n),
+                          **spills(_build.build_log(n).read_text())}))
+    rng = np.random.default_rng(0)
+    domains, runs = {}, {}
+    for key, name, shape, steps, kind, t in SR_CELLS:
+        spec = get_spec(name)
+        if (name, shape) not in domains:
+            d = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                 ).cuda()
+            domains[name, shape] = (d, ref.stencil_run(d, spec, steps),
+                                    StencilProblem(d, spec, steps))
+        d, _, problem = domains[name, shape]
+        if kind == "resident":
+            fn = lambda d=d, s=spec, n=steps: ops.stencil_resident(
+                d, spec=s, steps=n)
+        elif kind == "device_loop":
+            fn = lambda p=problem: execute(p, Plan(tier="device_loop"))
+        elif kind == "deep":
+            fn = lambda d=d, s=spec, n=steps, t=t: ops.stencil_perks_deep(
+                d, spec=s, steps=n, cached_rows=0, fuse_steps=t)
+        else:
+            rows = 0
+            if kind == "perks":
+                rows = next(c.cached_rows for c in plan_candidates(problem)
+                            if c.tier == "resident" and c.fuse_steps == 1
+                            and c.schedule == "shallow")
+            fn = lambda d=d, s=spec, n=steps, t=t, R=rows: ops.stencil_perks(
+                d, spec=s, steps=n, cached_rows=R, fuse_steps=t)
+        runs[key] = (fn, domains[name, shape][1])
+    bad = []
+    for rnd in range(rounds):
+        line = {"src": src, "round": rnd}
+        for key, (fn, want) in runs.items():
+            if key.startswith("device_loop"):
+                perks.clear_graphs()
+            before = ops.launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            if rnd == 0:
+                line[f"{key}_launches"] = {
+                    k: v - before[k] for k, v in ops.launch_counts().items()
+                    if v != before[k]}
+                if not torch.equal(got, want):
+                    bad.append(f"{key} is not bit-equal to ref.stencil_run")
+            line[f"{key}_ms"] = cuda_ms(fn, 3)
+        print(json.dumps(line), flush=True)
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+def resident_profile(src: str, rounds: int) -> int:
+    """``--kernels resident_profile``: ``stencil_resident`` on 2d5pt
+    3072x1152 x 1000, shipped and built with -DRES_PROFILE (thread 0's
+    clock cycles a step by phase): one JSON line per build and round."""
+    import ctypes
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.common import get_spec
+
+    variants = {"shipped": (), "profile": ("-DRES_PROFILE",)}
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda v: _build.build_all(("stencil_resident",),
+                                                 extra=v),
+                      variants.values()))
+    for n, flags in variants.items():
+        log = _build.build_log("stencil_resident", flags).read_text()
+        print(json.dumps({"variant": n, "flags": flags, **spills(log)}))
+    spec = get_spec("2d5pt")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((3072, 1152), dtype=np.float32)
+                         ).cuda()
+    want = ref.stencil_run(x, spec, 1000)
+    ctas = torch.cuda.get_device_properties(0).multi_processor_count
+    run = lambda: ops.stencil_resident(x, spec=spec, steps=1000)
+    bad = []
+    for rnd in range(rounds):
+        for n, flags in variants.items():
+            _build.EXTRA_FLAGS = flags
+            lib = _build.load("stencil_resident")
+            if rnd == 0 and not torch.equal(run(), want):
+                bad.append(f"{n} is not bit-equal to ref.stencil_run")
+            line = {"variant": n, "round": rnd, "ms": cuda_ms(run, 5)}
+            if flags:
+                out = (ctypes.c_ulonglong * 4)()
+                lib.stencil_resident_profile.argtypes = [ctypes.c_void_p]
+                _build.check(lib.stencil_resident_profile(out), "profile")
+                run()
+                torch.cuda.synchronize()
+                _build.check(lib.stencil_resident_profile(out), "profile")
+                # thousands of cycles a step of thread 0 of a CTA
+                line.update(zip(("compute", "write", "grid_sync", "halo"),
+                                (c / ctas / 1000 for c in out)))
+            print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -296,7 +449,9 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
     ap.add_argument("--kernels", choices=("stencil", "spmv_decode",
-                                          "sell_deep", "deep_profile"),
+                                          "sell_deep", "deep_profile",
+                                          "shallow_resident",
+                                          "resident_profile"),
                     default="stencil")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -310,6 +465,10 @@ def main() -> int:
         return sell_deep(src, args.rounds)
     if args.kernels == "deep_profile":
         return deep_profile(src, args.rounds)
+    if args.kernels == "shallow_resident":
+        return shallow_resident(src, args.rounds)
+    if args.kernels == "resident_profile":
+        return resident_profile(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks

@@ -230,9 +230,9 @@ def gm_bytes_tb(
     rows: int,
     deep: bool,
 ) -> float:
-    """Device-memory bytes of the port's temporal-blocking kernel
-    (``csrc/stencil_tb.cu``) for ``n_steps`` steps, t = ``fuse_steps`` a
-    pass (a last pass of ``n_steps % t``):
+    """Device-memory bytes of the port's temporal-blocking kernels
+    (``csrc/stencil_shallow.cu``, ``csrc/stencil_tb.cu``) for ``n_steps``
+    steps, t = ``fuse_steps`` a pass (a last pass of ``n_steps % t``):
 
     * the cached rows [0, R), cut into ``bands`` bands: one load and one
       store in all, plus each pass every band's r*ct halo rows read and its

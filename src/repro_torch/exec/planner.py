@@ -16,20 +16,23 @@ captured launch.
 Stencil resident candidates are the reference's two loops: the shallow
 schedule at t = 1, 2, 4, ... up to ``max_fuse`` (default 4), and the deep
 schedule at t = 2, 4, ... up to ``DEEP_MAX_FUSE``. t = 1 is
-``csrc/stencil_perks.cu`` priced by Eq. 5 (``gm_bytes_fused``); t > 1 is
-``csrc/stencil_tb.cu``, priced by the port's own byte model of it
-(``gm_bytes_tb``: halo re-reads of its tiles or strips and the deep
-segments' warm-up rows included) and by its levels, whatever the bytes
-(``tb_compute_s``): the shallow tiles (barriers and index arithmetic) at
-``TB_SHALLOW_CELL_STEP_S`` every cell a step, the deep level pipeline at
-``TB_DEEP_LANE_CELL_S`` for each lane-cell of its passes'
-``stencil2d.deep_pass_cost``, which counts the strips' side halos, the
-segments' warm-up rows and the levels' lag, so it grows with the depth
-(``stencil_model_bytes`` and ``stencil_model_s`` give both for any plan). Each candidate's cached rows
-and layout are those the kernel takes in ONE CTA's shared memory
-(``stencil2d.tb_layout``, the card's per-block limit, or the H100 data
-sheet's on the CPU): a depth the kernel cannot run is not offered, and the
-first deep overflow ends the deep sweep.
+``csrc/stencil_perks.cu``, or ``csrc/stencil_resident.cu`` with every row
+cached, priced by Eq. 5 (``gm_bytes_fused``) and by its steps, whatever
+the bytes (``one_step_compute_s``: a grid barrier and the band's work a
+step); t > 1 is ``csrc/stencil_shallow.cu`` (shallow) or
+``csrc/stencil_tb.cu`` (deep), priced by the port's own byte model of them
+(``gm_bytes_tb``: halo re-reads of their tiles or strips and the deep
+segments' warm-up rows included) and by their levels, whatever the bytes
+(``tb_compute_s``): each pass's ``stencil2d.shallow_pass_cost`` at
+``TB_SHALLOW_TERM_S`` or ``stencil2d.deep_pass_cost`` at
+``TB_DEEP_LANE_CELL_S``, which count the tiles' recomputed halos or the
+strips' side halos, the segments' warm-up rows and the levels' lag, so
+they grow with the depth (``stencil_model_bytes`` and ``stencil_model_s``
+give both for any plan). Each candidate's cached rows and layout are those
+the kernel takes in ONE CTA's shared memory (``stencil2d.tb_layout``,
+``resident_layout``, the card's per-block limit, or the H100 data sheet's
+on the CPU): a depth the kernel cannot run is not offered, and the first
+deep overflow ends the deep sweep.
 
 The ML branch (``_ml_candidates``) prices ``DecodeAttentionProblem`` and
 ``SSMScanProblem`` with the reference's traffic model on the H100: per-step
@@ -78,22 +81,46 @@ DISPATCH_OVERHEAD_S = 25e-6
 #: depths run past ``max_fuse`` as far as the kernel's layout fits.
 DEEP_MAX_FUSE = 32
 
-#: What the levels of ``csrc/stencil_tb.cu`` cost whatever their bytes, by
-#: schedule. Shallow: seconds a cell a step; every level of a tile is two
-#: ``__syncthreads`` and index arithmetic a cell; the fastest rate
-#: ``chip_smoke.py``'s depth sweep measured for it (2d5pt 8192x8192 x 100,
-#: t = 4: 45.78 ms for 6.71e9 cell-steps, on an NVIDIA H100 80GB HBM3 at a
-#: 700 W power limit). Deep: seconds a lane-cell of
-#: ``stencil2d.deep_pass_cost`` (the level pipeline's cells over its
-#: lanes, its per-row set-up, warm-up rows and lag), fitted to one cell
-#: of ``chip_smoke.py``'s depth sweep (2d5pt 8192x8192 x 100, t = 8:
-#: 32.43 ms, on an NVIDIA H100 80GB HBM3 at a 700 W power limit). On the
-#: sweep's other depths it gives 0.77-1.19x the measured time (2d5pt t = 2
-#: to 32: 35.43, 27.10, 35.32, 47.32 ms; 3d7pt 256^3 t = 2 to 8: 11.22,
-#: 11.83, 18.16 ms), and 0.65x at 3d7pt t = 16 (181.5 ms), whose side
-#: halos it counts.
-TB_SHALLOW_CELL_STEP_S = 6.8e-12
+#: What the temporal-blocking levels cost whatever their bytes, by
+#: schedule: seconds a term (a stencil point, and one more for the cell's
+#: own load and store) of a cell a thread of ``stencil2d.shallow_pass_cost``
+#: (``csrc/stencil_shallow.cu``: every thread's units over the tiles' rows
+#: widened by their recomputed halos, a level's and a tile's set-up, waves
+#: of 132 tiles), fitted to 2d5pt 8192x8192 x 100 at t = 4 (13.26 ms; in
+#: a later sweep 13.07 ms priced 1.02x, 3d7pt 256^3 t = 2 and 4 0.92x and
+#: 0.94x of 8.63 and 13.91 ms); and seconds a
+#: lane-cell of ``stencil2d.deep_pass_cost`` (``csrc/stencil_tb.cu``: the
+#: level pipeline's cells over its lanes, its per-row set-up, warm-up rows
+#: and lag), fitted to 2d5pt 8192x8192 x 100 at t = 8 (32.43 ms; on the
+#: sweep's other depths 0.77-1.19x the measured time, 0.65x at 3d7pt t =
+#: 16, whose side halos it counts). Both measured by ``chip_smoke.py`` and
+#: ``scripts/kernel_variants.py`` on an NVIDIA H100 80GB HBM3 at a 700 W
+#: power limit (PERF.md).
+TB_SHALLOW_TERM_S = 1.576e-8
 TB_DEEP_LANE_CELL_S = 3.711e-7
+#: The cached bands of a temporal-blocking plan (``csrc/stencil_band.cuh``,
+#: the in-place update with its ring of old rows and table of row
+#: pointers): seconds a term of a cell a thread of
+#: ``stencil2d.band_pass_cost``, fitted to the shallow candidates with
+#: cached bands on stencil small (2d5pt 3072x1152 x 1000) on an NVIDIA H100
+#: 80GB HBM3 at a 700 W power limit (PERF.md).
+TB_BAND_TERM_S = 9.5e-8
+#: One-step resident plans, whatever their bytes, each step: a grid barrier
+#: (``grid.sync()``, at most 2.61 us, PERF.md) and the band's work, seconds
+#: a term of a cell a thread (as above) of ``stencil2d.resident_step_cost``
+#: (every row cached) or of a band over the one-step kernel's threads;
+#: fitted to stencil small (2d5pt 3072x1152 x 1000, ``stencil_resident``:
+#: 10.1 ms, the barrier and halo copy 12-16% of a step by -DRES_PROFILE;
+#: priced 0.98-0.99x of 10.23-10.33 ms in the final sweep) on an NVIDIA
+#: H100 80GB HBM3 at a 700 W power limit (PERF.md).
+RESIDENT_STEP_S = 2.1e-6
+RESIDENT_TERM_S = 1.9e-8
+#: One-step plans with rows streamed (``csrc/stencil_perks.cu``): seconds a
+#: term of a cell a thread, a CTA's band and its share of the streamed rows
+#: over PERKS_THREADS threads, fitted to 2d5pt 8192x8192 x 100 at 792
+#: cached rows (30.42 ms by ``chip_smoke.py``; priced by bytes alone at
+#: 14.5 ms) on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md).
+PERKS_TERM_S = 1.014e-7
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -179,8 +206,9 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
 
 
 def _runs_tb(problem, p: Plan) -> bool:
-    """Whether stencil plan ``p`` runs ``csrc/stencil_tb.cu`` (the routing
-    of ``StencilProblem.run_resident``)."""
+    """Whether stencil plan ``p`` runs a temporal-blocking kernel,
+    ``csrc/stencil_shallow.cu`` or ``csrc/stencil_tb.cu`` (the routing of
+    ``StencilProblem.run_resident``)."""
     return (p.tier == "resident" and (p.cached_rows or 0) < problem.x.shape[0]
             and (p.schedule == "deep" or min(p.fuse_steps, problem.n_steps) > 1))
 
@@ -189,9 +217,9 @@ def stencil_model_bytes(problem, p: Plan, *,
                         chip: Union[str, Chip] = "h100") -> float:
     """Device-memory bytes the planner charges stencil plan ``p``: Eq. 5
     (``gm_bytes_fused`` at t = 1) for the loop tiers, the one-step kernel
-    and the whole domain cached; the port's byte model of
-    ``csrc/stencil_tb.cu`` (``gm_bytes_tb``, at the layout the kernel takes
-    in one CTA of ``chip``) for temporal blocking."""
+    and the whole domain cached; the port's byte model of the
+    temporal-blocking kernels (``gm_bytes_tb``, at the layout the kernel
+    takes in one CTA of ``chip``) for temporal blocking."""
     shape, n = tuple(problem.x.shape), problem.n_steps
     db = problem.x.element_size()
     r = problem.spec.radius
@@ -207,8 +235,8 @@ def stencil_model_bytes(problem, p: Plan, *,
 
 
 def _tb_layout(problem, p: Plan, chip: Chip):
-    """The layout ``csrc/stencil_tb.cu`` takes for plan ``p`` in one CTA of
-    ``chip``."""
+    """The layout the temporal-blocking kernel of plan ``p`` takes in one
+    CTA of ``chip``."""
     return stencil2d.tb_layout(
         tuple(problem.x.shape), problem.spec.radius,
         min(p.fuse_steps, problem.n_steps), problem.x.element_size(),
@@ -219,23 +247,62 @@ def _tb_layout(problem, p: Plan, chip: Chip):
 
 def tb_compute_s(problem, p: Plan, *,
                  chip: Union[str, Chip] = "h100") -> float:
-    """Seconds the levels of ``csrc/stencil_tb.cu`` cost plan ``p``
-    whatever its bytes: shallow, every cell a step at
-    ``TB_SHALLOW_CELL_STEP_S``; deep, each pass's ``deep_pass_cost`` over
-    the streamed rows (the last pass at ``n_steps % t`` levels) at
-    ``TB_DEEP_LANE_CELL_S``."""
+    """Seconds the levels of a temporal-blocking plan ``p`` cost whatever
+    its bytes: each pass's ``shallow_pass_cost`` at ``TB_SHALLOW_TERM_S``
+    a term (npoints + 1 a cell) or ``deep_pass_cost`` at
+    ``TB_DEEP_LANE_CELL_S`` over the streamed rows (the last pass at
+    ``n_steps % t`` levels), and the cached bands' ``band_pass_cost`` at
+    ``TB_BAND_TERM_S`` a term."""
     shape, n = tuple(problem.x.shape), problem.n_steps
-    if p.schedule != "deep":
-        return math.prod(shape) * n * TB_SHALLOW_CELL_STEP_S
     chip = _as_chip(chip)
     lay = _tb_layout(problem, p, chip)
     t = min(p.fuse_steps, n)
+    r = problem.spec.radius
     streamed = shape[0] - (p.cached_rows or 0)
-    cost = sum(stencil2d.deep_pass_cost(shape, problem.spec.radius,
-                                        min(t, n - s), lay.strip, lay.rows,
-                                        chip.sms, streamed)
+    terms = problem.spec.npoints + 1
+    deep = p.schedule == "deep"
+    threads = stencil2d.PERKS_THREADS if deep else stencil2d.SHALLOW_THREADS
+    bands = TB_BAND_TERM_S * terms * sum(
+        stencil2d.band_pass_cost(shape, r, min(t, n - s), lay.maxband,
+                                 threads)
+        for s in range(0, n, t)) if lay.nb else 0.0
+    if not deep:
+        eb = problem.x.element_size()
+        return bands + TB_SHALLOW_TERM_S * terms * sum(
+            stencil2d.shallow_pass_cost(shape, r, min(t, n - s), eb,
+                                        lay.strip, lay.rows, chip.sms,
+                                        streamed)
+            for s in range(0, n, t))
+    cost = sum(stencil2d.deep_pass_cost(shape, r, min(t, n - s), lay.strip,
+                                        lay.rows, chip.sms, streamed)
                for s in range(0, n, t))
-    return cost * TB_DEEP_LANE_CELL_S
+    return bands + cost * TB_DEEP_LANE_CELL_S
+
+
+def one_step_compute_s(problem, p: Plan, *,
+                       chip: Union[str, Chip] = "h100") -> float:
+    """Seconds a one-step resident plan ``p`` costs whatever its bytes:
+    ``n_steps`` times a grid barrier (``RESIDENT_STEP_S``) and a CTA's work
+    a term (npoints + 1 a cell) a thread: with every row cached,
+    ``stencil2d.resident_step_cost`` of ``resident_layout`` at
+    ``RESIDENT_TERM_S``; else its band and its share of the streamed rows
+    over the one-step kernel's threads at ``PERKS_TERM_S``."""
+    chip = _as_chip(chip)
+    shape, n = tuple(problem.x.shape), problem.n_steps
+    rows = p.cached_rows or 0
+    r = problem.spec.radius
+    terms = problem.spec.npoints + 1
+    if rows >= shape[0]:
+        lay = stencil2d.resident_layout(
+            shape, r, problem.x.element_size(), chip.sms,
+            chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM)
+        work = 0.0 if lay is None else stencil2d.resident_step_cost(lay)
+        return n * (RESIDENT_STEP_S + work * terms * RESIDENT_TERM_S)
+    P = math.prod(shape[1:])
+    maxband = stencil2d.band_layout(rows, r, chip.sms)[1]
+    cells = maxband * P + (shape[0] - rows) * P / chip.sms
+    return n * (RESIDENT_STEP_S + cells / stencil2d.PERKS_THREADS * terms
+                * PERKS_TERM_S)
 
 
 def stencil_model_s(problem, p: Plan, *,
@@ -243,8 +310,8 @@ def stencil_model_s(problem, p: Plan, *,
     """Seconds the planner charges the kernel of resident stencil plan
     ``p`` (no dispatch) and what bounds it: the larger of its model bytes
     at the device-memory rate, the cached bytes through on-chip memory
-    (Eq. 7) and, for ``csrc/stencil_tb.cu``, its levels
-    (``tb_compute_s``)."""
+    (Eq. 7) and its steps or levels (``one_step_compute_s``,
+    ``tb_compute_s``)."""
     chip = _as_chip(chip)
     shape, n = tuple(problem.x.shape), problem.n_steps
     row_bytes = int(math.prod(shape[1:])) * problem.x.element_size()
@@ -254,7 +321,9 @@ def stencil_model_s(problem, p: Plan, *,
         "onchip_memory": sm_bytes_accessed(
             n, (p.cached_rows or 0) * row_bytes) / chip.onchip_bw,
         "compute": (tb_compute_s(problem, p, chip=chip)
-                    if _runs_tb(problem, p) else 0.0),
+                    if _runs_tb(problem, p) else
+                    one_step_compute_s(problem, p, chip=chip)
+                    if p.tier == "resident" else 0.0),
     }
     bound_by = max(terms, key=terms.get)
     return terms[bound_by], bound_by

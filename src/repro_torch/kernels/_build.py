@@ -30,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "stencil_step": "stencil_step.cu",
     "stencil_perks": "stencil_perks.cu",
+    "stencil_resident": "stencil_resident.cu",
+    "stencil_shallow": "stencil_shallow.cu",
     "stencil_tb": "stencil_tb.cu",
     "spmv_ell": "spmv_ell.cu",
     "spmv_sell": "spmv_sell.cu",
@@ -39,7 +41,7 @@ SOURCES = {
     "ssm_scan": "ssm_scan.cu",
     "decode_attn": "decode_attn.cu",
 }
-HEADERS = ("stencil_common.cuh", "krylov_common.cuh")
+HEADERS = ("stencil_common.cuh", "stencil_band.cuh", "krylov_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,7 +51,8 @@ NVCC_FLAGS = (
 
 #: ``-D`` overrides of the kernels' tuning macros (``PERKS_THREADS``,
 #: ``PERKS_CELLS_PER_THREAD``, ``PERKS_STREAM_ROWS``, ``STEP_STREAM_ROWS``)
-#: and the deep schedule's wait profile (``DEEP_PROFILE``) that ``load``
+#: and the profiles of the deep schedule's waits (``DEEP_PROFILE``) and of
+#: ``stencil_resident``'s step phases (``RES_PROFILE``) that ``load``
 #: uses, for variant builds as ``scripts/kernel_variants.py`` makes them;
 #: empty for the shipped kernels.
 EXTRA_FLAGS: tuple[str, ...] = ()
@@ -77,8 +80,28 @@ class TbArgs(ctypes.Structure):
     """Mirror of ``struct TbArgs`` in ``csrc/stencil_tb.cu``."""
 
     _fields_ = [(f, ctypes.c_int) for f in (
-        "steps", "t", "R", "nb", "deep", "sy", "sx", "rows", "band_bytes",
+        "steps", "t", "R", "nb", "sy", "sx", "rows", "band_bytes",
         "q0", "q", "h0", "w0")]
+
+
+class ShallowArgs(ctypes.Structure):
+    """Mirror of ``struct ShallowArgs`` in ``csrc/stencil_shallow.cu``
+    (``lin`` and ``async_`` are filled by its launcher)."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "steps", "t", "R", "nb", "sy", "sx", "rows", "left", "wx", "wy",
+        "segs", "prefetch", "band_bytes", "buf_cells", "async_")] + [
+        ("lin", ctypes.c_int * MAX_POINTS)]
+
+
+class ResArgs(ctypes.Structure):
+    """Mirror of ``struct ResArgs`` in ``csrc/stencil_resident.cu``
+    (``safe``, ``cells``, ``lin`` and ``async_`` are filled by its
+    launcher)."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "steps", "nb", "kb", "safe", "cells", "halo", "async_")] + [
+        ("lin", ctypes.c_int * MAX_POINTS)]
 
 
 _P = ctypes.c_void_p
@@ -96,6 +119,20 @@ _SIGNATURES = {
         "stencil_perks_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_perks_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_perks_max_row_cells": (_I, []),
+    },
+    "stencil_resident": {
+        "stencil_resident_launch": (_I, [_P, _P, _P, StencilArgs, ResArgs,
+                                         _I, _I, _I, _P, _IP]),
+        "stencil_resident_max_ctas": (_I, [_I, _I, _I, _IP]),
+        "stencil_resident_smem": (_I, [_I, _I, _IP, _IP]),
+        "stencil_resident_shape": (_I, [_IP, _IP]),
+    },
+    "stencil_shallow": {
+        "stencil_shallow_launch": (_I, [_P, _P, _P, StencilArgs, ShallowArgs,
+                                        _I, _I, _I, _P, _IP]),
+        "stencil_shallow_max_ctas": (_I, [_I, _I, _I, _IP]),
+        "stencil_shallow_smem": (_I, [_I, _I, _IP, _IP]),
+        "stencil_shallow_shape": (_I, [_IP, _IP, _IP]),
     },
     "stencil_tb": {
         "stencil_tb_launch": (_I, [_P, _P, _P, StencilArgs, TbArgs, _I, _I,

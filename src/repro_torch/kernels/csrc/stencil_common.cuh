@@ -85,6 +85,31 @@ __device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
     return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
+// 16 bytes from device memory (through L2 only) into shared memory without
+// passing through registers; cp_async_wait waits for this thread's copies.
+// Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// n / q and n % q by one multiply-high (q fixed for many divisions): exact
+// for 0 <= n and n * q < 2^32.
+struct FastDiv {
+    int q;
+    unsigned m;
+    __device__ explicit FastDiv(int q_)
+        : q(q_), m(q_ == 1 ? 0u : 0xFFFFFFFFu / (unsigned)q_ + 1) {}
+    __device__ int div(int n) const {
+        return q == 1 ? n : (int)__umulhi((unsigned)n, m);
+    }
+    __device__ int mod(int n) const { return n - div(n) * q; }
+};
+
 // Update of the cell at flat index idx, all neighbours read from src.
 // NPTS > 0 is the point count known at compile time (the loop unrolls and
 // the loads issue together); NPTS == 0 reads it from npts. With in = false

@@ -3,8 +3,9 @@
 // shared memory for the kernel's whole life.
 //
 // Replaces: src/repro/kernels/stencil2d.py:stencil_perks (`_perks_kernel`,
-// fuse_steps=1) and, with R = H, stencil2d.py:stencil_resident
-// (`_resident_kernel`).
+// fuse_steps=1) with R < H. With every row cached (stencil_perks at R = H
+// and stencil2d.py:stencil_resident) the wrapper runs
+// csrc/stencil_resident.cu instead.
 //
 // The TPU kernel runs its grid in order on one core and updates the domain
 // in place, carrying overwritten rows in VMEM. Here 132 SMs run at once, so
@@ -30,9 +31,7 @@
 // Bound on the H100: device memory for the streamed rows, 2 * (H - R) * P
 // * sizeof(T) bytes per step, plus 4r rows per band per step for the borders; the
 // cached rows cost one load and one store in total (Eq. 5 of the paper).
-// With everything cached (stencil_resident) device memory is touched only
-// twice and the bound moves to shared-memory bandwidth, grid.sync() latency
-// and the float32 arithmetic. Each spec's point count is a compile-time
+// Each spec's point count is a compile-time
 // constant (STENCIL_DISPATCH_NPTS), so the point loops unroll.
 #include <cooperative_groups.h>
 
@@ -87,9 +86,9 @@ stencil_perks_kernel(const T* __restrict__ x, T* buf0, T* buf1, StencilArgs a,
         // and below it from the band, outside the band from src), compute
         // into registers, then save the old rows the next block still
         // needs into the ring and write the new rows over the old. (The
-        // same update as stencil_tb.cu's inplace_step, written out here:
+        // same update as stencil_band.cuh's inplace_step, written out here:
         // calling that function made the streamed loop of this kernel 10-21%
-        // slower on 8192^2, scripts/stencil_ab.py.)
+        // slower on 8192^2 on an H100, PERF.md.)
         for (int i = b0; i < b1; i += kb) {
             const int i1 = min(i + kb, b1);
             const int nr = i1 - i;

@@ -1,19 +1,19 @@
-// Temporal blocking on Hopper: `steps` Jacobi steps in one cooperative
+// Deep temporal blocking on Hopper: `steps` Jacobi steps in one cooperative
 // launch, t steps per pass over device memory, with the leading `R` rows of
 // the domain kept in shared memory for the kernel's whole life.
 //
-// Replaces: src/repro/kernels/stencil2d.py:stencil_perks with fuse_steps > 1
-// (`_perks_kernel`, the shallow schedule) and stencil2d.py:stencil_perks_deep
-// (`_deep_kernel`, the deep wavefront schedule).
+// Replaces: src/repro/kernels/stencil2d.py:stencil_perks_deep
+// (`_deep_kernel`, the deep wavefront schedule). The shallow schedule
+// (stencil_perks with fuse_steps > 1) is csrc/stencil_shallow.cu.
 //
-// The TPU kernels run their grid in order on one core and hold whole rows
+// The TPU kernel runs its grid in order on one core and holds whole rows
 // in VMEM; one 8192-wide float32 row is 32 KiB and a CTA has 227 KB, so
 // here the trailing dimensions are tiled and every CTA works at once:
 //   * one grid.sync() per pass, ceil(steps / t) in all; a pass reads the
 //     domain at level k from one device-memory ping-pong buffer and writes
 //     level k + t to the other (pass 0 reads the caller's x, which is never
 //     written); the last pass takes steps % t when t does not divide steps;
-//   * cached bands, both schedules: the rows [0, R) are cut into `nb`
+//   * cached bands (stencil_band.cuh): the rows [0, R) are cut into `nb`
 //     contiguous bands, one per CTA, kept in shared memory from the
 //     prologue to the epilogue. Each pass a CTA loads r*ct rows of level-k
 //     halo above and below its band from the source buffer (the neighbours'
@@ -21,13 +21,8 @@
 //     steps in place over a shrinking range (the r-row ring of
 //     inplace_step), and publishes its top and bottom r*t rows to the
 //     destination buffer;
-//   * shallow schedule, the streamed rows [R, H): independent tiles of
-//     `rows` rows by one strip of the trailing dimensions. A tile is loaded
-//     with an r*ct halo on every side, advanced ct steps in shared memory
-//     between two buffers over a shrinking trapezoid, and its interior is
-//     written back (the GPU form of the TPU's r*t window recompute);
-//   * deep schedule, the streamed rows: units of one strip of the trailing
-//     dimensions by one segment of output rows, spread over the CTAs. A
+//   * the streamed rows: units of one strip of the trailing dimensions by
+//     one segment of output rows, spread over the CTAs. A
 //     unit is a pipeline of levels with no block-wide barrier inside its
 //     row walk: warp 0 keeps level-0 rows in flight into a ring of
 //     2r + 1 + stencil2d.DEEP_PREFETCH slots (TMA boxes completing on an
@@ -54,20 +49,19 @@
 // stencil_common.cuh, so each pass gives the bits of t single steps.
 //
 // Bound on the H100: device memory, the streamed rows read and written once
-// a pass plus the halo re-reads of the tiles or strips and the segments'
-// warm-up rows (the planner's byte model, core/cache_policy.py:gm_bytes_tb);
-// the least is gm_bytes_deep. At large t the float32 arithmetic (2 * npoints
-// a cell a step) takes over, and before it the shared memory the levels
-// read and write (npoints loads and one store a cell a level). The shallow
-// tiles and the bands are still simple: every level is a pass over shared
-// memory between two __syncthreads, and tile cells are found by integer
-// division.
+// a pass plus the strips' side halo re-reads and the segments' warm-up rows
+// (the planner's byte model, core/cache_policy.py:gm_bytes_tb); the least
+// is gm_bytes_deep. At large t the float32 arithmetic (2 * npoints a cell a
+// step) takes over, and before it the shared memory the levels read and
+// write (npoints loads and one store a cell a level). The bands are still
+// simple: every level is a pass over shared memory between two
+// __syncthreads.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <stdint.h>
 #include <string.h>
 
-#include "stencil_common.cuh"
+#include "stencil_band.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -158,180 +152,12 @@ struct TbArgs {
     int t;           // steps per pass (the last pass takes steps % t)
     int R;           // cached rows [0, R)
     int nb;          // bands the cached rows are cut into, one per CTA
-    int deep;        // 0: shallow tiles, 1: deep level pipelines
     int sy, sx;      // a strip: plane rows (3D; 1 in 2D) by columns
-    int rows;        // shallow: rows of a tile; deep: rows of a segment
+    int rows;        // rows of a segment
     int band_bytes;  // shared memory of the band region; the scratch follows
-    int q0, q;       // deep: ring depths of level 0 and of levels 1..t-1
-    int h0, w0;      // deep: level 0's columns [x0 - h0, x0 - h0 + w0)
+    int q0, q;       // ring depths of level 0 and of levels 1..t-1
+    int h0, w0;      // level 0's columns [x0 - h0, x0 - h0 + w0)
 };
-
-__device__ __forceinline__ int shrink_lo(int g0, int k, int r) {
-    return g0 == 0 ? 0 : g0 + k * r;
-}
-
-__device__ __forceinline__ int shrink_hi(int g1, int k, int r, int n) {
-    return g1 == n ? n : g1 - k * r;
-}
-
-// One step of whole rows [lo, hi) updated in place in shared memory. Rows
-// [w0, w1) of the domain are held at win + (j - w0) * P (lo..hi lies inside);
-// rows outside the window are read from src in device memory. A block of
-// rows [i, i1) at a time: read the old rows i-r .. i1-1+r (above the block
-// from the ring, the rest from the window or src), compute into registers,
-// then save the old rows the next block still needs into the r-row ring and
-// write the new rows over the old. rows[] is a shared table of
-// PERKS_MAX_BLOCK_ROWS + 2 * STENCIL_MAX_RADIUS pointers. The caller
-// synchronises before it reads the window.
-template <int NPTS, typename T>
-__device__ __forceinline__ void inplace_step(T* win, int w0, int w1, int lo, int hi,
-                                             T* ring, const T* src,
-                                             const StencilArgs& a, const SpecShared& s,
-                                             const T** rows) {
-    const int P = a.P, r = a.r, H = a.H, tid = threadIdx.x;
-    int kb = (PERKS_CELLS_PER_THREAD * PERKS_THREADS) / P;
-    kb = max(1, min(kb, PERKS_MAX_BLOCK_ROWS));
-    for (int i = lo; i < hi; i += kb) {
-        const int i1 = min(i + kb, hi);
-        const int nr = i1 - i;
-        for (int q = tid; q < nr + 2 * r; q += blockDim.x) {
-            const int j = i - r + q;
-            const T* p = nullptr;
-            if (j >= lo && j < i)
-                p = ring + (size_t)(j % r) * P;
-            else if (j >= w0 && j < w1)
-                p = win + (size_t)(j - w0) * P;
-            else if (j >= 0 && j < H)
-                p = src + (size_t)j * P;
-            rows[q] = p;
-        }
-        __syncthreads();
-        // Thread tid takes cells tid, tid + T, ... of the block, found by
-        // stepping (row, cell) rather than dividing for each.
-        const int ii0 = tid / P, c0 = tid - ii0 * P;
-        T v[PERKS_CELLS_PER_THREAD];
-        {
-            int ii = ii0, c = c0;
-#pragma unroll
-            for (int q = 0; q < PERKS_CELLS_PER_THREAD; ++q) {
-                if (ii < nr)
-                    v[q] = (row_interior(i + ii, a) && col_interior(c, a))
-                               ? sum_rows<NPTS>(rows + ii, r, c, s.dc, s, a.npts)
-                               : rows[ii + r][c];
-                c += PERKS_THREADS;
-                while (c >= P) { c -= P; ++ii; }
-            }
-        }
-        __syncthreads();
-        {
-            int ii = ii0, c = c0;
-#pragma unroll
-            for (int q = 0; q < PERKS_CELLS_PER_THREAD; ++q) {
-                if (ii < nr) {
-                    const int row = i + ii;
-                    T* own = win + (size_t)(row - w0) * P;
-                    if (row >= i1 - r)
-                        ring[(size_t)(row % r) * P + c] = own[c];
-                    own[c] = v[q];
-                }
-                c += PERKS_THREADS;
-                while (c >= P) { c -= P; ++ii; }
-            }
-        }
-    }
-}
-
-// One pass of a cached band [b0, b1): level k -> k + ct in place.
-template <int NPTS, typename T>
-__device__ void band_pass(T* band_base, int b0, int b1, int rt, int ct,
-                          const T* src, T* dst, const StencilArgs& a,
-                          const SpecShared& s, const T** rows) {
-    const int P = a.P, r = a.r, H = a.H, tid = threadIdx.x;
-    const int nrows = b1 - b0;
-    const int w0 = max(0, b0 - r * ct), w1 = min(H, b1 + r * ct);
-    T* win = band_base + (size_t)(w0 - b0 + rt) * P;   // row j at win + (j - w0) * P
-    T* ring = band_base + (size_t)(2 * rt + nrows) * P;
-    for (int e = tid; e < (b0 - w0) * P; e += blockDim.x)
-        win[e] = ldcg(src + (size_t)w0 * P + e);
-    T* below = win + (size_t)(b1 - w0) * P;
-    for (int e = tid; e < (w1 - b1) * P; e += blockDim.x)
-        below[e] = ldcg(src + (size_t)b1 * P + e);
-    __syncthreads();
-    for (int k = 1; k <= ct; ++k) {
-        inplace_step<NPTS>(win, w0, w1, shrink_lo(w0, k, r), shrink_hi(w1, k, r, H),
-                           ring, src, a, s, rows);
-        __syncthreads();
-    }
-    // Publish the band's top and bottom r*t rows for the next pass.
-    const T* band = band_base + (size_t)rt * P;
-    const int top_end = min(b0 + rt, b1);
-    for (int e = tid; e < (top_end - b0) * P; e += blockDim.x)
-        dst[(size_t)b0 * P + e] = band[e];
-    const int bot = max(b1 - rt, top_end);
-    for (int e = tid; e < (b1 - bot) * P; e += blockDim.x)
-        dst[(size_t)bot * P + e] = band[(size_t)(bot - b0) * P + e];
-}
-
-// One shallow pass of the streamed rows: independent tiles, each loaded
-// with an h = r*ct halo and advanced ct steps between buffers A and B.
-template <int NPTS, typename T>
-__device__ void shallow_pass(T* A, T* B, int ct, const T* src, T* dst,
-                             const StencilArgs& a, const SpecShared& s,
-                             const TbArgs& g, int* lin) {
-    const int r = a.r, H = a.H, D1 = a.D1, D2 = a.D2, P = a.P, R = g.R;
-    const int tid = threadIdx.x;
-    const bool is3 = a.ndim == 3;
-    const int h = r * ct, hy = is3 ? h : 0;
-    const int nrt = (H - R + g.rows - 1) / g.rows;
-    const int ny = (D1 + g.sy - 1) / g.sy, nx = (D2 + g.sx - 1) / g.sx;
-    const int ntiles = nrt * ny * nx;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int txi = tile % nx, tyi = (tile / nx) % ny, ti = tile / (nx * ny);
-        const int s0 = R + ti * g.rows, s1 = min(H, s0 + g.rows);
-        const int y0 = tyi * g.sy, y1 = min(D1, y0 + g.sy);
-        const int x0 = txi * g.sx, x1 = min(D2, x0 + g.sx);
-        const int gr0 = max(0, s0 - h), gr1 = min(H, s1 + h);
-        const int gy0 = max(0, y0 - hy), gy1 = min(D1, y1 + hy);
-        const int gx0 = max(0, x0 - h), gx1 = min(D2, x1 + h);
-        const int wx = gx1 - gx0, area = (gy1 - gy0) * wx;
-        const int n = (gr1 - gr0) * area;
-        for (int e = tid; e < n; e += blockDim.x) {
-            const int i = e / area, rem = e - i * area;
-            const int y = rem / wx, xx = rem - y * wx;
-            A[e] = ldcg(src + (size_t)(gr0 + i) * P + (gy0 + y) * D2 + gx0 + xx);
-        }
-        if (tid < a.npts) lin[tid] = s.d0[tid] * area + s.d1[tid] * wx + s.d2[tid];
-        __syncthreads();
-        for (int k = 1; k <= ct; ++k) {
-            const T* in = (k & 1) ? A : B;
-            T* out = (k & 1) ? B : A;
-            const int rl = shrink_lo(gr0, k, r), rh = shrink_hi(gr1, k, r, H);
-            const int yl = is3 ? shrink_lo(gy0, k, r) : gy0;
-            const int yh = is3 ? shrink_hi(gy1, k, r, D1) : gy1;
-            const int xl = shrink_lo(gx0, k, r), xh = shrink_hi(gx1, k, r, D2);
-            const int nxk = xh - xl, ak = (yh - yl) * nxk, m = (rh - rl) * ak;
-            for (int e = tid; e < m; e += blockDim.x) {
-                const int ii = e / ak, rem = e - ii * ak;
-                const int yy = rem / nxk, xx = rem - yy * nxk;
-                const int i = rl + ii, y = yl + yy, x = xl + xx;
-                const int idx = (i - gr0) * area + (y - gy0) * wx + (x - gx0);
-                out[idx] = cell_interior(i, y, x, a) ? sum_at<NPTS>(in, idx, lin, s, a.npts)
-                                                     : in[idx];
-            }
-            __syncthreads();
-        }
-        const T* fin = (ct & 1) ? B : A;
-        const int nxo = x1 - x0, ao = (y1 - y0) * nxo, m = (s1 - s0) * ao;
-        for (int e = tid; e < m; e += blockDim.x) {
-            const int ii = e / ao, rem = e - ii * ao;
-            const int yy = rem / nxo, xx = rem - yy * nxo;
-            const int i = s0 + ii, y = y0 + yy, x = x0 + xx;
-            dst[(size_t)i * P + y * D2 + x] =
-                fin[(i - gr0) * area + (y - gy0) * wx + (x - gx0)];
-        }
-        __syncthreads();
-    }
-}
 
 // ---- the deep schedule ----------------------------------------------------
 
@@ -746,12 +572,11 @@ stencil_tb_kernel(const T* x, T* buf0, T* buf1, StencilArgs a, TbArgs g,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ SpecShared s;
     __shared__ const T* rows[PERKS_MAX_BLOCK_ROWS + 2 * STENCIL_MAX_RADIUS];
-    __shared__ int lin[STENCIL_MAX_POINTS];
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
 
-    const int P = a.P, r = a.r, H = a.H, R = g.R, t = g.t;
-    const int rt = r * t, tid = threadIdx.x, b = blockIdx.x;
+    const int P = a.P, R = g.R, t = g.t;
+    const int rt = a.r * t, tid = threadIdx.x, b = blockIdx.x;
     int b0 = 0, b1 = 0;
     if (b < g.nb) {
         b0 = (int)((long long)b * R / g.nb);
@@ -760,11 +585,6 @@ stencil_tb_kernel(const T* x, T* buf0, T* buf1, StencilArgs a, TbArgs g,
     const int nrows = b1 - b0;
     // band region: r*t halo rows, the band, r*t halo rows, the r-row ring
     T* band_base = reinterpret_cast<T*>(smem_raw);
-    T* scr = reinterpret_cast<T*>(smem_raw + g.band_bytes);
-    // shallow: the two tile buffers, each of the widest window
-    const size_t cap = (size_t)min(H, g.rows + 2 * rt) *
-                       (a.ndim == 3 ? min(a.D1, g.sy + 2 * rt) : 1) *
-                       min(a.D2, g.sx + 2 * rt);
 
     // Prologue: the band's one load from device memory.
     for (int e = tid; e < nrows * P; e += blockDim.x)
@@ -776,15 +596,13 @@ stencil_tb_kernel(const T* x, T* buf0, T* buf1, StencilArgs a, TbArgs g,
         const int ct = min(t, g.steps - p * t);
         const T* src = (p == 0) ? x : ((p & 1) ? buf0 : buf1);
         T* dst = (p & 1) ? buf1 : buf0;
-        if (nrows > 0) band_pass<NPTS>(band_base, b0, b1, rt, ct, src, dst, a, s, rows);
-        if (R < H) {
-            if (g.deep)
-                deep_pass<NPTS>(smem_raw + g.band_bytes, ct,
-                                p == 0 ? &map_x : ((p & 1) ? &map0 : &map1),
-                                tma, src, dst, a, s, g);
-            else
-                shallow_pass<NPTS>(scr, scr + cap, ct, src, dst, a, s, g, lin);
-        }
+        if (nrows > 0)
+            band_pass<NPTS, PERKS_THREADS, PERKS_CELLS_PER_THREAD>(
+                band_base, b0, b1, rt, ct, src, dst, a, s, rows);
+        if (R < a.H)
+            deep_pass<NPTS>(smem_raw + g.band_bytes, ct,
+                            p == 0 ? &map_x : ((p & 1) ? &map0 : &map1),
+                            tma, src, dst, a, s, g);
         // this pass's stores are read by the next pass's TMA loads (the
         // async proxy)
         if (tma) asm volatile("fence.proxy.async;" ::: "memory");
@@ -907,7 +725,7 @@ static int deep_maps(TbMaps* maps, const void* x, const void* buf0,
 
 // Launches on `stream` for elements of type `dtype` (STENCIL_F32 or
 // STENCIL_BF16); returns the cudaError_t of the launch (0 = success) and
-// sets *tma to whether the deep schedule loads level 0 by TMA.
+// sets *tma to whether level 0 is loaded by TMA.
 extern "C" int stencil_tb_launch(const void* x, void* buf0, void* buf1,
                                  StencilArgs a, TbArgs g, int dtype, int grid,
                                  int smem_bytes, cudaStream_t stream,
@@ -916,10 +734,8 @@ extern "C" int stencil_tb_launch(const void* x, void* buf0, void* buf1,
     TbMaps maps;
     memset(&maps, 0, sizeof maps);
     int use = 0;
-    if (g.deep) {
-        const int err = deep_maps(&maps, x, buf0, buf1, a, g, dtype, &use);
-        if (err) return err;
-    }
+    const int err = deep_maps(&maps, x, buf0, buf1, a, g, dtype, &use);
+    if (err) return err;
     *tma = use;
     cudaError_t e = cudaFuncSetAttribute(
         f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

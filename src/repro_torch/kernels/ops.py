@@ -24,16 +24,20 @@ from repro_torch.kernels.common import StencilSpec
 
 #: kernel name -> (the wrapper that carries its launch counter, the
 #: counter's attribute): ``stencil_perks`` counts its ``fuse_steps>1``
-#: launches (``csrc/stencil_tb.cu``) apart, as ``stencil_perks_fused``;
-#: ``stencil_perks_deep`` counts all its launches, and those that loaded
-#: level 0 by TMA apart; ``decode_attention`` counts all its launches, and
-#: its tensor-core and CUDA-core kernels' apart
+#: launches (``csrc/stencil_shallow.cu``) apart, as ``stencil_perks_fused``,
+#: and of those the ones whose tiles came by cp.async; ``stencil_perks_deep``
+#: counts all its launches, and those that loaded level 0 by TMA apart;
+#: ``stencil_resident`` those whose halo rows came by cp.async apart;
+#: ``decode_attention`` counts all its launches, and its tensor-core and
+#: CUDA-core kernels' apart
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
     "stencil_perks_fused": (_s2d.stencil_perks, "fused_launches"),
+    "stencil_perks_fused_async": (_s2d.stencil_perks, "fused_async_launches"),
     "stencil_perks_deep": (_s2d.stencil_perks_deep, "launches"),
     "stencil_perks_deep_tma": (_s2d.stencil_perks_deep, "tma_launches"),
     "stencil_resident": (_s2d.stencil_resident, "launches"),
+    "stencil_resident_async": (_s2d.stencil_resident, "async_launches"),
     "stencil_baseline_step": (_s2d.stencil_baseline_step, "launches"),
     "spmv_ell": (_spmv.spmv_ell, "launches"),
     "spmv_sell": (_sell.spmv_sell, "launches"),

@@ -10,7 +10,9 @@ float32 and bfloat16 cells:
     rest stream between two device-memory ping-pong buffers. With
     ``fuse_steps=1`` they stream every step (``csrc/stencil_perks.cu``);
     with ``fuse_steps=t>1`` every t steps, in tiles that recompute an r*t
-    halo (``csrc/stencil_tb.cu``, the shallow schedule).
+    halo (``csrc/stencil_shallow.cu``, the shallow schedule: each tile's
+    window copied by ``cp.async`` while the previous tile's levels run, a
+    thread walking fixed columns down its rows).
 ``stencil_perks_deep``
     t steps a pass with no recompute along the rows (``csrc/stencil_tb.cu``,
     the deep schedule): each CTA runs units of one strip by one segment of
@@ -19,8 +21,12 @@ float32 and bfloat16 cells:
     small rings of rows in shared memory, meeting on mbarriers with no
     block-wide barrier in the row walk.
 ``stencil_resident``
-    ``csrc/stencil_perks.cu`` with every row cached; raises ``ValueError``
-    when the domain does not fit the co-resident CTAs' shared memory.
+    Every row cached (``csrc/stencil_resident.cu``): each CTA computes its
+    band's new values into registers from shared memory, a block of rows
+    at a time, and writes each block back r rows from its old place, with
+    the neighbours' borders copied into halo rows by ``cp.async``
+    (``resident_layout``); raises ``ValueError`` when the domain does not
+    fit the co-resident CTAs' shared memory.
 ``stencil_baseline_step``
     One non-persistent, out-of-place step (``csrc/stencil_step.cu``): the
     loop tiers' step on the card.
@@ -29,10 +35,13 @@ Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
 wrapper counts its launches in its ``launches`` attribute;
 ``stencil_perks`` counts its ``fuse_steps>1`` launches apart, in
-``fused_launches``, and ``stencil_perks_deep`` those that loaded level 0
-by TMA in ``tma_launches``. ``tb_layout`` is the temporal-blocking kernel's shared
-memory layout, which the wrappers and the planner share, so the planner
-offers no plan the kernel refuses.
+``fused_launches``, and of those the ones whose tiles were copied by
+``cp.async`` in ``fused_async_launches``; ``stencil_perks_deep`` counts
+those that loaded level 0 by TMA in ``tma_launches``, and
+``stencil_resident`` those whose halo rows were copied by ``cp.async`` in
+``async_launches``. ``tb_layout`` and ``resident_layout`` are the kernels'
+shared memory layouts, which the wrappers and the planner share, so the
+planner offers no plan a kernel refuses.
 
 Not ported yet (ROADMAP): cached rows wider than one CTA can hold.
 """
@@ -60,9 +69,26 @@ PERKS_MAX_ROW_CELLS = 20 * PERKS_THREADS
 #: give a CTA the opt-in per-block limit less this reserve; the wrappers
 #: check at each launch that the built kernel's static shared memory fits.
 PERKS_STATIC_SMEM = 2048
-#: Temporal blocking (``csrc/stencil_tb.cu``), shallow schedule: the most
-#: rows of a tile.
-TB_TILE_ROWS = 64
+#: ``csrc/stencil_resident.cu``: threads of a CTA and the new values a
+#: thread holds in registers (a block of rows is at most their product,
+#: never less than PERKS_MAX_ROW_CELLS). RES_BLOCK_CELLS prices a block's
+#: barrier, in cells a thread, in ``resident_step_cost``: set by hand, not
+#: fitted (the planner's RESIDENT_TERM_S is fitted with it, PERF.md).
+RES_THREADS = 512
+RES_CELLS = 40
+RES_BLOCK_CELLS = 8
+#: The shallow schedule (``csrc/stencil_shallow.cu``): threads of a CTA, the
+#: units (window column by row segment) one thread may own, the most rows
+#: of a tile; SHALLOW_LEVEL_CELLS and SHALLOW_TILE_CELLS price a level's
+#: set-up and barrier and a tile's, in cells a thread, in
+#: ``shallow_pass_cost``: set by hand, not fitted; they choose the tile
+#: shape, and no recorded run times another shape against the one they
+#: choose (PERF.md).
+SHALLOW_THREADS = 512
+SHALLOW_UNITS = 4
+TB_TILE_ROWS = 128
+SHALLOW_LEVEL_CELLS = 6
+SHALLOW_TILE_CELLS = 12
 #: Deep schedule: warp 0 keeps level-0 rows in flight into a ring of
 #: 2r + 1 + DEEP_PREFETCH slots, DEEP_WARPS warps compute levels 1..t from
 #: rings of 2r + 3 slots (less where those do not fit, ``deep_rings``).
@@ -111,14 +137,82 @@ def band_smem_bytes(cached_rows: int, radius: int, row_bytes: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class ResidentLayout:
+    """One CTA of ``csrc/stencil_resident.cu``: ``nb`` bands of at most
+    ``maxband`` rows; a step computes blocks of ``kb`` rows, a thread
+    holding ``cells`` new values in registers (the block's cells
+    ``RES_THREADS`` apart), each block written back r rows from its old
+    place; ``halo``: r halo rows above and below the band take the
+    neighbours' borders (the band and 3r rows), else the band takes r rows
+    beside it and reads the rows outside it from device memory; ``smem``
+    bytes of dynamic shared memory."""
+
+    nb: int
+    maxband: int
+    kb: int
+    cells: int
+    halo: bool
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.maxband // self.kb)
+
+
+def resident_layout(shape: tuple[int, ...], radius: int, dtype_bytes: int,
+                    ctas: int, limit: int) -> Optional[ResidentLayout]:
+    """The layout of ``csrc/stencil_resident.cu`` for the whole domain over
+    ``ctas`` CTAs of ``limit`` bytes of shared memory, or None where it
+    does not fit: exactly where ``rows_per_cta`` and ``band_smem_bytes``
+    refuse it (without halo rows the band takes r rows beside it, as much
+    as the one-step kernel's ring). The fewest blocks the registers allow,
+    of even rows; halo rows where the band and 3r rows fit (and hold a
+    cell whose every neighbour is in them)."""
+    H = shape[0]
+    P = math.prod(shape[1:])
+    row = P * dtype_bytes
+    if P > PERKS_MAX_ROW_CELLS or H == 0:
+        return None
+    nb, maxband = band_layout(H, radius, ctas)
+    shift = band_smem_bytes(H, radius, row, ctas)
+    if shift > limit:
+        return None
+    blocks = -(-maxband * P // (RES_THREADS * RES_CELLS))
+    while True:
+        kb = -(-maxband // blocks)
+        cells = -(-kb * P // RES_THREADS)
+        if cells <= RES_CELLS:
+            break
+        blocks += 1
+    # with halo rows an idle slot sums at a cell whose every neighbour (at
+    # most r rows, plane rows and columns away) lies in the storage
+    D1, D2 = _planes(shape)
+    reach = radius * P + (radius * D2 if len(shape) == 3 else 0) + radius
+    halo = ((maxband + 3 * radius) * row <= limit
+            and 2 * reach < (maxband + 3 * radius) * P)
+    smem = (maxband + 3 * radius) * row if halo else shift
+    return ResidentLayout(nb, maxband, kb, cells, halo, smem)
+
+
+def resident_step_cost(lay: ResidentLayout) -> float:
+    """One step of ``csrc/stencil_resident.cu`` in cells a thread: every
+    block's cells a thread and RES_BLOCK_CELLS for its barrier."""
+    return lay.blocks * (lay.cells + RES_BLOCK_CELLS)
+
+
+@dataclasses.dataclass(frozen=True)
 class TbLayout:
-    """Shared memory of one CTA of ``csrc/stencil_tb.cu``: ``nb`` bands of
-    at most ``maxband`` cached rows with their 2*r*t halo rows and r-row
-    ring (``band_bytes``), then the streaming scratch (``scratch_bytes``)
-    for strips of ``strip`` = (plane rows, columns) and, shallow, tiles of
-    ``rows`` rows, or, deep, segments of ``rows`` output rows with rings
-    of ``rings`` = (level 0, levels 1..t-1) slots and level 0's columns
-    ``window`` = (left, width) (``cache_policy.deep_window``)."""
+    """Shared memory of one CTA of the temporal-blocking kernels: ``nb``
+    bands of at most ``maxband`` cached rows with their 2*r*t halo rows and
+    r-row ring (``band_bytes``), then the streaming scratch
+    (``scratch_bytes``) for strips of ``strip`` = (plane rows, columns)
+    and, shallow (``csrc/stencil_shallow.cu``), tiles of ``rows`` rows
+    whose windows' columns are ``window`` = (left, width)
+    (``shallow_window``), whose levels are cut into ``segs`` row segments,
+    and whose windows are copied while the last tile's levels run where
+    ``prefetch``, or, deep (``csrc/stencil_tb.cu``), segments of ``rows``
+    output rows with rings of ``rings`` = (level 0, levels 1..t-1) slots
+    and level 0's columns ``window`` (``cache_policy.deep_window``)."""
 
     nb: int
     maxband: int
@@ -128,6 +222,8 @@ class TbLayout:
     scratch_bytes: int
     rings: tuple[int, int] = (0, 0)
     window: tuple[int, int] = (0, 0)
+    segs: int = 0
+    prefetch: bool = True
 
     @property
     def smem(self) -> int:
@@ -260,67 +356,163 @@ def _deep_stream(shape, radius, t, dtype_bytes, ctas, budget, streamed):
     return None
 
 
-def tb_scratch_bytes(shape: tuple[int, ...], radius: int, t: int,
+def shallow_window(strip_cols: int, radius: int, t: int,
+                   dtype_bytes: int) -> tuple[int, int]:
+    """``(left, width)``: the shallow schedule's window columns [x0 - left,
+    x0 - left + width) for a strip of ``strip_cols`` columns from x0, before
+    clamping to the domain: the r*t halo on each side, rounded out to 16
+    bytes where the strip is a 16-byte multiple (then every row of a window
+    is whole 16-byte copies)."""
+    h = radius * t
+    align = 16 // dtype_bytes
+    if strip_cols % align:
+        return h, strip_cols + 2 * h
+    left = -(-h // align) * align
+    return left, -(-(left + strip_cols + h) // align) * align
+
+
+def shallow_geometry(shape: tuple[int, ...], radius: int, t: int,
                      dtype_bytes: int, strip: tuple[int, int],
-                     rows: int) -> int:
-    """Streaming scratch of one CTA of the shallow schedule: two tile
-    buffers of the widest window ((rows + 2rt) x (strip + 2rt), clamped to
-    the domain); the deep schedule's is ``deep_scratch_bytes``."""
+                     rows: int) -> tuple[int, int, int, int]:
+    """``(wy, wx, left, buf_cells)`` of a shallow tile, its window clamped to
+    the domain: the window's plane rows (the strip's widened by r*t; 1 in
+    2D) and columns (``shallow_window``), and the cells of one tile buffer
+    (rows + 2rt window planes, whole 16 bytes)."""
     D1, D2 = _planes(shape)
     sy, sx = strip
-    is3 = len(shape) == 3
     h = radius * t
-    return (2 * min(shape[0], rows + 2 * h) * (min(D1, sy + 2 * h) if is3
-                                               else 1)
-            * min(D2, sx + 2 * h) * dtype_bytes)
+    align = 16 // dtype_bytes
+    left, wx = shallow_window(sx, radius, t, dtype_bytes)
+    wx = min(wx, -(-D2 // align) * align)
+    wy = min(D1, sy + 2 * h) if len(shape) == 3 else 1
+    planes = min(shape[0], rows + 2 * h)
+    return wy, wx, left, -(-planes * wy * wx // align) * align
+
+
+def shallow_scratch_bytes(shape: tuple[int, ...], radius: int, t: int,
+                          dtype_bytes: int, strip: tuple[int, int],
+                          rows: int, prefetch: bool = True) -> int:
+    """Streaming scratch of one CTA of the shallow schedule: the level-0
+    buffer and the levels' two, or one at t = 2 (level t goes to device
+    memory) or without ``prefetch`` (level 0's buffer then takes every
+    second level, and a tile's window is copied only once the last tile's
+    levels are done)."""
+    cells = shallow_geometry(shape, radius, t, dtype_bytes, strip, rows)[3]
+    return (3 if t >= 3 and prefetch else 2) * cells * dtype_bytes
+
+
+def shallow_segs(area: int) -> int:
+    """Row segments of a level for a window plane of ``area`` cells: as
+    many as SHALLOW_THREADS threads take at one unit each."""
+    return max(1, SHALLOW_THREADS // area)
+
+
+def shallow_pass_cost(shape: tuple[int, ...], radius: int, t: int,
+                      dtype_bytes: int, strip: tuple[int, int], rows: int,
+                      ctas: int, streamed: int) -> float:
+    """A shallow pass of t levels over ``streamed`` rows in tiles of one
+    ``strip`` by ``rows`` rows, in cells a thread: at level k every thread
+    walks its units' segments of the tile's rows widened by r*(t - k), plus
+    SHALLOW_LEVEL_CELLS, and a tile adds SHALLOW_TILE_CELLS; the tiles run
+    ceil(tiles / ctas) waves."""
+    D1, D2 = _planes(shape)
+    sy, sx = strip
+    wy, wx, _, _ = shallow_geometry(shape, radius, t, dtype_bytes, strip,
+                                    rows)
+    segs = shallow_segs(wy * wx)
+    units = -(-wy * wx * segs // SHALLOW_THREADS)
+    tile = SHALLOW_TILE_CELLS + sum(
+        units * -(-min(shape[0], rows + 2 * radius * (t - k)) // segs)
+        + SHALLOW_LEVEL_CELLS for k in range(1, t + 1))
+    tiles = -(-streamed // rows) * -(-D1 // sy) * -(-D2 // sx)
+    return -(-tiles // ctas) * tile
+
+
+def band_pass_cost(shape: tuple[int, ...], radius: int, t: int,
+                   maxband: int, threads: int) -> float:
+    """A pass of t levels over a cached band of ``maxband`` rows
+    (``csrc/stencil_band.cuh``), in cells a thread: level k updates the
+    band widened by r*(t - k) on each side, its rows' cells spread over
+    ``threads`` threads."""
+    P = math.prod(shape[1:])
+    return sum((maxband + 2 * radius * (t - k)) * P / threads
+               for k in range(1, t + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _shallow_stream(shape, radius, t, dtype_bytes, ctas, budget, streamed):
+    """The shallow schedule's ``(strip, rows, bytes, window, segs,
+    prefetch)`` within ``budget`` bytes, or None: of strips whose window
+    plane is at most SHALLOW_UNITS * SHALLOW_THREADS cells (16-byte
+    multiples of columns whose windows are a power of two columns, or the
+    whole width; narrower strips only where none of those fits) and tiles
+    of up to TB_TILE_ROWS rows, the one of least ``shallow_pass_cost``, the
+    larger tile on a tie; without prefetch only where nothing fits with
+    it."""
+    D1, D2 = _planes(shape)
+    is3 = len(shape) == 3
+    align = 16 // dtype_bytes
+    h = radius * t
+    left = -(-h // align) * align
+    whole = -(-D2 // align) * align
+    cols = {align, whole}
+    for j in range(4, 12):
+        sx = ((1 << j) - left - h) // align * align
+        if align <= sx < whole:
+            cols.add(sx)
+    heights = sorted({min(D1, 1 << j) for j in range(7)} | {D1}) if is3 \
+        else [1]
+    tall = sorted({min(streamed, 1 << j) for j in range(8)
+                   if (1 << j) <= TB_TILE_ROWS} | {min(streamed,
+                                                       TB_TILE_ROWS)})
+    narrow = [1 << j for j in range(4) if (1 << j) < min(align, D2)]
+    for prefetch, strips in ((True, sorted(cols)), (False, sorted(cols)),
+                             (False, narrow)):
+        best = None
+        for sy in heights:
+            for sx in strips:
+                wy, wx, left, _ = shallow_geometry(shape, radius, t,
+                                                   dtype_bytes, (sy, sx), 1)
+                if wy * wx > SHALLOW_UNITS * SHALLOW_THREADS:
+                    continue
+                for rows in tall:
+                    b = shallow_scratch_bytes(shape, radius, t, dtype_bytes,
+                                              (sy, sx), rows, prefetch)
+                    if b > budget:
+                        break
+                    cost = shallow_pass_cost(shape, radius, t, dtype_bytes,
+                                             (sy, sx), rows, ctas, streamed)
+                    key = (cost, -rows * sy * sx)
+                    if best is None or key < best[0]:
+                        best = (key, (sy, sx), rows, b, (left, wx),
+                                shallow_segs(wy * wx), prefetch)
+        if best is not None:
+            return best[1:]
+    return None
 
 
 def tb_least_scratch(shape: tuple[int, ...], radius: int, t: int,
                      dtype_bytes: int, deep: bool) -> int:
     """The smallest streaming scratch the kernel can run t steps a pass
-    with (a one-cell strip, one row; deep: the narrowest level-0 window
-    at the shallowest rings)."""
+    with (shallow: a one-cell strip, one row, no prefetch; deep: the
+    narrowest level-0 window at the shallowest rings)."""
     if not deep:
-        return tb_scratch_bytes(shape, radius, t, dtype_bytes, (1, 1), 1)
+        return shallow_scratch_bytes(shape, radius, t, dtype_bytes, (1, 1),
+                                     1, prefetch=False)
     return deep_scratch_bytes(shape, radius, t, dtype_bytes,
                               (1, 16 // dtype_bytes), deep_rings(radius)[-1])
-
-
-def _tb_stream(shape, radius, t, dtype_bytes, ctas, budget):
-    """The shallow schedule's streaming layout ``(strip, rows, bytes)``
-    that fits ``budget`` bytes: the default strip (2D: 128 columns; 3D:
-    8 x 32), the most rows that fit, halving the strip's wider side while
-    even one row does not; None when a one-cell strip of one row does not
-    fit."""
-    D1, D2 = _planes(shape)
-    if len(shape) == 3:
-        sy, sx = min(D1, 8), min(D2, 32)
-    else:
-        sy, sx = 1, min(D2, 128)
-    while True:
-        rows = TB_TILE_ROWS
-        while rows >= 1:
-            b = tb_scratch_bytes(shape, radius, t, dtype_bytes, (sy, sx),
-                                 rows)
-            if b <= budget:
-                return (sy, sx), rows, b
-            rows //= 2
-        if sx >= sy and sx > 1:
-            sx = -(-sx // 2)
-        elif sy > 1:
-            sy = -(-sy // 2)
-        else:
-            return None
 
 
 def tb_layout(shape: tuple[int, ...], radius: int, t: int, dtype_bytes: int,
               *, deep: bool, ctas: int, limit: int,
               cached_rows: int) -> Optional[TbLayout]:
-    """The layout of ``csrc/stencil_tb.cu`` for ``cached_rows`` cached rows
-    and t steps a pass over ``ctas`` CTAs of ``limit`` bytes of shared
-    memory, or None when it does not fit: the bands (``band_layout``, full
-    rows held in place, so at most PERKS_MAX_ROW_CELLS cells a row) come
-    first, the streaming scratch takes what is left."""
+    """The layout of the temporal-blocking kernel (deep:
+    ``csrc/stencil_tb.cu``, shallow: ``csrc/stencil_shallow.cu``) for
+    ``cached_rows`` cached rows and t steps a pass over ``ctas`` CTAs of
+    ``limit`` bytes of shared memory, or None when it does not fit: the
+    bands (``band_layout``, full rows held in place, so at most
+    PERKS_MAX_ROW_CELLS cells a row) come first, the streaming scratch
+    takes what is left."""
     H = shape[0]
     row_cells = math.prod(shape[1:])
     nb, maxband = band_layout(cached_rows, radius, ctas)
@@ -341,11 +533,13 @@ def tb_layout(shape: tuple[int, ...], radius: int, t: int, dtype_bytes: int,
         return TbLayout(nb, maxband, band, strip, rows, scratch, rings,
                         deep_window(strip[1], radius, t, dtype_bytes,
                                     len(shape)))
-    stream = _tb_stream(shape, radius, t, dtype_bytes, ctas, limit - band)
+    stream = _shallow_stream(shape, radius, t, dtype_bytes, ctas,
+                             limit - band, H - cached_rows)
     if stream is None:
         return None
-    strip, rows, scratch = stream
-    return TbLayout(nb, maxband, band, strip, rows, scratch)
+    strip, rows, scratch, window, segs, prefetch = stream
+    return TbLayout(nb, maxband, band, strip, rows, scratch, window=window,
+                    segs=segs, prefetch=prefetch)
 
 
 def tb_cached_rows(shape: tuple[int, ...], radius: int, t: int,
@@ -500,13 +694,63 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
     return buf0 if (steps - 1) % 2 == 0 else buf1
 
 
+def _launch_resident(x: torch.Tensor, spec: StencilSpec,
+                     steps: int) -> tuple[torch.Tensor, bool]:
+    """Launch ``csrc/stencil_resident.cu`` on a checked CUDA tensor: the
+    result, and whether the halo rows were copied by ``cp.async``."""
+    lib = _build.load("stencil_resident")
+    threads, cells = ctypes.c_int(), ctypes.c_int()
+    lib.stencil_resident_shape(ctypes.byref(threads), ctypes.byref(cells))
+    if (threads.value, cells.value) != (RES_THREADS, RES_CELLS):
+        raise RuntimeError("csrc/stencil_resident.cu and stencil2d.py "
+                           "disagree on RES_THREADS / RES_CELLS")
+    r = spec.radius
+    shape = tuple(x.shape)
+    row_cells = math.prod(shape[1:])
+    with _build.on_device(x):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        limit = _limit(lib, "stencil_resident", spec, x)
+        lay = resident_layout(shape, r, x.element_size(), sms, limit)
+        if lay is None:
+            cap = sms * rows_per_cta(row_cells, x.element_size(), r, limit)
+            raise ValueError(
+                f"cannot keep {shape[0]} rows of {row_cells} {x.dtype} "
+                f"cells on chip: a band plus r = {r} rows must fit one "
+                f"CTA's {limit} B of shared memory, so the kernel holds at "
+                f"most {cap} rows of this width over {sms} SMs (rows wider "
+                f"than {PERKS_MAX_ROW_CELLS} cells are not cached)")
+        grid = _grid(lib, "stencil_resident", spec, x, lay.smem, lay.nb)
+        g = _build.ResArgs(steps, lay.nb, lay.kb, 0, 0, int(lay.halo))
+        buf0 = torch.empty_like(x)
+        buf1 = torch.empty_like(x)
+        copied = ctypes.c_int()
+        err = lib.stencil_resident_launch(
+            x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
+            _build.stream(), ctypes.byref(copied))
+    _build.check(err, "stencil_resident_launch")
+    return (buf0 if (steps - 1) % 2 == 0 else buf1), bool(copied.value)
+
+
 def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
                cached_rows: int, deep: bool) -> tuple[torch.Tensor, bool]:
-    """Launch ``csrc/stencil_tb.cu`` (t steps a pass, shallow tiles or deep
-    level pipelines) on a checked CUDA tensor: the result, and whether the
-    deep schedule loaded level 0 by TMA."""
-    lib = _build.load("stencil_tb")
-    if lib.stencil_tb_max_row_cells() != PERKS_MAX_ROW_CELLS:
+    """Launch a temporal-blocking kernel on a checked CUDA tensor, t steps
+    a pass: deep level pipelines (``csrc/stencil_tb.cu``) or shallow tiles
+    (``csrc/stencil_shallow.cu``). Returns the result, and whether level 0
+    came by the asynchronous route (deep: TMA; shallow: ``cp.async``)."""
+    name = "stencil_tb" if deep else "stencil_shallow"
+    lib = _build.load(name)
+    if deep:
+        widest = lib.stencil_tb_max_row_cells()
+    else:
+        threads, units, cells = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        lib.stencil_shallow_shape(ctypes.byref(threads), ctypes.byref(units),
+                                  ctypes.byref(cells))
+        widest = cells.value
+        if (threads.value, units.value) != (SHALLOW_THREADS, SHALLOW_UNITS):
+            raise RuntimeError("csrc/stencil_shallow.cu and stencil2d.py "
+                               "disagree on SHALLOW_THREADS / SHALLOW_UNITS")
+    if widest != PERKS_MAX_ROW_CELLS:
         raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
                            "disagree on the widest cached row")
     r = spec.radius
@@ -514,7 +758,7 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
     eb = x.element_size()
     with _build.on_device(x):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        limit = _limit(lib, "stencil_tb", spec, x)
+        limit = _limit(lib, name, spec, x)
         lay = tb_layout(shape, r, t, eb, deep=deep, ctas=sms, limit=limit,
                         cached_rows=cached_rows)
         if lay is None:
@@ -530,20 +774,28 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
                 f"shared memory per CTA and the smallest streaming layout "
                 f"{least} B more, and a CTA has {limit} B (cached rows are "
                 f"at most {PERKS_MAX_ROW_CELLS} cells wide)")
-        grid = _grid(lib, "stencil_tb", spec, x, lay.smem, lay.nb)
-        g = _build.TbArgs(steps, t, cached_rows, lay.nb, int(deep),
-                          lay.strip[0], lay.strip[1], lay.rows,
-                          lay.band_bytes, *lay.rings, *lay.window)
+        grid = _grid(lib, name, spec, x, lay.smem, lay.nb)
+        if deep:
+            g = _build.TbArgs(steps, t, cached_rows, lay.nb, lay.strip[0],
+                              lay.strip[1], lay.rows, lay.band_bytes,
+                              *lay.rings, *lay.window)
+        else:
+            wy, wx, left, cells = shallow_geometry(shape, r, t, eb, lay.strip,
+                                                   lay.rows)
+            g = _build.ShallowArgs(steps, t, cached_rows, lay.nb,
+                                   lay.strip[0], lay.strip[1], lay.rows, left,
+                                   wx, wy, lay.segs, int(lay.prefetch),
+                                   lay.band_bytes, cells)
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
-        tma = ctypes.c_int()
-        err = lib.stencil_tb_launch(
+        fed = ctypes.c_int()
+        err = getattr(lib, f"{name}_launch")(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
             stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
-            _build.stream(), ctypes.byref(tma))
-    _build.check(err, "stencil_tb_launch")
+            _build.stream(), ctypes.byref(fed))
+    _build.check(err, f"{name}_launch")
     passes = -(-steps // t)
-    return (buf0 if (passes - 1) % 2 == 0 else buf1), bool(tma.value)
+    return (buf0 if (passes - 1) % 2 == 0 else buf1), bool(fed.value)
 
 
 def stencil_perks(
@@ -561,8 +813,10 @@ def stencil_perks(
 
     ``fuse_steps=t`` is temporal blocking: the streamed rows go through
     device memory once every t steps (the last pass takes ``steps % t``),
-    in tiles that recompute an r*t halo (``csrc/stencil_tb.cu``); t is
-    ``min(fuse_steps, steps)``, and t = 1 runs ``csrc/stencil_perks.cu``.
+    in tiles that recompute an r*t halo (``csrc/stencil_shallow.cu``); t
+    is ``min(fuse_steps, steps)``, and t = 1 runs ``csrc/stencil_perks.cu``,
+    or with every row cached ``csrc/stencil_resident.cu`` (counted as
+    ``stencil_resident``'s launch).
     ``sub_rows`` is the reference's streaming tile, checked as the
     reference checks it; the CUDA kernels choose their own tiles
     (``tb_layout``).
@@ -575,8 +829,14 @@ def stencil_perks(
         return x.clone()
     t = min(fuse_steps, steps)
     if t > 1:
-        out, _ = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
+        out, copied = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
         stencil_perks.fused_launches += 1
+        stencil_perks.fused_async_launches += copied
+        return out
+    if cached_rows == x.shape[0]:
+        out, copied = _launch_resident(x, spec, steps)
+        stencil_resident.launches += 1
+        stencil_resident.async_launches += copied
         return out
     out = _launch_perks(x, spec, steps, cached_rows)
     stencil_perks.launches += 1
@@ -585,6 +845,9 @@ def stencil_perks(
 
 stencil_perks.launches = 0
 stencil_perks.fused_launches = 0
+#: the fused launches whose tile windows were copied by cp.async (the
+#: others load through L2)
+stencil_perks.fused_async_launches = 0
 
 
 def stencil_perks_deep(
@@ -637,7 +900,9 @@ def stencil_resident(
 ) -> torch.Tensor:
     """Small-domain PERKS: the whole domain stays in the co-resident CTAs'
     shared memory for all steps — device memory sees one load and one
-    store. Raises ``ValueError`` if it does not fit; never streams."""
+    store, apart from the bands' r-row borders each step
+    (``csrc/stencil_resident.cu``). Raises ``ValueError`` if it does not
+    fit (``resident_layout``); never streams."""
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     if _build.is_cpu(x, "stencil"):
@@ -645,12 +910,17 @@ def stencil_resident(
     _check_cuda(x, spec)
     if steps == 0:
         return x.clone()
-    out = _launch_perks(x, spec, steps, x.shape[0])
+    out, copied = _launch_resident(x, spec, steps)
     stencil_resident.launches += 1
+    stencil_resident.async_launches += copied
     return out
 
 
 stencil_resident.launches = 0
+#: the launches whose halo rows were copied by cp.async (halo rows in
+#: shared memory and 16-byte aligned rows; the others load them through L2
+#: or read them from device memory)
+stencil_resident.async_launches = 0
 
 
 def stencil_baseline_step(

@@ -46,9 +46,11 @@ def plan_resident_planes(
     shared memory less the kernels' static buffers. Returns a count in
     [0, shape[0]].
 
-    ``fuse_steps=1``, shallow (``csrc/stencil_perks.cu``): a band of rows
-    next to its ``radius``-row ring. Otherwise (``csrc/stencil_tb.cu``,
-    t = ``fuse_steps`` steps a pass, either schedule): the band, its
+    ``fuse_steps=1``, shallow (``csrc/stencil_perks.cu``; every row:
+    ``csrc/stencil_resident.cu``, whose ``resident_layout`` holds exactly
+    these): a band of rows next to its ``radius``-row ring. Otherwise
+    (``csrc/stencil_shallow.cu`` or ``csrc/stencil_tb.cu``, t =
+    ``fuse_steps`` steps a pass): the band, its
     2*r*t halo rows and the ring take at most half of the CTA, the
     streaming scratch (tiles or strip rings, ``stencil2d.tb_layout``) the
     rest; 0 when no band fits beside it or the kernel cannot run t steps a

@@ -55,8 +55,12 @@ def test_cuda_kernels_match_plain_version(name, cuda):
     x = torch.from_numpy(_domain(spec, seed=4)).to(cuda)
     want = ref.stencil_run(x, spec, STEPS)
     for rows in (0, max(spec.radius, x.shape[0] // 2), x.shape[0]):
+        before = ops.launch_counts()["stencil_resident"]
         got = ops.stencil_perks(x, spec=spec, steps=STEPS, cached_rows=rows)
         assert torch.equal(got, want), (name, rows)
+        # every row cached runs the whole domain's kernel
+        assert ops.launch_counts()["stencil_resident"] - before == (
+            rows == x.shape[0])
     assert torch.equal(ops.stencil_resident(x, spec=spec, steps=STEPS), want)
     assert torch.equal(ops.stencil_baseline_step(x, spec=spec),
                        ref.stencil_step(x, spec))
@@ -246,6 +250,99 @@ def test_cuda_deep_pipeline_on_fallback_layouts(name, shape, dtype, t, rows,
                                  sub_rows=max(128, spec.radius * t),
                                  fuse_steps=t)
     assert torch.equal(got, ref.stencil_run(x, spec, steps))
+
+
+# The redesigned stencil_resident (csrc/stencil_resident.cu) and shallow
+# tiles (csrc/stencil_shallow.cu) at edge shapes, f32 and bf16, bit for bit
+# against the plain version: fewer rows than 132 bands, widths that are no
+# multiple of a tile or of 16 bytes, odd steps, and steps % t != 0.
+EDGE_2D = [(100, 37), (45, 250), (300, 1153)]
+EDGE_3D = [(30, 9, 11), (40, 20, 36), (17, 12, 40)]
+
+
+def _edge_domain(shape, dtype, cuda, seed=21):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(cuda).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_resident_kernel_is_bit_equal_at_edge_shapes(name, dtype, cuda):
+    spec = get_spec(name)
+    for shape in (EDGE_2D if spec.ndim == 2 else EDGE_3D):
+        x = _edge_domain(shape, dtype, cuda)
+        before = ops.launch_counts()["stencil_resident"]
+        got = ops.stencil_resident(x, spec=spec, steps=7)
+        assert ops.launch_counts()["stencil_resident"] == before + 1
+        assert torch.equal(got, ref.stencil_run(x, spec, 7)), shape
+
+
+def _res_limit(cuda):
+    props = torch.cuda.get_device_properties(cuda)
+    return (props.multi_processor_count,
+            props.shared_memory_per_block_optin - stencil2d.PERKS_STATIC_SMEM)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["2d5pt", "2d9pt", "2ds25pt", "3d7pt",
+                                  "3d27pt", "poisson"])
+def test_cuda_resident_kernel_across_blocks_and_at_capacity(name, dtype,
+                                                            cuda):
+    """Bands wider than the registers hold (several blocks a step, each
+    written r rows from its old place), and a domain at the one-step
+    kernel's capacity, where no halo rows fit and a band's first and last
+    r rows read the rows outside it from device memory: bit for bit, odd
+    steps."""
+    spec = get_spec(name)
+    r = spec.radius
+    sms, limit = _res_limit(cuda)
+    eb = torch.empty((), dtype=dtype).element_size()
+    rows = 2 * r + 2
+    cells = stencil2d.RES_THREADS * stencil2d.RES_CELLS // rows + 1
+    full = limit // (cells * eb) - r   # rows a CTA holds at most
+    for m, halo in ((rows, True), (full, False)):
+        if spec.ndim == 2:
+            shape = (sms * m, cells)
+        else:
+            shape = (sms * m, 8, -(-cells // 8))
+        lay = stencil2d.resident_layout(shape, r, eb, sms, limit)
+        assert lay is not None and lay.blocks > 1, (shape, lay)
+        assert lay.halo == halo, (shape, lay)
+        x = _edge_domain(shape, dtype, cuda, seed=m)
+        got = ops.stencil_resident(x, spec=spec, steps=5)
+        assert torch.equal(got, ref.stencil_run(x, spec, 5)), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_shallow_tiles_are_bit_equal_at_edge_shapes(name, dtype, cuda):
+    """t = 2, 3, 4 with 13 steps (a short last pass), with and without
+    cached bands; each launch counted as fused, and as copied by cp.async
+    exactly where the rows are 16-byte aligned."""
+    spec = get_spec(name)
+    r = spec.radius
+    for shape in (EDGE_2D if spec.ndim == 2 else EDGE_3D):
+        x = _edge_domain(shape, dtype, cuda, seed=5)
+        want = ref.stencil_run(x, spec, 13)
+        aligned = (shape[-1] * x.element_size()) % 16 == 0
+        for rows in (0, 4 * r + 1):
+            for t in (2, 3, 4):
+                sms, limit = _res_limit(cuda)
+                if stencil2d.tb_layout(shape, r, t, x.element_size(),
+                                       deep=False, ctas=sms, limit=limit,
+                                       cached_rows=rows) is None:
+                    continue
+                before = ops.launch_counts()
+                got = ops.stencil_perks(x, spec=spec, steps=13,
+                                        cached_rows=rows,
+                                        sub_rows=max(128, r * t),
+                                        fuse_steps=t)
+                after = ops.launch_counts()
+                assert torch.equal(got, want), (shape, rows, t)
+                assert after["stencil_perks_fused"] == \
+                    before["stencil_perks_fused"] + 1
+                assert after["stencil_perks_fused_async"] == \
+                    before["stencil_perks_fused_async"] + aligned
 
 
 def test_cuda_device_loop_keeps_its_graph(cuda):

@@ -181,20 +181,32 @@ def test_planner_offers_fitting_shallow_and_deep_candidates(shape, n, name,
                                                  -c.cached_bytes))
 
 
-@pytest.mark.parametrize("shape,n,name,dtype", [
-    ((8192, 8192), 100, "2d5pt", torch.float32),
-    ((3072, 1152), 1000, "2d5pt", torch.float32),
-    ((256, 256, 256), 100, "3d7pt", torch.float32),
-    ((4096, 2048), 100, "2ds25pt", torch.bfloat16),
+@pytest.mark.parametrize("shape,n,name,dtype,pick", [
+    ((8192, 8192), 100, "2d5pt", torch.float32,
+     ("resident", "shallow", 4, 0)),
+    ((3072, 1152), 1000, "2d5pt", torch.float32,
+     ("resident", "shallow", 1, 3072)),
+    ((256, 256, 256), 100, "3d7pt", torch.float32,
+     ("host_loop", "shallow", 1, None)),
+    ((4096, 2048), 100, "2ds25pt", torch.bfloat16,
+     ("host_loop", "shallow", 1, None)),
 ])
-def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
-    """A candidate that runs csrc/stencil_tb.cu is priced at its byte
-    model (gm_bytes_tb at the kernel's layout) and at least its levels'
-    measured price: shallow, cells x steps x TB_SHALLOW_CELL_STEP_S; deep,
-    at least the streamed cell-steps over the lanes of every CTA's level
-    warps at TB_DEEP_LANE_CELL_S. The others keep Eq. 5. On these shapes
-    the one-step plans are priced lower, so the pick is the one-step
-    kernel."""
+def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype,
+                                                      pick):
+    """A candidate that runs a temporal-blocking kernel is priced at its
+    byte model (gm_bytes_tb at the kernel's layout) and at least its
+    levels' measured price: its cached bands' band_pass_cost at
+    TB_BAND_TERM_S a term and, shallow, TB_SHALLOW_TERM_S a term of
+    shallow_pass_cost, at least every streamed cell-step over every CTA's
+    threads; deep, at least the streamed cell-steps over the lanes of
+    every CTA's level warps at TB_DEEP_LANE_CELL_S. The one-step plans keep
+    Eq. 5 and are charged at least their steps (one_step_compute_s), and
+    with rows streamed every CTA's share of them at PERKS_TERM_S. The
+    pick, (tier, schedule, depth, cached rows): on stencil large the
+    shallow tiles at t = 4 (13.1 ms measured, the one-step kernel 30.3),
+    on stencil small the whole domain cached (10.3 ms, the kept device
+    loop 16.0); on 3d7pt 256^3 no longer the one-step kernel (12.6 ms,
+    shallow t = 2 8.6; PERF.md)."""
     from repro_torch.exec import plan, planner
     h100 = thw.H100
     limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
@@ -202,6 +214,7 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
     problem = _meta(shape, n, name, dtype)
     eb = problem.x.element_size()
     row = int(np.prod(shape[1:])) * eb
+    terms = spec.npoints + 1
     for c in plan_candidates(problem, chip=h100):
         if c.tier != "resident":
             continue
@@ -210,6 +223,7 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
             secs + planner.DISPATCH_OVERHEAD_S)
         assert c.predicted_bound == by
         got = planner.stencil_model_bytes(problem, c, chip=h100)
+        streamed = (shape[0] - c.cached_rows) * row // eb
         if c.cached_rows < shape[0] and (c.schedule == "deep"
                                          or c.fuse_steps > 1):
             lay = stencil2d.tb_layout(shape, spec.radius, c.fuse_steps, eb,
@@ -221,22 +235,44 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype):
                 cached_rows=c.cached_rows, bands=lay.nb, strip=lay.strip,
                 rows=lay.rows, deep=c.schedule == "deep")
             levels = planner.tb_compute_s(problem, c, chip=h100)
+            t = c.fuse_steps
+            threads = (stencil2d.PERKS_THREADS if c.schedule == "deep"
+                       else stencil2d.SHALLOW_THREADS)
+            bands = planner.TB_BAND_TERM_S * terms * sum(
+                stencil2d.band_pass_cost(shape, spec.radius, min(t, n - s),
+                                         lay.maxband, threads)
+                for s in range(0, n, t)) if lay.nb else 0.0
+            assert levels >= bands
             if c.schedule == "deep":
                 lanes = h100.sms * 32 * stencil2d.DEEP_WARPS
-                assert levels >= ((shape[0] - c.cached_rows) * row // eb
-                                  * n / lanes * planner.TB_DEEP_LANE_CELL_S)
+                assert levels >= (streamed * n / lanes
+                                  * planner.TB_DEEP_LANE_CELL_S)
             else:
                 assert levels == pytest.approx(
-                    np.prod(shape) * n * planner.TB_SHALLOW_CELL_STEP_S)
+                    bands + planner.TB_SHALLOW_TERM_S * terms * sum(
+                        stencil2d.shallow_pass_cost(
+                            shape, spec.radius, min(t, n - s), eb,
+                            lay.strip, lay.rows, h100.sms,
+                            shape[0] - c.cached_rows)
+                        for s in range(0, n, t)))
+                threads = h100.sms * stencil2d.SHALLOW_THREADS
+                assert levels >= (streamed * n / threads * terms
+                                  * planner.TB_SHALLOW_TERM_S)
             assert secs >= levels
         else:
             assert got == tcp.gm_bytes_fused(
                 n, shape[0] * row, c.cached_rows * row, row_bytes=row,
                 radius=spec.radius, fuse_steps=1)
-            assert by != "compute"
+            steps = planner.one_step_compute_s(problem, c, chip=h100)
+            assert steps >= n * planner.RESIDENT_STEP_S
+            if c.cached_rows < shape[0]:
+                assert steps >= n * (streamed / h100.sms
+                                     / stencil2d.PERKS_THREADS * terms
+                                     * planner.PERKS_TERM_S)
+            assert secs >= steps
     best = plan(problem, chip=h100)
-    assert (best.tier, best.schedule, best.fuse_steps) == (
-        "resident", "shallow", 1)
+    assert (best.tier, best.schedule, best.fuse_steps,
+            best.cached_rows) == pick
 
 
 @pytest.mark.parametrize("shape,name,deep_t,deeper_t", [

@@ -267,18 +267,27 @@ def test_planner_caches_whole_small_domain_and_part_of_large():
     small = plan(_meta_problem((3072, 1152), 1000))
     assert small.tier == "resident" and small.cached_rows == 3072
     assert small.cache[0].cached_bytes == small.cache[0].total_bytes
-    large = plan(_meta_problem((8192, 8192), 100))
-    assert large.tier == "resident" and 0 < large.cached_rows < 8192
+    large_cands = plan_candidates(_meta_problem((8192, 8192), 100))
+    one = next(c for c in large_cands
+               if c.tier == "resident" and c.fuse_steps == 1)
+    assert 0 < one.cached_rows < 8192
     # one band of 6 rows (32 KiB each) per SM on the H100's 132 SMs
-    assert large.cached_rows == 132 * 6
-    assert plan(_meta_problem((160, 160, 128), 50, "3d7pt")).cached_rows == 132
+    assert one.cached_rows == 132 * 6
+    # one plane (80 KiB) per SM
+    assert next(c for c in plan_candidates(_meta_problem((160, 160, 128), 50,
+                                                         "3d7pt"))
+                if c.tier == "resident"
+                and c.fuse_steps == 1).cached_rows == 132
     # temporal blocking keeps 2*r*t halo rows beside a band: at 8192
-    # columns no band fits beside them, and its levels cost more than the
-    # one-step kernel's bytes, so the picks above are the one-step kernel
-    for c in plan_candidates(_meta_problem((8192, 8192), 100)):
+    # columns no band fits beside them; the shallow tiles at t = 4 stream
+    # the domain a quarter as often as the one-step kernel and measured
+    # 13.1 ms against its 30.3 on an H100 (PERF.md), so they are the pick
+    for c in large_cands:
         if c.tier == "resident" and c.fuse_steps > 1:
             assert c.cached_rows == 0, c
-    assert (large.fuse_steps, large.schedule) == (1, "shallow")
+    large = plan(_meta_problem((8192, 8192), 100))
+    assert (large.tier, large.fuse_steps, large.schedule,
+            large.cached_rows) == ("resident", 4, "shallow", 0)
     assert (small.fuse_steps, small.schedule) == (1, "shallow")
 
 
