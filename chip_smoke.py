@@ -8,11 +8,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print the build seconds;
 2. hold each stencil kernel against its plain torch version on the card,
-   at atol 5e-6, rtol 0: all 13 Table-III specs at a moderate size, the
+   at atol 5e-6, rtol 0: all 13 Table-III specs at a moderate size (the
+   one-step ``stencil_perks``, ``csrc/stencil_perks.cu``, bit for bit at
+   0 < R < H cached rows, every launch fed its window by bulk copies), the
    temporally blocked ``stencil_perks`` (t = 2, 4) and
    ``stencil_perks_deep`` (t = 2, 8, 32; bit for bit) with 0 and 4r+1
    cached rows included (a layout one CTA cannot hold is listed, not run);
-   then the same in bf16 at atol 2e-2 (the deep kernel bit for bit); then
+   then the same in bf16 at atol 2e-2 (the one-step and deep kernels bit
+   for bit); the one-step kernel on 3d7pt and 3d27pt domains of 160x160
+   planes, wider than a CTA's registers hold, with their cached planes cut
+   into boxes, bit for bit in f32 and bf16; then
    each kernel at the stencil path's full shapes, with its time, its plain
    version's time and (for the one-step kernel) a cuDNN convolution's; the
    deep kernel there must load level 0 by TMA, the shallow tiles
@@ -21,22 +26,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``cp.async``;
 3. the stencil path, with every launch counter set to 0 just before and
    read just after: ``StencilProblem`` -> ``plan`` -> ``execute`` for
-   2d5pt at 8192x8192 f32 (100 steps) and at 3072x1152 f32 (1000 steps),
-   every loop tier, the one-step resident candidate (partial caching,
-   ``stencil_perks``; the whole small domain, ``stencil_resident``),
-   shallow (t = 4) and deep (t = 8, 32) resident plans, and plans in the
-   JAX package's JSON form with ``fuse_steps>1`` and ``schedule="deep"``;
-   each result against the plain version; every deep launch must have
-   loaded level 0 by TMA, the whole small domain must have run
+   2d5pt at 8192x8192 f32 (100 steps) and at 3072x1152 f32 (1000 steps)
+   and 3d7pt at 256^3 f32 (100 steps), every loop tier, the one-step
+   resident candidate (partial caching, ``stencil_perks``, which must
+   cache part of the 3D domain; the whole small domain,
+   ``stencil_resident``), shallow (t = 4) and deep (t = 8, 32) resident
+   plans, and plans in the JAX package's JSON form with ``fuse_steps>1``
+   and ``schedule="deep"``, and two the card cannot hold as they are (deep
+   t = 8 with 1240 cached rows of 8192x8192, shallow t = 4 with 176 cached
+   planes of 3d27pt 256^3), which must run with one ``RuntimeWarning``;
+   each result against the plain version; every one-step launch must have
+   fed its window by bulk copies, every deep launch must have loaded
+   level 0 by TMA, the whole small domain must have run
    ``csrc/stencil_resident.cu`` with its halo rows copied by ``cp.async``,
    and the shallow t = 4 plan ``csrc/stencil_shallow.cu`` with its tiles
    copied by ``cp.async``;
 4. each stencil tier's median time, cells/s and effective bandwidth, every
    planner candidate's time beside its price, and the planner's pick
    against the fastest candidate measured; then
-   each temporal-blocking depth of both schedules on 2d5pt 8192x8192 and
-   3d7pt 256^3 f32 (100 steps): time, cells/s, and the port's byte model
-   against the measured time;
+   each depth of both schedules on 2d5pt 8192x8192 and 3d7pt 256^3 f32
+   (100 steps), the one-step plan included: time, cells/s, cached bytes,
+   the port's byte model and the least bytes against the measured time,
+   and the planner's price;
 5. the CG kernels against their plain versions: every SPD registry entry
    at its own size (50 iterations of ``cg_fused``, VEC and MIX), then each
    kernel at the CG path's full shapes with its time, its plain version's
@@ -105,6 +116,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -151,7 +163,11 @@ SEED = 0
 MAIN = [  # (spec, shape, n_steps, what the one-step resident plan caches)
     ("2d5pt", (8192, 8192), 100, "partial"),
     ("2d5pt", (3072, 1152), 1000, "whole"),
+    ("3d7pt", (256, 256, 256), 100, "boxes"),
 ]
+# The one-step kernel on planes wider than a CTA's registers hold (160 x 160
+# = 25,600 cells): one star and one box 3D spec of radius 1.
+WIDE = [("3d7pt", (40, 160, 160)), ("3d27pt", (40, 160, 160))]
 FUSED_T = 4              # stencil_perks_fused's depth on the main path
 DEEP_T = 8               # stencil_perks_deep's in the kernels line
 TB_STEPS = 37            # moderate-size temporal-blocking checks: 37 % t != 0
@@ -181,6 +197,28 @@ REFERENCE_PLANS = [
     '"rows", "fuse_reductions": false, "s_step": 1, "inner_tier": '
     '"device_loop", "precision": "uniform", "predicted_s": null, '
     '"predicted_bound": null}',
+]
+# The JAX package's plans the card cannot hold as they are, with their
+# problems: (plan JSON, spec, shape, steps). Each runs fitted to the
+# kernels' layouts, with one RuntimeWarning (exec.adapters.fit_stencil_plan).
+FIT_PLANS = [
+    ('{"tier": "resident", "n_steps": 100, "problem": "stencil_2d5pt", '
+     '"chip": "tpu_v5e", "batch": 1, "fuse_steps": 8, "schedule": "deep", '
+     '"sync_every": null, "cache": [{"name": "domain_rows", "cached_bytes": '
+     '40632320, "total_bytes": 268435456}], "cached_rows": 1240, '
+     '"sub_rows": 128, "policy": null, "block_rows": null, "shard_axis": '
+     'null, "partition": "rows", "fuse_reductions": false, "s_step": 1, '
+     '"inner_tier": "device_loop", "precision": "uniform", "predicted_s": '
+     'null, "predicted_bound": null}', "2d5pt", (8192, 8192), 100),
+    ('{"tier": "resident", "n_steps": 100, "problem": "stencil_3d27pt", '
+     '"chip": "tpu_v5e", "batch": 1, "fuse_steps": 4, "schedule": '
+     '"shallow", "sync_every": null, "cache": [{"name": "domain_rows", '
+     '"cached_bytes": 46137344, "total_bytes": 67108864}], "cached_rows": '
+     '176, "sub_rows": 128, "policy": null, "block_rows": null, '
+     '"shard_axis": null, "partition": "rows", "fuse_reductions": false, '
+     '"s_step": 1, "inner_tier": "device_loop", "precision": "uniform", '
+     '"predicted_s": null, "predicted_bound": null}', "3d27pt",
+     (256, 256, 256), 100),
 ]
 STENCIL_KERNELS = {
     "stencil_perks": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
@@ -1589,8 +1627,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import Plan, StencilProblem, execute, plan
     from repro_torch.core import perks
+    from repro_torch.core.hardware import device_chip
     from repro_torch.core.cache_policy import gm_bytes_deep, gm_bytes_fused
     from repro_torch.exec import plan_candidates
+    from repro_torch.exec.adapters import fit_stencil_plan
     from repro_torch.exec.planner import stencil_model_bytes, stencil_model_s
     from repro_torch.kernels import _build, ops, ref, stencil2d
     from repro_torch.kernels.common import BENCHMARKS, get_spec
@@ -1651,6 +1691,17 @@ def main() -> int:
                 if kname == "stencil_perks_deep":
                     bit_equal(what, got, want)
 
+    def one_step(x, spec, steps, R, want, table, tol, tag):
+        """The one-step kernel against the plain version, bit for bit where
+        rows stream (0 < R < H)."""
+        what = f"{spec.name} {tag} stencil_perks cached_rows={R}"
+        got = ops.stencil_perks(x, spec=spec, steps=steps, cached_rows=R)
+        keep(table, "stencil_perks", check_close(what, got, want, 0.0, tol))
+        if 0 < R < x.shape[0]:
+            bit_equal(what, got, want)
+
+    fed = (ops.launch_counts()["stencil_perks"],
+           ops.launch_counts()["stencil_perks_window"])
     print(f"[kernels] all specs, moderate size, 7 steps (odd); temporal "
           f"blocking {TB_STEPS} steps")
     for name, spec in BENCHMARKS.items():
@@ -1658,10 +1709,8 @@ def main() -> int:
         x = domain(shape)
         want = ref.stencil_run(x, spec, 7)
         H = shape[0]
-        for R in (0, 4 * spec.radius + 1, H):
-            keep(errs, "stencil_perks", check(
-                f"{name} stencil_perks cached_rows={R}",
-                ops.stencil_perks(x, spec=spec, steps=7, cached_rows=R), want))
+        for R in (0, 4 * spec.radius + 1, H // 2, H):
+            one_step(x, spec, 7, R, want, errs, ATOL, "f32")
         keep(errs, "stencil_resident", check(
             f"{name} stencil_resident",
             ops.stencil_resident(x, spec=spec, steps=7), want))
@@ -1681,14 +1730,41 @@ def main() -> int:
         for kname, got, w in (
                 ("stencil_baseline_step", ops.stencil_baseline_step(
                     x, spec=spec), ref.stencil_step(x, spec)),
-                ("stencil_perks", ops.stencil_perks(
-                    x, spec=spec, steps=7, cached_rows=R), want),
                 ("stencil_resident", ops.stencil_resident(
                     x, spec=spec, steps=7), want)):
             keep(bf16_errs, kname, check_close(f"{name} bf16 {kname}", got, w,
                                                0.0, BF16_ATOL))
+        for R1 in (R, shape[0] // 2):
+            one_step(x, spec, 7, R1, want, bf16_errs, BF16_ATOL, "bf16")
         blocked(x, spec, TB_STEPS, R, bf16_errs, BF16_ATOL, "bf16")
     print(f"[kernels] bf16 max_abs_err {json.dumps(bf16_errs)}")
+
+    print("[kernels] the one-step kernel's boxes: 3D planes wider than a "
+          "CTA's registers hold, 5 steps, bit for bit")
+    for name, shape in WIDE:
+        spec = get_spec(name)
+        for dt, table, tol in ((torch.float32, errs, ATOL),
+                               (torch.bfloat16, bf16_errs, BF16_ATOL)):
+            x = domain(shape).to(dt)
+            want = ref.stencil_run(x, spec, 5)
+            cap = stencil2d.perks_cached_rows(shape, spec.radius,
+                                              x.element_size(), sms, limit)
+            for R in (cap, max(spec.radius, cap // 2)):
+                lay = stencil2d.perks_layout(shape, spec.radius,
+                                             x.element_size(), sms, limit, R)
+                print(f"  {name} {shape} {dt} cached_rows={R}: {lay}")
+                if lay is None or lay.nby < 2:
+                    FAILS.append(f"{name} {shape} {dt}: {R} cached planes "
+                                 f"are not cut into boxes: {lay}")
+                    continue
+                one_step(x, spec, 5, R, want, table, tol, f"{dt} boxes")
+    fed = (ops.launch_counts()["stencil_perks"] - fed[0],
+           ops.launch_counts()["stencil_perks_window"] - fed[1])
+    print(f"[kernels] one-step launches {fed[0]}, fed by bulk copies {fed[1]}")
+    if fed[0] != fed[1]:
+        FAILS.append(f"{fed[0] - fed[1]} of {fed[0]} one-step launches at "
+                     f"moderate size did not feed their window by bulk "
+                     f"copies")
 
     print("[kernels] main-path shapes")
     timing = {}
@@ -1706,12 +1782,12 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: ref.stencil_run(x, spec, n), 3)
         dom = x.numel() * x.element_size()
         row = dom // shape[0]
-        if caching == "partial":
-            kname, R = "stencil_perks", one.cached_rows
-            run = lambda: ops.stencil_perks(x, spec=spec, steps=n, cached_rows=R)
-        else:
+        if caching == "whole":
             kname = "stencil_resident"
             run = lambda: ops.stencil_resident(x, spec=spec, steps=n)
+        else:
+            kname, R = "stencil_perks", one.cached_rows
+            run = lambda: ops.stencil_perks(x, spec=spec, steps=n, cached_rows=R)
         copied = ops.launch_counts()["stencil_resident_async"]
         keep(errs, kname, check(
             f"{kname} {shape} {n} steps cached_rows={one.cached_rows}",
@@ -1725,9 +1801,20 @@ def main() -> int:
         # cached that is the domain read once and written once
         moved = gm_bytes_fused(n, dom, one.cached_rows * row, row_bytes=row,
                                radius=spec.radius, fuse_steps=1)
-        timing[kname] = dict(ms=cuda_ms(run, 5), plain_ms=plain_ms,
-                             bound=bound(spec, shape, n, moved),
-                             library_ms=None)
+        t = dict(ms=cuda_ms(run, 5), plain_ms=plain_ms,
+                 bound=bound(spec, shape, n, moved), library_ms=None)
+        if caching == "boxes":
+            # the one-step plan on the 3D cell: its own line
+            print("  stencil_perks 3D one-step plan: " + json.dumps(dict(
+                shape=shape, n_steps=n, cached_rows=R,
+                cached_bytes=R * row, ms=t["ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1],
+                cells_per_s=math.prod(shape) * n / (t["ms"] / 1e3),
+                planner_ms=1e3 * stencil_model_s(problem, one)[0])))
+            if R == 0:
+                FAILS.append(f"the one-step plan on {shape} caches nothing")
+            continue
+        timing[kname] = t
         step = lambda: ops.stencil_baseline_step(x, spec=spec)
         keep(errs, "stencil_baseline_step", check(
             f"stencil_baseline_step {shape}", step(), ref.stencil_step(x, spec)))
@@ -1808,8 +1895,40 @@ def main() -> int:
                 FAILS.append(f"the shallow t={FUSED_T} plan on {shape} did "
                              f"not launch csrc/stencil_shallow.cu with "
                              f"cp.async tiles: {delta}")
+    # the JAX package's plans the card cannot hold as they are: fitted, one
+    # RuntimeWarning each, the plain version's bits
+    for text, name, shape, n in FIT_PLANS:
+        spec = get_spec(name)
+        x = domain(shape)
+        problem = StencilProblem(x, spec, n)
+        p = Plan.from_json(text)
+        fitted, why = fit_stencil_plan(shape, x.element_size(), spec, p,
+                                       device_chip())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            before = ops.launch_counts()
+            y = execute(problem, p)
+            torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()
+                 if v != before[k]}
+        warned = [str(w.message) for w in caught
+                  if issubclass(w.category, RuntimeWarning)]
+        bit_equal(f"execute {shape} {name} reference plan {p.schedule} "
+                  f"t={p.fuse_steps} cached_rows={p.cached_rows} -> "
+                  f"{fitted.schedule} t={fitted.fuse_steps} "
+                  f"cached_rows={fitted.cached_rows} launches={delta}", y,
+                  ref.stencil_run(x, spec, n))
+        print(f"  warned: {warned}")
+        if len(warned) != 1 or why is None:
+            FAILS.append(f"the reference plan on {name} {shape} gave "
+                         f"{len(warned)} RuntimeWarnings: {warned}")
+        del x, y, problem
     launches = ops.launch_counts()
     print(f"[main path] launches {json.dumps(launches)}")
+    if launches["stencil_perks_window"] != launches["stencil_perks"]:
+        FAILS.append(f"stencil_perks fed its window by bulk copies in "
+                     f"{launches['stencil_perks_window']} of its "
+                     f"{launches['stencil_perks']} main-path launches")
     for k in STENCIL_KERNELS:
         if launches[k] == 0:
             FAILS.append(f"{k} was not launched on the stencil path")
@@ -1817,7 +1936,7 @@ def main() -> int:
         FAILS.append(f"stencil_perks_deep loaded level 0 by TMA in "
                      f"{launches['stencil_perks_deep_tma']} of its "
                      f"{launches['stencil_perks_deep']} main-path launches")
-    b_big, b_small = (best for _, best, _, _, _ in main_inputs)
+    b_big, b_small, _ = (best for _, best, _, _, _ in main_inputs)
     H_big, H_small = MAIN[0][1][0], MAIN[1][1][0]
     if not (b_big.tier == "resident" and b_big.cached_rows < H_big):
         FAILS.append(f"8192x8192 plan is not a streaming resident plan: "
@@ -1908,9 +2027,12 @@ def main() -> int:
             model = stencil_model_bytes(problem, p)
             model_s, model_by = stencil_model_s(problem, p)
             least = gm_bytes_deep(n, dom, R * (dom // shape[0]), fuse_steps=t)
+            if t == 1 and len(shape) == 3 and R == 0:
+                FAILS.append(f"the one-step plan on {shape} caches nothing")
             print("  " + json.dumps(dict(
                 shape=shape, spec=spec_name, n_steps=n, schedule=sched,
-                fuse_steps=t, cached_rows=R, ms=ms,
+                fuse_steps=t, cached_rows=R, cached_bytes=R * (dom // shape[0]),
+                bound_ms=bound(spec, shape, n, least)[0], ms=ms,
                 cells_per_s=math.prod(shape) * n / (ms / 1e3),
                 model_bytes=model, model_ms=1e3 * model / HBM_BW,
                 least_bytes=least, model_GBps=model / (ms / 1e3) / 1e9,

@@ -6,9 +6,12 @@
     python3 scripts/kernel_variants.py --kernels deep_profile
     python3 scripts/kernel_variants.py --kernels shallow_resident [--src SRC]
     python3 scripts/kernel_variants.py --kernels resident_profile
+    python3 scripts/kernel_variants.py --kernels perks_stream [--src SRC]
+    python3 scripts/kernel_variants.py --kernels perks_profile
 
-Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` overrides
-of the kernels' tuning macros (all variants compile at once), prints its
+Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` flags (the
+step kernel's ``STEP_STREAM_ROWS``; every other tuning value is a plain
+constant; all variants compile at once), prints its
 ``ptxas`` register and spill counts, holds its kernels against the plain
 torch version at atol 5e-6 (rtol 0), and times them at the main path's
 shapes: one step of 2d5pt on 8192x8192 (``stencil_baseline_step``),
@@ -71,6 +74,21 @@ it is the before/after of the shallow tiles and ``stencil_resident``.
 each bit-equal to ``ref.stencil_run``), which sums thread 0's clock cycles
 a step by phase (computing blocks, writing them back, ``grid.sync()``, the
 halo copies), read back through ``stencil_resident_profile``.
+
+``--kernels perks_stream`` is ``shallow_resident``'s cells plus the
+one-step plan (``stencil_perks`` at t = 1, at the cached planes the tree's
+own planner gives its one-step candidate) on 3d7pt 256^3 x 100 and one
+``stencil_baseline_step`` on 2d5pt 8192x8192; in turns with a parent tree
+(``--src build/parent/src --rounds 1``, this tree, this tree, the parent)
+it is the before/after of the one-step kernel, with every other stencil
+kernel beside it.
+
+``--kernels perks_profile`` times ``stencil_perks`` (the one-step plan) on
+2d5pt 8192x8192 and 3d7pt 256^3 x 100 as shipped and built with
+``-DPERKS_PROFILE`` (in turns, each bit-equal to ``ref.stencil_run``),
+which sums thread 0's clock cycles a step by phase (the box, waiting for a
+window row, its ``__syncthreads``, issuing copies, computing a row,
+``grid.sync()``), read back through ``stencil_perks_profile``.
 """
 from __future__ import annotations
 
@@ -89,14 +107,7 @@ ATOL = 5e-6
 #: name -> -D overrides (empty: the shipped kernels)
 VARIANTS = {
     "shipped": (),
-    "perks_stream_rows_1": ("-DPERKS_STREAM_ROWS=1",),
-    "perks_stream_rows_8": ("-DPERKS_STREAM_ROWS=8",),
     "step_stream_rows_4": ("-DSTEP_STREAM_ROWS=4",),
-    "threads_512": ("-DPERKS_THREADS=512", "-DPERKS_CELLS_PER_THREAD=40"),
-    "threads_512_cells_20": ("-DPERKS_THREADS=512",
-                             "-DPERKS_CELLS_PER_THREAD=20"),
-    "cells_16": ("-DPERKS_CELLS_PER_THREAD=16",),
-    "cells_10": ("-DPERKS_CELLS_PER_THREAD=10",),
 }
 
 
@@ -324,10 +335,17 @@ SR_CELLS = [
     ("deep_3d7pt_256_t4", "3d7pt", (256, 256, 256), 100, "deep", 4),
     ("deep_3d7pt_256_t8", "3d7pt", (256, 256, 256), 100, "deep", 8),
 ]
+#: ``--kernels perks_stream``: the same cells, the one-step plan on 3d7pt
+#: 256^3 and one step of the loop tiers' kernel
+PS_CELLS = SR_CELLS + [
+    ("perks_3d7pt_256_t1", "3d7pt", (256, 256, 256), 100, "perks", 1),
+    ("step_2d5pt_8192", "2d5pt", (8192, 8192), 1, "step", 1),
+]
 
 
-def shallow_resident(src: str, rounds: int) -> int:
-    """``--kernels shallow_resident``: one JSON line per round."""
+def shallow_resident(src: str, rounds: int, cells=SR_CELLS) -> int:
+    """``--kernels shallow_resident`` (and ``perks_stream``, with
+    ``PS_CELLS``): one JSON line per round."""
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.core import perks
     from repro_torch.exec import plan_candidates
@@ -343,14 +361,18 @@ def shallow_resident(src: str, rounds: int) -> int:
                           **spills(_build.build_log(n).read_text())}))
     rng = np.random.default_rng(0)
     domains, runs = {}, {}
-    for key, name, shape, steps, kind, t in SR_CELLS:
+    for key, name, shape, steps, kind, t in cells:
         spec = get_spec(name)
         if (name, shape) not in domains:
             d = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                  ).cuda()
             domains[name, shape] = (d, ref.stencil_run(d, spec, steps),
                                     StencilProblem(d, spec, steps))
-        d, _, problem = domains[name, shape]
+        d, want, problem = domains[name, shape]
+        if kind == "step":
+            runs[key] = (lambda d=d, s=spec: ops.stencil_baseline_step(
+                d, spec=s), ref.stencil_step(d, spec))
+            continue
         if kind == "resident":
             fn = lambda d=d, s=spec, n=steps: ops.stencil_resident(
                 d, spec=s, steps=n)
@@ -367,7 +389,7 @@ def shallow_resident(src: str, rounds: int) -> int:
                             and c.schedule == "shallow")
             fn = lambda d=d, s=spec, n=steps, t=t, R=rows: ops.stencil_perks(
                 d, spec=s, steps=n, cached_rows=R, fuse_steps=t)
-        runs[key] = (fn, domains[name, shape][1])
+        runs[key] = (fn, want)
     bad = []
     for rnd in range(rounds):
         line = {"src": src, "round": rnd}
@@ -442,6 +464,68 @@ def resident_profile(src: str, rounds: int) -> int:
     return 0
 
 
+def perks_profile(src: str, rounds: int) -> int:
+    """``--kernels perks_profile``: the one-step plan on 2d5pt 8192x8192
+    and 3d7pt 256^3 x 100, shipped and built with -DPERKS_PROFILE (thread
+    0's clock cycles a step by phase): one JSON line per build, cell and
+    round."""
+    import ctypes
+    from repro_torch import StencilProblem
+    from repro_torch.exec import plan_candidates
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.common import get_spec
+
+    variants = {"shipped": (), "profile": ("-DPERKS_PROFILE",)}
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda v: _build.build_all(("stencil_perks",), extra=v),
+                      variants.values()))
+    for n, flags in variants.items():
+        log = _build.build_log("stencil_perks", flags).read_text()
+        print(json.dumps({"variant": n, "flags": flags, **spills(log)}))
+    rng = np.random.default_rng(0)
+    ctas = torch.cuda.get_device_properties(0).multi_processor_count
+    cells = []
+    for name, shape in (("2d5pt", (8192, 8192)), ("3d7pt", (256, 256, 256))):
+        spec = get_spec(name)
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).cuda()
+        rows = next(c.cached_rows for c in plan_candidates(
+            StencilProblem(x, spec, 100)) if c.tier == "resident"
+            and c.fuse_steps == 1 and c.schedule == "shallow")
+        cells.append((name, rows, ref.stencil_run(x, spec, 100),
+                      lambda x=x, s=spec, R=rows: ops.stencil_perks(
+                          x, spec=s, steps=100, cached_rows=R)))
+    phases = ("box", "wait", "barrier", "issue", "compute", "grid_sync")
+    bad = []
+    for rnd in range(rounds):
+        for n, flags in variants.items():
+            _build.EXTRA_FLAGS = flags
+            lib = _build.load("stencil_perks")
+            for name, rows, want, run in cells:
+                if rnd == 0 and not torch.equal(run(), want):
+                    bad.append(f"{n} {name} is not bit-equal to "
+                               f"ref.stencil_run")
+                line = {"variant": n, "cell": name, "cached_rows": rows,
+                        "round": rnd, "ms": cuda_ms(run, 3)}
+                if flags:
+                    out = (ctypes.c_ulonglong * len(phases))()
+                    lib.stencil_perks_profile.argtypes = [ctypes.c_void_p]
+                    _build.check(lib.stencil_perks_profile(out), "profile")
+                    run()
+                    torch.cuda.synchronize()
+                    _build.check(lib.stencil_perks_profile(out), "profile")
+                    # thousands of cycles a step of thread 0 of a CTA
+                    line.update(zip(phases, (c / ctas / 100 / 1000
+                                             for c in out)))
+                print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -451,7 +535,8 @@ def main() -> int:
     ap.add_argument("--kernels", choices=("stencil", "spmv_decode",
                                           "sell_deep", "deep_profile",
                                           "shallow_resident",
-                                          "resident_profile"),
+                                          "resident_profile", "perks_stream",
+                                          "perks_profile"),
                     default="stencil")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -469,14 +554,18 @@ def main() -> int:
         return shallow_resident(src, args.rounds)
     if args.kernels == "resident_profile":
         return resident_profile(src, args.rounds)
+    if args.kernels == "perks_stream":
+        return shallow_resident(src, args.rounds, PS_CELLS)
+    if args.kernels == "perks_profile":
+        return perks_profile(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks
-    from repro_torch.kernels import _build, ops, ref, stencil2d
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.common import get_spec
 
     names = args.variants.split(",")
-    stencil_libs = ("stencil_step", "stencil_perks")   # what the macros tune
+    stencil_libs = ("stencil_step", "stencil_perks")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(lambda n: _build.build_all(stencil_libs,
                                                  extra=VARIANTS[n]), names))
@@ -504,14 +593,11 @@ def main() -> int:
         "resident": lambda: ops.stencil_resident(small, spec=spec, steps=1000),
         "device_loop": lambda: execute(problem, Plan(tier="device_loop")),
     }
-    shipped_cells = stencil2d.PERKS_MAX_ROW_CELLS
     bad = []
     for rnd in range(args.rounds):
         for n in names:
             _build.EXTRA_FLAGS = VARIANTS[n]
             perks.clear_graphs()   # a kept graph holds the last variant's kernel
-            lib = _build.load("stencil_perks")
-            stencil2d.PERKS_MAX_ROW_CELLS = lib.stencil_perks_max_row_cells()
             line = {"variant": n, "round": rnd, "src": src,
                     "perks_cached_rows": rows}
             for k, fn in runs.items():
@@ -523,7 +609,6 @@ def main() -> int:
                 line[f"{k}_ms"] = cuda_ms(fn, 20 if k == "step" else 5)
             print(json.dumps(line), flush=True)
     _build.EXTRA_FLAGS = ()
-    stencil2d.PERKS_MAX_ROW_CELLS = shipped_cells
     print(card_name())
     if bad:
         print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)

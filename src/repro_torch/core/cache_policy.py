@@ -280,6 +280,68 @@ def gm_bytes_tb(
     return total
 
 
+def gm_bytes_perks(
+    n_steps: int,
+    shape: tuple[int, ...],
+    dtype_bytes: int,
+    *,
+    radius: int,
+    cached_rows: int,
+    boxes: tuple[int, int],
+    strip: tuple[int, int],
+    left: int,
+    strips: int,
+) -> float:
+    """Device-memory bytes of the port's one-step kernel
+    (``csrc/stencil_perks.cu``) for ``n_steps`` steps: Eq. 5 plus the
+    per-step halo re-read, for its boxes and windows:
+
+    * the cached planes [0, R), cut into ``boxes`` = (bands, slabs of plane
+      rows): one load (each box with its r halo plane rows on a cut side)
+      and one store in all, plus each step every box's halo plane rows
+      read and its r-deep faces written (its first and last r planes and,
+      cut into slabs, its first and last r plane rows of the planes
+      between);
+    * each step, every one of ``strips`` strips of the streamed rows [R, H)
+      read with r rows above and below it (clamped at the domain border)
+      over each tile's window (``strip`` = (plane rows, columns) widened by
+      r plane rows in 3D, its columns from ``left`` before the tile to r
+      after it, the end rounded up to 16 bytes, clamped to the domain),
+      and the streamed rows written once."""
+    H, R, r = shape[0], cached_rows, radius
+    is3 = len(shape) == 3
+    D1 = shape[1] if is3 else 1
+    D2 = shape[-1]
+    nbz, nby = boxes
+    once = 0
+    per = 0
+    for bz in range(nbz):
+        b0, b1 = bz * R // nbz, (bz + 1) * R // nbz
+        top = min(b0 + r, b1)
+        bot = max(b1 - r, top)
+        for by in range(nby):
+            y0, y1 = by * D1 // nby, (by + 1) * D1 // nby
+            stored = min(D1, y1 + r) - max(0, y0 - r) if nby > 1 else D1
+            once += (b1 - b0) * (stored + (y1 - y0))
+            per += (b1 - b0) * (stored - (y1 - y0))
+            per += ((top - b0) + (b1 - bot)) * (y1 - y0)
+            if nby > 1:
+                cut = (r if y0 > 0 else 0) + (r if y1 < D1 else 0)
+                per += (bot - top) * min(cut, y1 - y0)
+    per *= D2
+    if R < H:
+        sy, sx = strip
+        align = 16 // dtype_bytes
+        cols = sum(min(D2, -(-min(D2, x0 + sx + r) // align) * align)
+                   - max(0, x0 - left) for x0 in range(0, D2, sx))
+        plane = _window_sum(D1, sy, r if is3 else 0) * cols
+        rows = sum(min(H, R + (g + 1) * (H - R) // strips + r)
+                   - max(0, R + g * (H - R) // strips - r)
+                   for g in range(strips))
+        per += rows * plane + (H - R) * D1 * D2
+    return (once * D2 + n_steps * per) * float(dtype_bytes)
+
+
 def cg_arrays(n_rows: int, nnz: int, dtype_bytes: int,
               index_bytes: int = 4) -> list[CacheableArray]:
     """Cacheable arrays of the PERKS conjugate-gradient solver (§III-B2).

@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -18,11 +19,13 @@ from repro_torch.core.cache_policy import (
     cg_arrays_for,
     stencil_shard_arrays,
 )
-from repro_torch.exec.plan import PRECISIONS
+from repro_torch.core.hardware import Chip, device_chip
+from repro_torch.exec.plan import PRECISIONS, Plan
 from repro_torch.exec.precision import dot_for
 from repro_torch.exec.problem import HaloSpec, Problem, operand_fingerprint
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import stencil2d as ks
 from repro_torch.kernels.common import StencilSpec
 
 
@@ -59,6 +62,98 @@ def fusion_schedule(steps: int, fuse_steps: int) -> list[tuple[int, int]]:
     if rem:
         sched.append((1, rem))
     return sched
+
+
+def fit_stencil_plan(shape: Sequence[int], dtype_bytes: int,
+                     spec: StencilSpec, plan: Plan, chip: Chip,
+                     n_steps: Optional[int] = None
+                     ) -> tuple[Plan, Optional[str]]:
+    """``plan`` fitted to what the stencil kernels hold on ``chip`` (one
+    CTA an SM, its per-block shared memory less
+    ``stencil2d.PERKS_STATIC_SMEM``), for a domain of ``shape`` and
+    ``n_steps`` steps (default the plan's). A resident plan whose layout
+    the kernel cannot hold (``resident_layout`` with every row cached,
+    ``perks_layout`` at one step a pass, ``tb_layout`` otherwise) takes:
+
+    1. fewer cached rows, the most the layout holds at its schedule and
+       depth;
+    2. where no band fits at that depth, the next shallower depth of the
+       same schedule (halving it; the deep schedule down to 2, the shallow
+       one down to 1) at which one does, with the most rows it holds up to
+       the plan's; where none does, the plan's depth with no row cached,
+       or the first shallower depth that runs at all.
+
+    Every kernel and layout gives the same bits, so the fitted plan
+    computes what the plan does. Returns ``(plan, None)`` when it fits,
+    else the fitted plan and a message naming both."""
+    if plan.tier != "resident" or plan.cached_rows is None:
+        return plan, None
+    shape = tuple(int(d) for d in shape)
+    H, r, db = shape[0], spec.radius, dtype_bytes
+    n = plan.n_steps if n_steps is None else n_steps
+    limit = chip.smem_per_block - ks.PERKS_STATIC_SMEM
+    ctas = chip.sms
+    deep = plan.schedule == "deep"
+
+    def fits(t: int, rows: int) -> bool:
+        if rows >= H:
+            return (ks.resident_layout(shape, r, db, ctas, limit) is not None
+                    or ks.perks_layout(shape, r, db, ctas, limit, H)
+                    is not None)
+        if t == 1 and not deep:
+            return ks.perks_layout(shape, r, db, ctas, limit, rows) is not None
+        return ks.tb_layout(shape, r, t, db, deep=deep, ctas=ctas,
+                            limit=limit, cached_rows=rows) is not None
+
+    def most(t: int, rows: int) -> Optional[int]:
+        """The most cached rows up to ``rows`` that fit at depth t (0 or at
+        least r), or None where t does not run even with none."""
+        if fits(t, rows):
+            return rows
+        if not fits(t, 0):
+            return None
+        lo, hi = 0, min(rows, H - 1)    # fits(lo); the answer is < hi + 1
+        if t == 1 and not deep:
+            lo = min(hi, ks.perks_cached_rows(shape, r, db, ctas, limit))
+            while lo > 0 and not fits(t, lo):
+                lo -= 1
+        else:
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if fits(t, mid):
+                    lo = mid
+                else:
+                    hi = mid - 1
+        return lo if lo >= r else 0
+
+    R = min(plan.cached_rows, H)
+    t = max(1, min(plan.fuse_steps, n)) if n else max(1, plan.fuse_steps)
+    if fits(t, R):
+        return plan, None
+    floor = 2 if deep else 1
+    depths = [t]
+    while depths[-1] // 2 >= floor:
+        depths.append(depths[-1] // 2)
+    got = None
+    for d in depths:
+        rows = most(d, R)
+        if rows is not None and (rows > 0 or R == 0):
+            got = (d, rows)
+            break
+    if got is None:
+        got = next(((d, 0) for d in depths if fits(d, 0)), (1, 0))
+    t2, R2 = got
+    schedule = plan.schedule if (t2 > 1 or not deep) else "shallow"
+    row_bytes = math.prod(shape[1:]) * db
+    cache = tuple(dataclasses.replace(c, cached_bytes=R2 * row_bytes)
+                  if c.name == "domain_rows" else c for c in plan.cache)
+    fitted = dataclasses.replace(plan, fuse_steps=t2, cached_rows=R2,
+                                 schedule=schedule, cache=cache)
+    return fitted, (
+        f"the {plan.schedule} t={t} plan caching {plan.cached_rows} rows of "
+        f"{shape} does not fit the kernels' layout on {chip.name} "
+        f"({ctas} CTAs of {limit} B); running {schedule} t={t2} with "
+        f"{R2} cached rows")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -121,13 +216,22 @@ class StencilProblem(Problem):
 
     def run_resident(self, plan):
         plan.validate(radius=self.spec.radius, domain_rows=self.x.shape[0])
-        cached_rows = plan.cached_rows
-        if cached_rows is None:
+        if plan.cached_rows is None:
             raise ValueError("resident stencil plan must set cached_rows "
                              "(use repro_torch.exec.plan to build plans)")
+        # a plan the card's kernels cannot hold runs at the layout they do
+        plan, why = fit_stencil_plan(tuple(self.x.shape),
+                                     self.x.element_size(), self.spec, plan,
+                                     device_chip(), n_steps=self.n_steps)
+        if why is not None:
+            warnings.warn(why, RuntimeWarning, stacklevel=3)
+        cached_rows = plan.cached_rows
         if cached_rows >= self.x.shape[0]:
-            return kops.stencil_resident(self.x, spec=self.spec,
-                                         steps=self.n_steps)
+            # stencil_resident where it holds the domain, else the one-step
+            # kernel's boxes take every plane
+            return kops.stencil_perks(self.x, spec=self.spec,
+                                      steps=self.n_steps,
+                                      cached_rows=self.x.shape[0])
         if plan.schedule == "deep":
             return kops.stencil_perks_deep(
                 self.x, spec=self.spec, steps=self.n_steps,

@@ -16,9 +16,10 @@ captured launch.
 Stencil resident candidates are the reference's two loops: the shallow
 schedule at t = 1, 2, 4, ... up to ``max_fuse`` (default 4), and the deep
 schedule at t = 2, 4, ... up to ``DEEP_MAX_FUSE``. t = 1 is
-``csrc/stencil_perks.cu``, or ``csrc/stencil_resident.cu`` with every row
-cached, priced by Eq. 5 (``gm_bytes_fused``) and by its steps, whatever
-the bytes (``one_step_compute_s``: a grid barrier and the band's work a
+``csrc/stencil_perks.cu`` (its own byte model, ``gm_bytes_perks``), or
+``csrc/stencil_resident.cu`` with every row cached (Eq. 5,
+``gm_bytes_fused``), and priced by its steps, whatever the bytes
+(``one_step_compute_s``: a grid barrier and the box's and strips' work a
 step); t > 1 is ``csrc/stencil_shallow.cu`` (shallow) or
 ``csrc/stencil_tb.cu`` (deep), priced by the port's own byte model of them
 (``gm_bytes_tb``: halo re-reads of their tiles or strips and the deep
@@ -59,6 +60,7 @@ from repro_torch.core.cache_policy import (
     cg_arrays,
     cg_arrays_for,
     gm_bytes_fused,
+    gm_bytes_perks,
     gm_bytes_tb,
     plan_caching,
 )
@@ -116,11 +118,14 @@ TB_BAND_TERM_S = 9.5e-8
 RESIDENT_STEP_S = 2.1e-6
 RESIDENT_TERM_S = 1.9e-8
 #: One-step plans with rows streamed (``csrc/stencil_perks.cu``): seconds a
-#: term of a cell a thread, a CTA's band and its share of the streamed rows
-#: over PERKS_THREADS threads, fitted to 2d5pt 8192x8192 x 100 at 792
-#: cached rows (30.42 ms by ``chip_smoke.py``; priced by bytes alone at
-#: 14.5 ms) on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md).
-PERKS_TERM_S = 1.014e-7
+#: term of a cell a thread of ``stencil2d.perks_step_cost`` (a CTA's box and
+#: its strips' tile rows, each row's wait and release counted as
+#: PERKS_ROW_CELLS), the geometric mean of the two fits to 2d5pt 8192x8192
+#: at 660 cached rows (35.33 ms) and 3d7pt 256^3 at 66 cached planes (17.03
+#: ms), 100 steps each, in ``scripts/kernel_variants.py --kernels
+#: perks_stream`` on an NVIDIA H100 80GB HBM3 at a 700 W power limit; it
+#: prices them 1.24x and 0.81x (PERF.md).
+PERKS_TERM_S = 4.41e-8
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -225,6 +230,12 @@ def stencil_model_bytes(problem, p: Plan, *,
     r = problem.spec.radius
     row_bytes = int(math.prod(shape[1:])) * db
     rows = (p.cached_rows or 0) if p.tier == "resident" else 0
+    if p.tier == "resident" and not _runs_tb(problem, p):
+        lay = _perks_layout(problem, p, _as_chip(chip))
+        if lay is not None:
+            return gm_bytes_perks(n, shape, db, radius=r, cached_rows=rows,
+                                  boxes=(lay.nbz, lay.nby), strip=lay.strip,
+                                  left=lay.window[0], strips=lay.nseg)
     if not _runs_tb(problem, p):
         return gm_bytes_fused(n, shape[0] * row_bytes, rows * row_bytes,
                               row_bytes=row_bytes, radius=r, fuse_steps=1)
@@ -232,6 +243,20 @@ def stencil_model_bytes(problem, p: Plan, *,
     return gm_bytes_tb(n, shape, db, radius=r, fuse_steps=min(p.fuse_steps, n),
                        cached_rows=rows, bands=lay.nb, strip=lay.strip,
                        rows=lay.rows, deep=p.schedule == "deep")
+
+
+def _perks_layout(problem, p: Plan, chip: Chip):
+    """The layout ``csrc/stencil_perks.cu`` takes for one-step plan ``p``
+    in one CTA of ``chip``; None where every row is cached and
+    ``csrc/stencil_resident.cu`` holds the domain (that kernel runs)."""
+    shape = tuple(problem.x.shape)
+    r, eb = problem.spec.radius, problem.x.element_size()
+    limit = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    rows = p.cached_rows or 0
+    if rows >= shape[0] and stencil2d.resident_layout(
+            shape, r, eb, chip.sms, limit) is not None:
+        return None
+    return stencil2d.perks_layout(shape, r, eb, chip.sms, limit, rows)
 
 
 def _tb_layout(problem, p: Plan, chip: Chip):
@@ -283,26 +308,26 @@ def one_step_compute_s(problem, p: Plan, *,
                        chip: Union[str, Chip] = "h100") -> float:
     """Seconds a one-step resident plan ``p`` costs whatever its bytes:
     ``n_steps`` times a grid barrier (``RESIDENT_STEP_S``) and a CTA's work
-    a term (npoints + 1 a cell) a thread: with every row cached,
-    ``stencil2d.resident_step_cost`` of ``resident_layout`` at
-    ``RESIDENT_TERM_S``; else its band and its share of the streamed rows
-    over the one-step kernel's threads at ``PERKS_TERM_S``."""
+    a term (npoints + 1 a cell) a thread: with every row cached in
+    ``csrc/stencil_resident.cu``, ``stencil2d.resident_step_cost`` of
+    ``resident_layout`` at ``RESIDENT_TERM_S``; else
+    ``stencil2d.perks_step_cost`` of the one-step kernel's layout (its box
+    and its strips' tile rows with their barriers) at ``PERKS_TERM_S``."""
     chip = _as_chip(chip)
     shape, n = tuple(problem.x.shape), problem.n_steps
     rows = p.cached_rows or 0
     r = problem.spec.radius
     terms = problem.spec.npoints + 1
-    if rows >= shape[0]:
-        lay = stencil2d.resident_layout(
+    lay = _perks_layout(problem, p, chip)
+    if lay is None and rows >= shape[0]:
+        res = stencil2d.resident_layout(
             shape, r, problem.x.element_size(), chip.sms,
             chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM)
-        work = 0.0 if lay is None else stencil2d.resident_step_cost(lay)
-        return n * (RESIDENT_STEP_S + work * terms * RESIDENT_TERM_S)
-    P = math.prod(shape[1:])
-    maxband = stencil2d.band_layout(rows, r, chip.sms)[1]
-    cells = maxband * P + (shape[0] - rows) * P / chip.sms
-    return n * (RESIDENT_STEP_S + cells / stencil2d.PERKS_THREADS * terms
-                * PERKS_TERM_S)
+        return n * (RESIDENT_STEP_S + stencil2d.resident_step_cost(res)
+                    * terms * RESIDENT_TERM_S)
+    work = 0.0 if lay is None else stencil2d.perks_step_cost(
+        shape, r, lay, rows, chip.sms)
+    return n * (RESIDENT_STEP_S + work * terms * PERKS_TERM_S)
 
 
 def stencil_model_s(problem, p: Plan, *,

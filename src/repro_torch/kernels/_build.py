@@ -41,7 +41,8 @@ SOURCES = {
     "ssm_scan": "ssm_scan.cu",
     "decode_attn": "decode_attn.cu",
 }
-HEADERS = ("stencil_common.cuh", "stencil_band.cuh", "krylov_common.cuh")
+HEADERS = ("stencil_common.cuh", "stencil_band.cuh", "stencil_async.cuh",
+           "krylov_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,12 +50,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: ``-D`` overrides of the kernels' tuning macros (``PERKS_THREADS``,
-#: ``PERKS_CELLS_PER_THREAD``, ``PERKS_STREAM_ROWS``, ``STEP_STREAM_ROWS``)
-#: and the profiles of the deep schedule's waits (``DEEP_PROFILE``) and of
-#: ``stencil_resident``'s step phases (``RES_PROFILE``) that ``load``
-#: uses, for variant builds as ``scripts/kernel_variants.py`` makes them;
-#: empty for the shipped kernels.
+#: ``-D`` flags that ``load`` builds with: the profiles of the deep
+#: schedule's waits (``DEEP_PROFILE``) and of ``stencil_resident``'s step
+#: phases (``RES_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
+#: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
+#: for the shipped kernels. Every other tuning value is a plain constant.
 EXTRA_FLAGS: tuple[str, ...] = ()
 
 MAX_POINTS = 32
@@ -94,6 +94,16 @@ class ShallowArgs(ctypes.Structure):
         ("lin", ctypes.c_int * MAX_POINTS)]
 
 
+class PerksArgs(ctypes.Structure):
+    """Mirror of ``struct PerksArgs`` in ``csrc/stencil_perks.cu``
+    (``async_`` and ``lin`` are filled by its launcher)."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "steps", "R", "nbz", "nby", "box_bytes", "sy", "sx", "left", "wx",
+        "wy", "nseg", "slots", "async_")] + [
+        ("lin", ctypes.c_int * MAX_POINTS)]
+
+
 class ResArgs(ctypes.Structure):
     """Mirror of ``struct ResArgs`` in ``csrc/stencil_resident.cu``
     (``safe``, ``cells``, ``lin`` and ``async_`` are filled by its
@@ -114,11 +124,11 @@ _SIGNATURES = {
         "stencil_step_launch": (_I, [_P, _P, StencilArgs, _I, _P]),
     },
     "stencil_perks": {
-        "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, _I, _I, _I,
-                                      _I, _I, _I, _P]),
+        "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, PerksArgs,
+                                      _I, _I, _I, _P, _IP]),
         "stencil_perks_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_perks_smem": (_I, [_I, _I, _IP, _IP]),
-        "stencil_perks_max_row_cells": (_I, []),
+        "stencil_perks_shape": (_I, [_IP, _IP, _IP, _IP]),
     },
     "stencil_resident": {
         "stencil_resident_launch": (_I, [_P, _P, _P, StencilArgs, ResArgs,

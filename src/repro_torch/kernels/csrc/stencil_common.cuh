@@ -21,18 +21,14 @@
 #define STENCIL_MAX_POINTS 32
 #define STENCIL_MAX_RADIUS 8
 
-// Threads of one persistent CTA (one CTA per SM), and the registers that
-// hold new values while rows are updated in place: one block of rows is
-// computed into them, then written back. A row updated in place has at most
-// PERKS_CELLS_PER_THREAD * PERKS_THREADS cells. Both are overridable with
-// -D for variant builds; the product must stay PERKS_MAX_ROW_CELLS of
-// stencil2d.py, which the wrapper checks.
-#ifndef PERKS_THREADS
-#define PERKS_THREADS 1024
-#endif
-#ifndef PERKS_CELLS_PER_THREAD
-#define PERKS_CELLS_PER_THREAD 20
-#endif
+// Threads of the deep schedule's persistent CTA (one CTA per SM,
+// csrc/stencil_tb.cu), and the registers that hold new values while a
+// cached band's rows are updated in place (csrc/stencil_band.cuh): one
+// block of rows is computed into them, then written back. A row updated in
+// place has at most PERKS_CELLS_PER_THREAD * PERKS_THREADS cells, which
+// must stay PERKS_MAX_ROW_CELLS of stencil2d.py (the wrappers check it).
+constexpr int PERKS_THREADS = 1024;
+constexpr int PERKS_CELLS_PER_THREAD = 20;
 #define PERKS_MAX_BLOCK_ROWS 32
 
 // Passed by value from the host (ctypes mirrors this layout).

@@ -61,58 +61,15 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "stencil_async.cuh"
 #include "stencil_band.cuh"
 
 namespace cg = cooperative_groups;
 
-// ---- Hopper's asynchronous copies: mbarriers in shared memory, TMA tensor
-// loads completing on one, and cuTensorMapEncodeTiled looked
+// ---- Hopper's asynchronous copies: the mbarriers of stencil_async.cuh,
+// TMA tensor loads completing on one, and cuTensorMapEncodeTiled looked
 // up through the CUDA runtime, so that the library links nothing beyond it
 // (csrc/decode_attn.cu has its own 2D ones).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_inval(uint32_t bar) {
-    asm volatile("mbarrier.inval.shared::cta.b64 [%0];" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-                 :: "r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the mbarrier has completed,
-// or trap once it has waited `cycles` clock cycles: a wait that can never
-// end then fails the launch with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
-                                                  uint32_t parity,
-                                                  long long cycles) {
-    uint32_t done = 0;
-    long long start = 0;
-    while (true) {
-        asm volatile("{\n\t.reg .pred p;\n\t"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                     "selp.u32 %0, 1, 0, p;\n\t}"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-        if (done) return;
-        if (start == 0)
-            start = clock64();
-        else if (clock64() - start > cycles)
-            __trap();
-    }
-}
 
 // One box of the 3D tensor map `map` at (c0, c1, c2), innermost first;
 // cells outside the tensor read as 0.

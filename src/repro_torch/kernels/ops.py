@@ -23,7 +23,8 @@ from repro_torch.kernels import stencil2d as _s2d
 from repro_torch.kernels.common import StencilSpec
 
 #: kernel name -> (the wrapper that carries its launch counter, the
-#: counter's attribute): ``stencil_perks`` counts its ``fuse_steps>1``
+#: counter's attribute): ``stencil_perks`` counts its one-step launches
+#: whose window rows came by bulk copies apart, and its ``fuse_steps>1``
 #: launches (``csrc/stencil_shallow.cu``) apart, as ``stencil_perks_fused``,
 #: and of those the ones whose tiles came by cp.async; ``stencil_perks_deep``
 #: counts all its launches, and those that loaded level 0 by TMA apart;
@@ -32,6 +33,7 @@ from repro_torch.kernels.common import StencilSpec
 #: CUDA-core kernels' apart
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
+    "stencil_perks_window": (_s2d.stencil_perks, "window_launches"),
     "stencil_perks_fused": (_s2d.stencil_perks, "fused_launches"),
     "stencil_perks_fused_async": (_s2d.stencil_perks, "fused_async_launches"),
     "stencil_perks_deep": (_s2d.stencil_perks_deep, "launches"),

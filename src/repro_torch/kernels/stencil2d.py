@@ -8,7 +8,10 @@ float32 and bfloat16 cells:
     ``steps`` steps in ONE cooperative persistent launch; rows
     [0, cached_rows) stay in shared memory for the kernel's whole life, the
     rest stream between two device-memory ping-pong buffers. With
-    ``fuse_steps=1`` they stream every step (``csrc/stencil_perks.cu``);
+    ``fuse_steps=1`` they stream every step (``csrc/stencil_perks.cu``: a
+    contiguous strip of rows a CTA, walked through a window of rows fed by
+    bulk copies ahead of use; the cached planes in boxes, cut along the
+    plane rows too where a plane is wider than a CTA's registers hold);
     with ``fuse_steps=t>1`` every t steps, in tiles that recompute an r*t
     halo (``csrc/stencil_shallow.cu``, the shallow schedule: each tile's
     window copied by ``cp.async`` while the previous tile's levels run, a
@@ -34,16 +37,18 @@ float32 and bfloat16 cells:
 Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
 wrapper counts its launches in its ``launches`` attribute;
-``stencil_perks`` counts its ``fuse_steps>1`` launches apart, in
+``stencil_perks`` counts the one-step launches whose window rows came by
+bulk copies in ``window_launches``, its ``fuse_steps>1`` launches apart, in
 ``fused_launches``, and of those the ones whose tiles were copied by
 ``cp.async`` in ``fused_async_launches``; ``stencil_perks_deep`` counts
 those that loaded level 0 by TMA in ``tma_launches``, and
 ``stencil_resident`` those whose halo rows were copied by ``cp.async`` in
-``async_launches``. ``tb_layout`` and ``resident_layout`` are the kernels'
-shared memory layouts, which the wrappers and the planner share, so the
-planner offers no plan a kernel refuses.
+``async_launches``. ``perks_layout``, ``tb_layout`` and ``resident_layout``
+are the kernels' shared memory layouts, which the wrappers and the planner
+share, so the planner offers no plan a kernel refuses.
 
-Not ported yet (ROADMAP): cached rows wider than one CTA can hold.
+Not ported yet (ROADMAP): temporal blocking of cached rows wider than one
+CTA can hold (the one-step kernel cuts them into boxes).
 """
 from __future__ import annotations
 
@@ -60,10 +65,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import StencilSpec
 
-#: Threads of one persistent CTA and the widest row (cells) its registers
-#: hold while a row is updated in place (``csrc/stencil_perks.cu``).
+#: Threads of the deep schedule's CTA (``csrc/stencil_tb.cu``) and the
+#: widest row (cells) the persistent kernels' registers hold while a cached
+#: row (a box's plane slab in the one-step kernel) is updated in place.
 PERKS_THREADS = 1024
 PERKS_MAX_ROW_CELLS = 20 * PERKS_THREADS
+#: The one-step kernel (``csrc/stencil_perks.cu``): threads of a CTA and the
+#: new values a thread holds while a block of a box's planes is updated in
+#: place (their product is PERKS_MAX_ROW_CELLS); the threads that compute
+#: the streamed rows (all warps but the one that feeds the window), the
+#: window rows in flight ahead of the 2r + 1 in use, and the tile cells a
+#: computing thread takes of a window row at most.
+ONE_THREADS = 512
+ONE_CELLS = 40
+STREAM_THREADS = ONE_THREADS - 32
+PERKS_STREAM_ROWS = 5
+ONE_TILE_CELLS = 4
+#: The one-step kernel's window of streamed rows: its shared memory at most,
+#: in 2D (at 8192 f32 columns it leaves a CTA a band of 5 rows beside the
+#: shift, one fewer than without it) and in 3D (taller tiles, fewer window
+#: rows a step, for a few cached planes: PERF.md), and what a window row's
+#: wait and release cost, in cells a thread, in choosing its tile
+#: (``perks_window``; set by hand, not fitted).
+PERKS_WINDOW_BYTES = 33 * 1024
+PERKS_WINDOW_BYTES_3D = 64 * 1024
+PERKS_ROW_CELLS = 1
+#: Beside each window row the kernel keeps its points' offsets (a table of
+#: STENCIL_MAX_POINTS int32s a slot, ``csrc/stencil_perks.cu``).
+PERKS_OFFSET_BYTES = 4 * 32
 #: Shared memory per CTA reserved for the persistent kernels' static
 #: buffers (the spec, the row-pointer table). The planner and the wrappers
 #: give a CTA the opt-in per-block limit less this reserve; the wrappers
@@ -109,13 +138,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # -- layout arithmetic shared by the wrappers and the planner -----------------
 
 def rows_per_cta(row_cells: int, dtype_bytes: int, radius: int,
-                 smem_bytes: int) -> int:
-    """Cached rows one CTA can hold: its shared memory less the ``radius``-
-    row ring of old values the in-place update keeps; 0 for rows wider
-    than the kernel's registers hold."""
+                 smem_bytes: int, window_bytes: int = 0) -> int:
+    """Cached rows one CTA can hold: its shared memory less the streamed
+    rows' ``window_bytes`` (``perks_window``; 0 where nothing streams) and
+    the ``radius`` rows an in-place update's blocks are shifted by; 0 for
+    rows wider than the kernel's registers hold."""
     if row_cells > PERKS_MAX_ROW_CELLS:
         return 0
-    return max(0, smem_bytes // (row_cells * dtype_bytes) - radius)
+    return max(0, (smem_bytes - window_bytes) // (row_cells * dtype_bytes)
+               - radius)
 
 
 def band_layout(cached_rows: int, radius: int, ctas: int) -> tuple[int, int]:
@@ -130,10 +161,11 @@ def band_layout(cached_rows: int, radius: int, ctas: int) -> tuple[int, int]:
 
 
 def band_smem_bytes(cached_rows: int, radius: int, row_bytes: int,
-                    ctas: int) -> int:
-    """Dynamic shared memory one CTA needs: its band plus the ring."""
+                    ctas: int, window_bytes: int = 0) -> int:
+    """Dynamic shared memory one CTA needs: its band plus ``radius`` rows,
+    and the streamed rows' ``window_bytes``."""
     nb, maxband = band_layout(cached_rows, radius, ctas)
-    return 0 if nb == 0 else (maxband + radius) * row_bytes
+    return (0 if nb == 0 else (maxband + radius) * row_bytes) + window_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +197,7 @@ def resident_layout(shape: tuple[int, ...], radius: int, dtype_bytes: int,
     ``ctas`` CTAs of ``limit`` bytes of shared memory, or None where it
     does not fit: exactly where ``rows_per_cta`` and ``band_smem_bytes``
     refuse it (without halo rows the band takes r rows beside it, as much
-    as the one-step kernel's ring). The fewest blocks the registers allow,
+    as the one-step kernel's shift). The fewest blocks the registers allow,
     of even rows; halo rows where the band and 3r rows fit (and hold a
     cell whose every neighbour is in them)."""
     H = shape[0]
@@ -198,6 +230,210 @@ def resident_step_cost(lay: ResidentLayout) -> float:
     """One step of ``csrc/stencil_resident.cu`` in cells a thread: every
     block's cells a thread and RES_BLOCK_CELLS for its barrier."""
     return lay.blocks * (lay.cells + RES_BLOCK_CELLS)
+
+
+@dataclasses.dataclass(frozen=True)
+class PerksLayout:
+    """One CTA of the one-step kernel (``csrc/stencil_perks.cu``): the
+    cached planes in ``nbz`` bands of at most ``maxband`` planes, each cut
+    into ``nby`` slabs of at most ``maxny`` plane rows (``nby`` = 1: whole
+    planes, always in 2D), one box a CTA, stored with r halo plane rows on
+    each cut side, and r planes they shift by (``box_bytes``, whole 16
+    bytes);
+    the streamed rows in ``nseg`` strips by tiles of ``strip`` = (plane
+    rows, columns), whose window of ``slots`` tile rows is ``wy`` plane rows
+    by ``window`` = (left, width) columns (``window_bytes``)."""
+
+    nbz: int
+    nby: int
+    maxband: int
+    maxny: int
+    box_bytes: int
+    strip: tuple[int, int] = (1, 1)
+    window: tuple[int, int] = (0, 0)
+    wy: int = 0
+    slots: int = 0
+    nseg: int = 0
+    window_bytes: int = 0
+
+    @property
+    def smem(self) -> int:
+        return self.box_bytes + self.window_bytes
+
+    @property
+    def boxes(self) -> int:
+        return self.nbz * self.nby
+
+
+@functools.lru_cache(maxsize=256)
+def perks_window(shape: tuple[int, ...], radius: int, dtype_bytes: int
+                 ) -> Optional[tuple]:
+    """The one-step kernel's streamed tile and window, ``(strip, (left,
+    width), wy, slots, bytes)``, or None: of tiles of ``strip`` = (plane
+    rows, columns) (columns in 16-byte multiples that cut the row into
+    nearly equal pieces; plane rows likewise in 3D, 1 in 2D) of at most
+    ONE_TILE_CELLS cells a computing thread whose window of 2r + 1 +
+    PERKS_STREAM_ROWS rows (each with PERKS_OFFSET_BYTES of its points'
+    offsets) fits PERKS_WINDOW_BYTES (in 3D PERKS_WINDOW_BYTES_3D), the one
+    whose rows cost
+    the busiest thread least over a plane (its cells of a row, and
+    PERKS_ROW_CELLS for the row's wait and release), then the one that
+    reads the fewest window cells. A window row is the tile widened by r on
+    every side, its columns from a 16-byte boundary (the left halo rounded
+    up to 16 bytes) and clamped to the domain."""
+    D1, D2 = _planes(shape)
+    is3 = len(shape) == 3
+    align = 16 // dtype_bytes
+    left = -(-radius // align) * align
+    whole = -(-D2 // align) * align
+    slots = 2 * radius + 1 + PERKS_STREAM_ROWS
+    cols = sorted({-(-(-(-D2 // n)) // align) * align for n in range(1, 65)}
+                  | {align})
+    heights = sorted({-(-D1 // n) for n in range(1, 65)}) if is3 else [1]
+    best = None
+    for sy in heights:
+        wy = min(D1, sy + 2 * radius) if is3 else 1
+        for sx in cols:
+            cells = sy * min(sx, D2)
+            if cells > STREAM_THREADS * ONE_TILE_CELLS:
+                continue
+            wx = min(whole, -(-(left + sx + radius) // align) * align)
+            b = slots * (wy * wx * dtype_bytes + PERKS_OFFSET_BYTES)
+            if b > (PERKS_WINDOW_BYTES_3D if is3 else PERKS_WINDOW_BYTES):
+                continue
+            tiles = -(-D1 // sy) * -(-D2 // sx)
+            key = (tiles * (-(-cells // STREAM_THREADS) + PERKS_ROW_CELLS),
+                   tiles * wy * wx)
+            if best is None or key < best[0]:
+                best = (key, (sy, sx), (left, wx), wy, slots, b)
+    return None if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=256)
+def perks_strips(tiles: int, streamed: int, radius: int, ctas: int) -> int:
+    """Strips the one-step kernel cuts ``streamed`` rows into: units are a
+    strip of a tile, CTA b walks units b, b + ctas, ..., each its rows and
+    r above and below; the fewest window rows the busiest CTA walks, the
+    fewer strips on a tie."""
+    best = None
+    for nseg in range(1, min(streamed, 8 * ctas) + 1):
+        cost = (-(-nseg * tiles // ctas)) * (-(-streamed // nseg) + 2 * radius)
+        if best is None or cost < best[0]:
+            best = (cost, nseg)
+    return best[1]
+
+
+def _slabs(D1: int, nby: int, radius: int) -> tuple[int, int]:
+    """(plane rows of the largest slab, of the largest stored slab): D1
+    plane rows cut into ``nby`` slabs, each stored with the r plane rows
+    beside it on a cut side."""
+    if nby == 1:
+        return D1, D1
+    cuts = [b * D1 // nby for b in range(nby + 1)]
+    return (max(b - a for a, b in zip(cuts, cuts[1:])),
+            max(min(D1, b + radius) - max(0, a - radius)
+                for a, b in zip(cuts, cuts[1:])))
+
+
+def _slab_counts(shape: tuple[int, ...], radius: int, ctas: int):
+    """``(nby, largest slab, largest stored slab)`` for every cut of a
+    plane into slabs of at least r plane rows whose updated cells a CTA's
+    registers hold (2D: whole rows only)."""
+    D1, D2 = _planes(shape)
+    cuts = range(1, max(1, min(ctas, D1 // radius)) + 1) \
+        if len(shape) == 3 else [1]
+    for nby in cuts:
+        maxny, stored = _slabs(D1, nby, radius)
+        if maxny * D2 <= PERKS_MAX_ROW_CELLS:
+            yield nby, maxny, stored
+
+
+def perks_boxes(shape: tuple[int, ...], radius: int, dtype_bytes: int,
+                ctas: int, cached_rows: int, budget: int
+                ) -> Optional[tuple[int, int, int, int, int]]:
+    """``(nbz, nby, maxband, maxny, bytes)`` of the one-step kernel's boxes
+    for ``cached_rows`` planes within ``budget`` bytes, or None: the
+    planes in at most ``ctas // nby`` bands of at least r planes
+    (``band_layout``), each plane in the fewest slabs whose box and shift
+    fit."""
+    if cached_rows == 0:
+        return 0, 1, 0, 0, 0
+    D2 = shape[-1]
+    for nby, maxny, stored in _slab_counts(shape, radius, ctas):
+        nbz, maxband = band_layout(cached_rows, radius, ctas // nby)
+        b = -(-(maxband + radius) * stored * D2 * dtype_bytes // 16) * 16
+        if b <= budget:
+            return nbz, nby, maxband, maxny, b
+    return None
+
+
+def perks_layout(shape: tuple[int, ...], radius: int, dtype_bytes: int,
+                 ctas: int, limit: int, cached_rows: int
+                 ) -> Optional[PerksLayout]:
+    """The layout of ``csrc/stencil_perks.cu`` for ``cached_rows`` cached
+    planes over ``ctas`` CTAs of ``limit`` bytes of shared memory, or None
+    where it does not fit: the streamed rows' window (``perks_window``,
+    none where every plane is cached) first, the boxes in what is left
+    (``perks_boxes``), the strips by ``perks_strips``."""
+    H = shape[0]
+    streamed = H - cached_rows
+    if streamed > 0:
+        w = perks_window(tuple(shape), radius, dtype_bytes)
+        if w is None:
+            return None
+        strip, window, wy, slots, wbytes = w
+        D1, D2 = _planes(shape)
+        tiles = -(-D1 // strip[0]) * -(-D2 // strip[1])
+        nseg = perks_strips(tiles, streamed, radius, ctas)
+    else:
+        strip, window, wy, slots, wbytes, nseg = (1, 1), (0, 0), 0, 0, 0, 0
+    boxes = perks_boxes(shape, radius, dtype_bytes, ctas, cached_rows,
+                        limit - wbytes)
+    if boxes is None:
+        return None
+    return PerksLayout(*boxes, strip, window, wy, slots, nseg, wbytes)
+
+
+@functools.lru_cache(maxsize=256)
+def perks_cached_rows(shape: tuple[int, ...], radius: int, dtype_bytes: int,
+                      ctas: int, limit: int) -> int:
+    """The most leading planes ``csrc/stencil_perks.cu`` caches with at
+    least one row streamed: the boxes of every cut into slabs beside the
+    window (``perks_window``), the cut that holds the most; 0 where no box
+    of r planes fits."""
+    H = shape[0]
+    w = perks_window(tuple(shape), radius, dtype_bytes)
+    if w is None or H < 2:
+        return 0
+    budget = (limit - w[4]) // 16 * 16
+    best = 0
+    for nby, _, stored in _slab_counts(shape, radius, ctas):
+        per = budget // (stored * shape[-1] * dtype_bytes) - radius
+        if per >= radius:
+            best = max(best, min(H - 1, (ctas // nby) * per))
+    return best if best >= radius else 0
+
+
+def perks_step_cost(shape: tuple[int, ...], radius: int, lay: PerksLayout,
+                    cached_rows: int, ctas: int) -> float:
+    """One step of ``csrc/stencil_perks.cu`` in cells a thread of the
+    busiest CTA: its box's stored cells over ONE_THREADS threads, and its
+    streamed units' tile rows, each row's cells over STREAM_THREADS
+    threads (the busiest one's) and PERKS_ROW_CELLS."""
+    H = shape[0]
+    D1, D2 = _planes(shape)
+    box = lay.maxband * (min(D1, lay.maxny + (2 * radius if lay.nby > 1
+                                               else 0)) * D2)
+    stream = 0.0
+    streamed = H - cached_rows
+    if streamed > 0:
+        sy, sx = lay.strip
+        tiles = -(-D1 // sy) * -(-D2 // sx)
+        waves = -(-lay.nseg * tiles // ctas)
+        rows = -(-streamed // lay.nseg) + 2 * radius
+        stream = waves * rows * (-(-sy * min(sx, D2) // STREAM_THREADS)
+                                 + PERKS_ROW_CELLS)
+    return box / ONE_THREADS + stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -660,38 +896,48 @@ def _grid(lib, prefix: str, spec: StencilSpec, x: torch.Tensor, smem: int,
 # -- the persistent kernels ---------------------------------------------------
 
 def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
-                  cached_rows: int) -> torch.Tensor:
-    """Launch ``csrc/stencil_perks.cu`` on a checked CUDA tensor."""
+                  cached_rows: int) -> tuple[torch.Tensor, bool]:
+    """Launch ``csrc/stencil_perks.cu`` on a checked CUDA tensor: the
+    result, and whether its window rows were bulk copies."""
     lib = _build.load("stencil_perks")
-    if lib.stencil_perks_max_row_cells() != PERKS_MAX_ROW_CELLS:
-        raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
-                           "disagree on the widest cached row")
+    built = [ctypes.c_int() for _ in range(4)]
+    lib.stencil_perks_shape(*(ctypes.byref(v) for v in built))
+    if tuple(v.value for v in built) != (ONE_THREADS, ONE_CELLS,
+                                        PERKS_STREAM_ROWS, ONE_TILE_CELLS):
+        raise RuntimeError("csrc/stencil_perks.cu and stencil2d.py disagree "
+                           "on ONE_THREADS / ONE_CELLS / PERKS_STREAM_ROWS / "
+                           "ONE_TILE_CELLS")
     r = spec.radius
-    row_cells = math.prod(x.shape[1:])
-    row_bytes = row_cells * x.element_size()
+    shape = tuple(x.shape)
+    eb = x.element_size()
     with _build.on_device(x):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         limit = _limit(lib, "stencil_perks", spec, x)
-        nb, maxband = band_layout(cached_rows, r, sms)
-        smem = band_smem_bytes(cached_rows, r, row_bytes, sms)
-        if nb and (row_cells > PERKS_MAX_ROW_CELLS or smem > limit):
-            cap = sms * rows_per_cta(row_cells, x.element_size(), r, limit)
+        lay = perks_layout(shape, r, eb, sms, limit, cached_rows)
+        if lay is None:
+            cap = perks_cached_rows(shape, r, eb, sms, limit)
             raise ValueError(
-                f"cannot cache {cached_rows} rows of {row_cells} {x.dtype} "
-                f"cells: a band of {maxband} rows plus the {r}-row ring "
-                f"needs {smem} B of shared memory per CTA and a CTA has "
-                f"{limit} B, so the kernel holds at most {cap} rows "
-                f"of this width over {sms} SMs (rows wider than "
-                f"{PERKS_MAX_ROW_CELLS} cells are not cached)")
-        grid = _grid(lib, "stencil_perks", spec, x, smem, nb)
+                f"cannot cache {cached_rows} planes of {shape[1:]} {x.dtype} "
+                f"cells: the boxes, their {r}-plane shift and the streamed "
+                f"rows' window do not fit one CTA's {limit} B of shared "
+                f"memory, so the kernel holds at most {cap} planes of this "
+                f"shape over {sms} SMs with rows streamed (a box's plane "
+                f"slab is at most {PERKS_MAX_ROW_CELLS} cells)")
+        grid = min(sms, _grid(lib, "stencil_perks", spec, x, lay.smem,
+                              lay.boxes))
+        g = _build.PerksArgs(steps, cached_rows, lay.nbz, lay.nby,
+                             lay.box_bytes, lay.strip[0], lay.strip[1],
+                             lay.window[0], lay.window[1], lay.wy, lay.nseg,
+                             lay.slots)
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
+        fed = ctypes.c_int()
         err = lib.stencil_perks_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            stencil_args(spec, tuple(x.shape)), DTYPES[x.dtype], steps,
-            cached_rows, nb, grid, smem, _build.stream())
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
+            _build.stream(), ctypes.byref(fed))
     _build.check(err, "stencil_perks_launch")
-    return buf0 if (steps - 1) % 2 == 0 else buf1
+    return (buf0 if (steps - 1) % 2 == 0 else buf1), bool(fed.value)
 
 
 def _launch_resident(x: torch.Tensor, spec: StencilSpec,
@@ -814,9 +1060,10 @@ def stencil_perks(
     ``fuse_steps=t`` is temporal blocking: the streamed rows go through
     device memory once every t steps (the last pass takes ``steps % t``),
     in tiles that recompute an r*t halo (``csrc/stencil_shallow.cu``); t
-    is ``min(fuse_steps, steps)``, and t = 1 runs ``csrc/stencil_perks.cu``,
-    or with every row cached ``csrc/stencil_resident.cu`` (counted as
-    ``stencil_resident``'s launch).
+    is ``min(fuse_steps, steps)``, and t = 1 runs ``csrc/stencil_perks.cu``
+    (``perks_layout``; a layout that does not fit raises ``ValueError``),
+    or with every row cached ``csrc/stencil_resident.cu`` where it holds
+    the domain (counted as ``stencil_resident``'s launch).
     ``sub_rows`` is the reference's streaming tile, checked as the
     reference checks it; the CUDA kernels choose their own tiles
     (``tb_layout``).
@@ -833,17 +1080,33 @@ def stencil_perks(
         stencil_perks.fused_launches += 1
         stencil_perks.fused_async_launches += copied
         return out
-    if cached_rows == x.shape[0]:
+    if cached_rows == x.shape[0] and _resident_holds(x, spec):
         out, copied = _launch_resident(x, spec, steps)
         stencil_resident.launches += 1
         stencil_resident.async_launches += copied
         return out
-    out = _launch_perks(x, spec, steps, cached_rows)
+    out, fed = _launch_perks(x, spec, steps, cached_rows)
     stencil_perks.launches += 1
+    stencil_perks.window_launches += fed
     return out
 
 
+def _resident_holds(x: torch.Tensor, spec: StencilSpec) -> bool:
+    """Whether ``csrc/stencil_resident.cu`` holds the whole domain on the
+    card (else the one-step kernel's boxes take every plane)."""
+    with _build.on_device(x):
+        props = torch.cuda.get_device_properties(x.device)
+        limit = props.shared_memory_per_block_optin - PERKS_STATIC_SMEM
+        return resident_layout(tuple(x.shape), spec.radius,
+                               x.element_size(),
+                               props.multi_processor_count,
+                               limit) is not None
+
+
 stencil_perks.launches = 0
+#: the one-step launches whose window rows were bulk copies (the
+#: others load them through L2)
+stencil_perks.window_launches = 0
 stencil_perks.fused_launches = 0
 #: the fused launches whose tile windows were copied by cp.async (the
 #: others load through L2)

@@ -2,19 +2,21 @@
 ``repro/kernels/stencil3d.py``.
 
 The kernels in ``stencil2d.py`` block along the leading axis, so 3D reuses
-them with z-planes as rows (the temporal-blocking kernel tiles each plane
-into rectangles). The one 3D-specific piece is how many leading planes can
-stay on chip, re-derived here for Hopper.
+them with z-planes as rows (the temporal-blocking kernels and the one-step
+kernel's streamed rows tile each plane into rectangles; the one-step
+kernel cuts cached planes wider than a CTA's registers hold into boxes of
+plane rows). The one 3D-specific piece is how many leading planes can stay
+on chip, re-derived here for Hopper.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 from repro_torch.core.hardware import Chip, device_chip
 from repro_torch.kernels.common import StencilSpec
-from repro_torch.kernels.stencil2d import (PERKS_STATIC_SMEM, band_smem_bytes,
-                                           rows_per_cta, tb_cached_rows)
+from repro_torch.kernels.stencil2d import (PERKS_STATIC_SMEM,
+                                           perks_cached_rows, perks_layout,
+                                           resident_layout, tb_cached_rows)
 # rank-generic kernels, re-exported so they stay importable from the 3D module
 from repro_torch.kernels.stencil2d import (  # noqa: F401
     stencil_baseline_step,
@@ -46,16 +48,18 @@ def plan_resident_planes(
     shared memory less the kernels' static buffers. Returns a count in
     [0, shape[0]].
 
-    ``fuse_steps=1``, shallow (``csrc/stencil_perks.cu``; every row:
-    ``csrc/stencil_resident.cu``, whose ``resident_layout`` holds exactly
-    these): a band of rows next to its ``radius``-row ring. Otherwise
-    (``csrc/stencil_shallow.cu`` or ``csrc/stencil_tb.cu``, t =
-    ``fuse_steps`` steps a pass): the band, its
+    ``fuse_steps=1``, shallow: every plane where ``csrc/stencil_resident.cu``
+    (``resident_layout``) or the boxes of ``csrc/stencil_perks.cu``
+    (``perks_layout``, nothing streamed) hold the domain; else
+    ``stencil2d.perks_cached_rows``: the one-step kernel's boxes (bands of
+    planes, cut into slabs of plane rows where a plane is wider than a
+    CTA's registers hold), each with the ``radius`` planes it shifts by,
+    beside the streamed rows' window. Otherwise (``csrc/stencil_shallow.cu`` or
+    ``csrc/stencil_tb.cu``, t = ``fuse_steps`` steps a pass): the band, its
     2*r*t halo rows and the ring take at most half of the CTA, the
     streaming scratch (tiles or strip rings, ``stencil2d.tb_layout``) the
     rest; 0 when no band fits beside it or the kernel cannot run t steps a
-    pass at all. A row counts only where the kernel can hold it: rows wider
-    than its registers take give 0.
+    pass at all (rows wider than its registers take give 0).
 
     ``chip`` defaults to the card's own SM count and shared memory, or the
     H100 data sheet when planning without a card.
@@ -71,12 +75,10 @@ def plan_resident_planes(
                               deep=schedule == "deep", ctas=chip.sms,
                               limit=smem)
         return rows or 0
-    row_cells = math.prod(shape[1:])
-    row_bytes = row_cells * dtype_bytes
-    planes = min(shape[0], chip.sms * rows_per_cta(row_cells, dtype_bytes,
-                                                    r, smem))
-    if planes < min(r, shape[0]):
-        return 0
-    if band_smem_bytes(planes, r, row_bytes, chip.sms) > smem:
-        return 0
-    return planes
+    shape = tuple(shape)
+    H = shape[0]
+    if (resident_layout(shape, r, dtype_bytes, chip.sms, smem) is not None
+            or perks_layout(shape, r, dtype_bytes, chip.sms, smem,
+                            H) is not None):
+        return H
+    return perks_cached_rows(shape, r, dtype_bytes, chip.sms, smem)

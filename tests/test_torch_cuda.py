@@ -345,6 +345,73 @@ def test_cuda_shallow_tiles_are_bit_equal_at_edge_shapes(name, dtype, cuda):
                     before["stencil_perks_fused_async"] + aligned
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_one_step_kernel_is_bit_equal_at_edge_shapes(name, dtype, cuda):
+    """csrc/stencil_perks.cu with rows streamed (0 < R < H), 9 steps (odd,
+    so the boxes end shifted), at shapes whose rows are and are not 16-byte
+    aligned: bit for bit, each launch counted, and fed its window by bulk
+    copies exactly where the rows are aligned."""
+    spec = get_spec(name)
+    r = spec.radius
+    sms, limit = _res_limit(cuda)
+    for shape in (EDGE_2D if spec.ndim == 2 else EDGE_3D):
+        x = _edge_domain(shape, dtype, cuda, seed=9)
+        want = ref.stencil_run(x, spec, 9)
+        aligned = (shape[-1] * x.element_size()) % 16 == 0
+        cap = stencil2d.perks_cached_rows(shape, r, x.element_size(), sms,
+                                          limit)
+        for rows in sorted({0, r, 4 * r + 1, cap}):
+            if rows >= shape[0]:
+                continue
+            before = ops.launch_counts()
+            got = ops.stencil_perks(x, spec=spec, steps=9, cached_rows=rows)
+            after = ops.launch_counts()
+            assert torch.equal(got, want), (shape, rows)
+            assert after["stencil_perks"] == before["stencil_perks"] + 1
+            assert after["stencil_perks_window"] == \
+                before["stencil_perks_window"] + aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["3d7pt", "3d13pt", "3d27pt", "poisson"])
+def test_cuda_one_step_boxes_on_wide_planes(name, dtype, cuda):
+    """Planes of 160 x 160 cells, wider than a CTA's registers hold: the
+    cached planes are cut into boxes of plane rows (perks_layout), with
+    rows streamed and with every plane cached; bit for bit."""
+    spec = get_spec(name)
+    sms, limit = _res_limit(cuda)
+    shape = (24, 160, 160)
+    x = _edge_domain(shape, dtype, cuda, seed=3)
+    want = ref.stencil_run(x, spec, 5)
+    cap = stencil2d.perks_cached_rows(shape, spec.radius, x.element_size(),
+                                      sms, limit)
+    for rows in (cap, shape[0]):
+        lay = stencil2d.perks_layout(shape, spec.radius, x.element_size(),
+                                     sms, limit, rows)
+        assert lay is not None and lay.nby > 1, (rows, lay)
+        got = ops.stencil_perks(x, spec=spec, steps=5, cached_rows=rows)
+        assert torch.equal(got, want), rows
+
+
+def test_cuda_plans_the_card_cannot_hold_run_fitted(cuda):
+    """A deep t = 8 plan caching more rows of 8192 columns than a band
+    holds beside its halo, and a shallow t = 4 plan caching 3D planes
+    wider than the bands hold: fitted with one RuntimeWarning, the plain
+    version's bits."""
+    for name, shape, plan_ in (
+            ("2d5pt", (300, 8192), dict(schedule="deep", fuse_steps=8,
+                                        cached_rows=200)),
+            ("3d27pt", (24, 160, 160), dict(schedule="shallow", fuse_steps=4,
+                                            cached_rows=20))):
+        spec = get_spec(name)
+        x = _edge_domain(shape, torch.float32, cuda, seed=4)
+        p = Plan(tier="resident", n_steps=9, sub_rows=128, **plan_)
+        with pytest.warns(RuntimeWarning, match="does not fit"):
+            got = execute(StencilProblem(x, spec, 9, device=cuda), p)
+        assert torch.equal(got, ref.stencil_run(x, spec, 9)), name
+
+
 def test_cuda_device_loop_keeps_its_graph(cuda):
     spec = get_spec("2d5pt")
     p = StencilProblem(_domain(spec, seed=10), spec, STEPS, device=cuda)

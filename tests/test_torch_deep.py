@@ -162,9 +162,14 @@ def test_planner_offers_fitting_shallow_and_deep_candidates(shape, n, name,
                                                              "deep"}
     for c in res:
         if c.fuse_steps == 1 and c.schedule == "shallow":
-            need = stencil2d.band_smem_bytes(
-                c.cached_rows, spec.radius, int(np.prod(shape[1:])) * eb,
-                h100.sms)
+            lay = (stencil2d.resident_layout(shape, spec.radius, eb,
+                                             h100.sms, limit)
+                   if c.cached_rows == shape[0] else None)
+            lay = lay or stencil2d.perks_layout(shape, spec.radius, eb,
+                                                h100.sms, limit,
+                                                c.cached_rows)
+            assert lay is not None, c
+            need = lay.smem
         else:
             lay = stencil2d.tb_layout(shape, spec.radius, c.fuse_steps, eb,
                                       deep=c.schedule == "deep",
@@ -201,7 +206,8 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype,
     threads; deep, at least the streamed cell-steps over the lanes of
     every CTA's level warps at TB_DEEP_LANE_CELL_S. The one-step plans keep
     Eq. 5 and are charged at least their steps (one_step_compute_s), and
-    with rows streamed every CTA's share of them at PERKS_TERM_S. The
+    with rows streamed every CTA's share of them at PERKS_TERM_S, bytes
+    by the one-step kernel's own model (gm_bytes_perks). The
     pick, (tier, schedule, depth, cached rows): on stencil large the
     shallow tiles at t = 4 (13.1 ms measured, the one-step kernel 30.3),
     on stencil small the whole domain cached (10.3 ms, the kept device
@@ -260,14 +266,27 @@ def test_planner_charges_temporal_blocking_its_levels(shape, n, name, dtype,
                                   * planner.TB_SHALLOW_TERM_S)
             assert secs >= levels
         else:
-            assert got == tcp.gm_bytes_fused(
-                n, shape[0] * row, c.cached_rows * row, row_bytes=row,
-                radius=spec.radius, fuse_steps=1)
+            res = stencil2d.resident_layout(shape, spec.radius, eb, h100.sms,
+                                            limit)
+            if c.cached_rows == shape[0] and res is not None:
+                assert got == tcp.gm_bytes_fused(
+                    n, shape[0] * row, c.cached_rows * row, row_bytes=row,
+                    radius=spec.radius, fuse_steps=1)
+            else:
+                lay = stencil2d.perks_layout(shape, spec.radius, eb,
+                                             h100.sms, limit, c.cached_rows)
+                assert got == tcp.gm_bytes_perks(
+                    n, shape, eb, radius=spec.radius,
+                    cached_rows=c.cached_rows, boxes=(lay.nbz, lay.nby),
+                    strip=lay.strip, left=lay.window[0], strips=lay.nseg)
+                # Eq. 5 and the halos: never below the streamed rows read
+                # and written every step
+                assert got >= 2 * n * streamed * eb
             steps = planner.one_step_compute_s(problem, c, chip=h100)
             assert steps >= n * planner.RESIDENT_STEP_S
             if c.cached_rows < shape[0]:
                 assert steps >= n * (streamed / h100.sms
-                                     / stencil2d.PERKS_THREADS * terms
+                                     / stencil2d.STREAM_THREADS * terms
                                      * planner.PERKS_TERM_S)
             assert secs >= steps
     best = plan(problem, chip=h100)
@@ -302,11 +321,17 @@ def test_plan_resident_planes_doubles_for_bf16():
     h100 = thw.H100
     limit = h100.smem_per_block - stencil2d.PERKS_STATIC_SMEM
     spec = get_spec("2d5pt")
-    # 8192 cells: 7 f32 rows or 14 bf16 rows a CTA, less the 1-row ring
+    # 8192 cells: 7 f32 rows or 14 bf16 rows a CTA, less the r-row shift;
+    # beside the streamed rows' window (stencil2d.perks_window: 8 rows of
+    # 920 f32 or 1384 bf16 columns) 6 f32 or 12 bf16 rows, less the shift
     assert rows_per_cta(8192, 4, 1, limit) == 6
     assert rows_per_cta(8192, 2, 1, limit) == 13
-    assert plan_resident_planes((8192, 8192), 2, spec, chip=h100) == 132 * 13
-    assert plan_resident_planes((8192, 8192), 4, spec, chip=h100) == 132 * 6
+    win4 = stencil2d.perks_window((8192, 8192), 1, 4)[4]
+    win2 = stencil2d.perks_window((8192, 8192), 1, 2)[4]
+    assert rows_per_cta(8192, 4, 1, limit, win4) == 5
+    assert rows_per_cta(8192, 2, 1, limit, win2) == 11
+    assert plan_resident_planes((8192, 8192), 2, spec, chip=h100) == 132 * 11
+    assert plan_resident_planes((8192, 8192), 4, spec, chip=h100) == 132 * 5
     # with temporal blocking a band takes half a CTA beside its 2rt halo
     # rows: none at f32, (7 - 4 - 1) rows a CTA at bf16 and t = 2
     assert plan_resident_planes((8192, 8192), 4, spec, chip=h100,

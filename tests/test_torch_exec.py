@@ -231,9 +231,14 @@ def _fits_one_cta(c, shape, radius, dtype_bytes, chip):
     from repro_torch.kernels import stencil2d
     limit = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
     if c.fuse_steps == 1 and c.schedule == "shallow":
-        row_bytes = int(np.prod(shape[1:])) * dtype_bytes
-        return stencil2d.band_smem_bytes(c.cached_rows, radius, row_bytes,
-                                         chip.sms) <= limit
+        # every row cached: stencil_resident where it holds the domain,
+        # else the one-step kernel's boxes
+        if c.cached_rows == shape[0] and stencil2d.resident_layout(
+                shape, radius, dtype_bytes, chip.sms, limit) is not None:
+            return True
+        lay = stencil2d.perks_layout(shape, radius, dtype_bytes, chip.sms,
+                                     limit, c.cached_rows)
+        return lay is not None and lay.smem <= limit
     lay = stencil2d.tb_layout(shape, radius, c.fuse_steps, dtype_bytes,
                               deep=c.schedule == "deep", ctas=chip.sms,
                               limit=limit, cached_rows=c.cached_rows)
@@ -271,13 +276,15 @@ def test_planner_caches_whole_small_domain_and_part_of_large():
     one = next(c for c in large_cands
                if c.tier == "resident" and c.fuse_steps == 1)
     assert 0 < one.cached_rows < 8192
-    # one band of 6 rows (32 KiB each) per SM on the H100's 132 SMs
-    assert one.cached_rows == 132 * 6
-    # one plane (80 KiB) per SM
+    # one band of 5 rows (32 KiB each) per SM on the H100's 132 SMs, beside
+    # the streamed rows' window
+    assert one.cached_rows == 132 * 5
+    # 80 KiB planes: the one-step kernel's boxes of half a plane each (66
+    # bands of 2-3 planes by 2 slabs of 80 plane rows) hold every plane
     assert next(c for c in plan_candidates(_meta_problem((160, 160, 128), 50,
                                                          "3d7pt"))
                 if c.tier == "resident"
-                and c.fuse_steps == 1).cached_rows == 132
+                and c.fuse_steps == 1).cached_rows == 160
     # temporal blocking keeps 2*r*t halo rows beside a band: at 8192
     # columns no band fits beside them; the shallow tiles at t = 4 stream
     # the domain a quarter as often as the one-step kernel and measured
@@ -308,9 +315,11 @@ def test_planner_charges_the_device_loop_its_capture_until_kept(monkeypatch):
 def test_plan_resident_planes_counts_only_what_a_cta_holds():
     from repro_torch.kernels.stencil3d import plan_resident_planes
     h100 = thw.H100
+    # 1 MiB planes: boxes of 12 plane rows by 5 planes, 3 bands of 43 slabs
     assert plan_resident_planes((512, 512, 512), 4, get_spec("3d7pt"),
-                                chip=h100) == 0      # 1 MiB planes
+                                chip=h100) == 15
+    # 80 KiB planes, r = 2: boxes of half a plane hold every plane
     assert plan_resident_planes((160, 160, 128), 4, get_spec("3d13pt"),
-                                chip=h100) == 0      # 80 KiB planes, r=2
+                                chip=h100) == 160
     assert plan_resident_planes((40, 64), 4, get_spec("2d5pt"),
                                 chip=h100) == 40
