@@ -66,9 +66,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 8. the Krylov kernels against their plain versions: every nonsymmetric
    registry entry at its own size (30 iterations of ``bicgstab_fused``,
    VEC and MIX; one m=16 cycle of ``gmres_cycle_fused``: V, H, beta, the
-   new iterate and |V^T V - I|), an estimate of one ``grid.sync()``, then
-   each kernel at the Krylov path's full shapes with its time and its
-   plain version's;
+   new iterate and |V^T V - I|), the time of one iteration and of one
+   reduction round of ``cg_fused`` and ``bicgstab_fused`` on a tiny
+   system, then each kernel at the Krylov path's full shapes with its
+   time and its plain version's;
 9. the Krylov path, with every launch counter set to 0 just before and read
    just after: ``BiCGStabProblem``/``GMRESProblem`` -> ``plan`` ->
    ``execute`` and every offered tier by hand on bicgstab-small and
@@ -775,7 +776,7 @@ def krylov_phases(rng):
     from repro_torch.exec import plan_candidates
     from repro_torch.kernels import ops, ref
     from repro_torch.sparse import generate, nonsymmetric_names
-    from repro_torch.sparse.generate import convdiff2d
+    from repro_torch.sparse.generate import convdiff2d, poisson2d
 
     def vec(n):
         return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
@@ -877,17 +878,22 @@ def krylov_phases(rng):
         keep("gmres_cycle_fused", check_x64(
             f"{name} gmres_cycle_fused x + y V[:m]", gxn, pxn, xn64))
 
-    # one grid.sync(): the fused BiCGStab (five a iteration) on a tiny
-    # system, where the rows' work is a few hundred operations
-    tiny = convdiff2d(16).to_ell()
-    td = torch.from_numpy(tiny.data).cuda()
-    tc = torch.from_numpy(tiny.cols).cuda()
-    tb = vec(256)
-    t0 = cuda_ms(lambda: ops.bicgstab(td, tc, tb, iters=0), 5)
-    t1 = cuda_ms(lambda: ops.bicgstab(td, tc, tb, iters=2000), 5)
-    print(f"[grid.sync] bicgstab_fused on convdiff2d(16), 2000 iterations: "
-          f"{1e3 * (t1 - t0) / 2000!r} us per iteration, "
-          f"{1e3 * (t1 - t0) / 2000 / 5!r} us per grid.sync() at most")
+    # one reduction round: the fused CG (two a iteration) and BiCGStab
+    # (three) on tiny systems, where the rows' work is a few hundred
+    # operations
+    for name, run, rounds, system in (
+            ("cg_fused", ops.cg, 2, poisson2d(16)),
+            ("bicgstab_fused", ops.bicgstab, 3, convdiff2d(16))):
+        tiny = system.to_ell()
+        td = torch.from_numpy(tiny.data).cuda()
+        tc = torch.from_numpy(tiny.cols).cuda()
+        tb = vec(256)
+        t0 = cuda_ms(lambda: run(td, tc, tb, iters=0), 5)
+        t1 = cuda_ms(lambda: run(td, tc, tb, iters=2000), 5)
+        us = 1e3 * (t1 - t0) / 2000
+        print(f"[rounds] {name} on a 16x16 grid, 2000 iterations: "
+              f"{us!r} us per iteration, {us / rounds!r} us per reduction "
+              f"round at most ({rounds} a iteration)")
 
     # -- the Krylov path's cells ---------------------------------------------------
     cells = []

@@ -8,6 +8,9 @@
     python3 scripts/kernel_variants.py --kernels resident_profile
     python3 scripts/kernel_variants.py --kernels perks_stream [--src SRC]
     python3 scripts/kernel_variants.py --kernels perks_profile
+    python3 scripts/kernel_variants.py --kernels krylov [--src SRC]
+                                       [--digests FILE]
+    python3 scripts/kernel_variants.py --kernels krylov_profile
 
 Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` flags (the
 step kernel's ``STEP_STREAM_ROWS``; every other tuning value is a plain
@@ -89,11 +92,38 @@ kernel beside it.
 which sums thread 0's clock cycles a step by phase (the box, waiting for a
 window row, its ``__syncthreads``, issuing copies, computing a row,
 ``grid.sync()``), read back through ``stencil_perks_profile``.
+
+``--kernels krylov`` times the fused Krylov kernels at the Krylov cells'
+shapes, 100 iterations from a seeded right-hand side: ``cg_fused`` on
+cg-small and cg-large (``poisson2d`` 512 and 1024) and ``bicgstab_fused``
+on bicgstab-small and bicgstab-large (``convdiff2d`` 512 and 768), each
+under VEC and under MIX at the tree's planner's ``matrix_rows`` (all of A
+on the small cells, part of it on the large), with the streamed rows' rate
+(the A bytes no CTA holds, once per SpMV, over the time); one m = 16 cycle
+of ``gmres_cycle_fused`` on gmres-small (``convdiff2d(448)``; eager and
+in a CUDA graph of 20 calls); and the
+microseconds of one iteration of each fused kernel on a 16x16 grid (2000
+iterations less none), where the rows' work is small. Each line carries
+a digest of every output's bits (x and rr; V, H, beta and the new
+iterate). With ``--digests FILE`` the digests are kept in FILE by cell,
+policy and cached rows, and a run whose outputs differ from those already
+there fails: run in turns with a parent tree (``--src build/parent/src
+--rounds 1``, this tree, this tree, the parent, one FILE) it is the A/B
+of the fused kernels, bit for bit.
+
+``--kernels krylov_profile`` runs the same fused CG and BiCGStab cells
+and tiny grids as shipped and built with ``-DKRY_PROFILE`` (in turns, each
+bit-equal to the shipped build), which sums thread 0's clock cycles by
+phase (the work between rounds outside the SpMVs; a round's first
+barrier, the release of its tagged word, the polling, its sum and last
+barrier; the SpMVs), read back through ``<kernel>_profile``: cycles an
+iteration a CTA.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import os
 import statistics
@@ -306,7 +336,7 @@ def deep_profile(src: str, rounds: int) -> int:
                         "tma": ops.launch_counts()["stencil_perks_deep_tma"]
                         > tma}
                 if flags:
-                    out = (ctypes.c_ulonglong * 5)()
+                    out = (ctypes.c_ulonglong * len(phases))()
                     lib.stencil_tb_profile.argtypes = [ctypes.c_void_p]
                     _build.check(lib.stencil_tb_profile(out), "profile")
                     run()
@@ -525,6 +555,170 @@ def perks_profile(src: str, rounds: int) -> int:
         return 1
     return 0
 
+#: (cell, kind, grid side): the fused Krylov kernels' A/B cells
+KRYLOV_AB_CELLS = [("cg-small", "cg", 512), ("cg-large", "cg", 1024),
+                   ("bicgstab-small", "bicgstab", 512),
+                   ("bicgstab-large", "bicgstab", 768),
+                   ("gmres-small", "gmres", 448)]
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _krylov_runs(rng):
+    """The krylov modes' runs: {key: (fn, iterations, streamed A bytes a
+    run)} over KRYLOV_AB_CELLS (VEC and the planner's MIX; one GMRES
+    cycle), then each fused kernel on a 16x16 grid at 0 and 2000
+    iterations."""
+    from repro_torch import BiCGStabProblem, CGProblem, GMRESProblem, plan
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.generate import convdiff2d, poisson2d
+
+    runs = {}
+    for cell, kind, side in KRYLOV_AB_CELLS:
+        csr = poisson2d(side) if kind == "cg" else convdiff2d(side)
+        ell = csr.to_ell()
+        n = csr.shape[0]
+        b = rng.standard_normal(n).astype(np.float32)
+        if kind == "gmres":
+            p = GMRESProblem.from_ell(ell.data, ell.cols, b, 1, m=16,
+                                      matrix=csr)
+            x0 = torch.zeros_like(p.b)
+            runs[cell] = (lambda p=p, x0=x0: ops.gmres_cycle(
+                p.data, p.cols, x0, p.b, m=16), 1, 0.0)
+            continue
+        cls = CGProblem if kind == "cg" else BiCGStabProblem
+        p = cls.from_ell(ell.data, ell.cols, b, 100, matrix=csr)
+        fused = ops.cg if kind == "cg" else ops.bicgstab
+        spmvs = 100 if kind == "cg" else 200
+        for rows in (0, p.resident_matrix_rows(plan(p))):
+            policy = "VEC" if rows == 0 else ("MIX" if rows == n
+                                              else "partial MIX")
+            runs[f"{cell} {policy} rows={rows}"] = (
+                lambda p=p, f=fused, r=rows: f(p.data, p.cols, p.b,
+                                               iters=100, matrix_rows=r,
+                                               resident_matrix=r > 0),
+                100, spmvs * ell.data.size * 8 * (n - rows) / n)
+    for name, f, m in (("cg_fused", ops.cg, poisson2d(16)),
+                       ("bicgstab_fused", ops.bicgstab, convdiff2d(16))):
+        ell = m.to_ell()
+        d, c = torch.from_numpy(ell.data).cuda(), torch.from_numpy(
+            ell.cols).cuda()
+        b = torch.from_numpy(rng.standard_normal(256).astype(np.float32)
+                             ).cuda()
+        for it in (0, 2000):
+            runs[f"{name} tiny iters={it}"] = (
+                lambda f=f, d=d, c=c, b=b, it=it: f(d, c, b, iters=it), it,
+                0.0)
+    return runs
+
+
+def krylov(src: str, rounds: int, digests: str | None) -> int:
+    """``--kernels krylov``: one JSON line per round."""
+    from repro_torch.kernels import _build
+
+    libs = ("cg_fused", "bicgstab_fused", "gmres_cycle_fused")
+    secs = _build.build_all(libs)
+    for n in libs:
+        print(json.dumps({"src": src, "library": n, "build_s": secs.get(n),
+                          **spills(_build.build_log(n).read_text())}))
+    runs = _krylov_runs(np.random.default_rng(0))
+    kept = {}
+    if digests and os.path.exists(digests):
+        with open(digests) as f:
+            kept = json.load(f)
+    bad = []
+    for rnd in range(rounds):
+        line = {"src": src, "round": rnd}
+        for key, (fn, _, streamed) in runs.items():
+            out = fn()
+            torch.cuda.synchronize()
+            if rnd == 0 and "tiny" not in key:
+                d = _digest(*out)
+                line[f"{key} digest"] = d
+                if kept.setdefault(key, d) != d:
+                    bad.append(f"{key}: outputs {d} differ from {kept[key]}")
+            ms = cuda_ms(fn, 20 if key.startswith("gmres") else 5)
+            line[f"{key} ms"] = ms
+            if key.startswith("gmres"):
+                line[f"{key} graph_ms"] = graph_ms(fn, 20)
+            if streamed:
+                line[f"{key} streamed_GBps"] = streamed / ms / 1e6
+        for name in ("cg_fused", "bicgstab_fused"):
+            line[f"{name} tiny us_per_iter"] = 1e3 * (
+                line.pop(f"{name} tiny iters=2000 ms")
+                - line.pop(f"{name} tiny iters=0 ms")) / 2000
+        print(json.dumps(line), flush=True)
+    if digests:
+        with open(digests, "w") as f:
+            json.dump(kept, f, indent=1)
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+def krylov_profile(src: str, rounds: int) -> int:
+    """``--kernels krylov_profile``: the fused CG and BiCGStab runs of
+    ``--kernels krylov``, shipped and built with -DKRY_PROFILE (thread 0's
+    clock cycles by phase, krylov_common.cuh), each bit-equal to the
+    shipped build: one JSON line per build and round, the cycles an
+    iteration a CTA by phase."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    libs = ("cg_fused", "bicgstab_fused")
+    variants = {"shipped": (), "profile": ("-DKRY_PROFILE",)}
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda v: _build.build_all(libs, extra=v),
+                      variants.values()))
+    for n, flags in variants.items():
+        for lib in libs:
+            log = _build.build_log(lib, flags).read_text()
+            print(json.dumps({"variant": n, "library": lib, **spills(log)}))
+    runs = {k: v for k, v in _krylov_runs(np.random.default_rng(0)).items()
+            if not k.startswith("gmres") and not k.endswith("iters=0")}
+    ctas = torch.cuda.get_device_properties(0).multi_processor_count
+    phases = ("work", "round_enter", "release", "poll", "round_exit",
+              "spmv")
+    want, bad = {}, []
+    for rnd in range(rounds):
+        for n, flags in variants.items():
+            _build.EXTRA_FLAGS = flags
+            for key, (fn, iters, _) in runs.items():
+                lib = _build.load("cg_fused" if key.startswith("cg")
+                                  else "bicgstab_fused")
+                if rnd == 0:
+                    d = _digest(*fn())
+                    if want.setdefault(key, d) != d:
+                        bad.append(f"{n} {key} differs from the shipped "
+                                   f"build")
+                line = {"variant": n, "round": rnd, "run": key,
+                        "ms": cuda_ms(fn, 3)}
+                if flags:
+                    name = "cg_fused" if key.startswith("cg") else \
+                        "bicgstab_fused"
+                    prof = getattr(lib, f"{name}_profile")
+                    prof.argtypes = [ctypes.c_void_p]
+                    out = (ctypes.c_ulonglong * len(phases))()
+                    _build.check(prof(out), "profile")
+                    fn()
+                    torch.cuda.synchronize()
+                    _build.check(prof(out), "profile")
+                    line.update(zip(phases, (c / ctas / iters for c in out)))
+                print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -536,8 +730,12 @@ def main() -> int:
                                           "sell_deep", "deep_profile",
                                           "shallow_resident",
                                           "resident_profile", "perks_stream",
-                                          "perks_profile"),
+                                          "perks_profile", "krylov",
+                                          "krylov_profile"),
                     default="stencil")
+    ap.add_argument("--digests", default=None,
+                    help="--kernels krylov: keep and compare the outputs' "
+                         "digests in this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; nothing was run", file=sys.stderr)
@@ -558,6 +756,10 @@ def main() -> int:
         return shallow_resident(src, args.rounds, PS_CELLS)
     if args.kernels == "perks_profile":
         return perks_profile(src, args.rounds)
+    if args.kernels == "krylov":
+        return krylov(src, args.rounds, args.digests)
+    if args.kernels == "krylov_profile":
+        return krylov_profile(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks

@@ -126,6 +126,18 @@ RESIDENT_TERM_S = 1.9e-8
 #: perks_stream`` on an NVIDIA H100 80GB HBM3 at a 700 W power limit; it
 #: prices them 1.24x and 0.81x (PERF.md).
 PERKS_TERM_S = 4.41e-8
+#: A reduction round of the fused CG and BiCGStab kernels
+#: (``csrc/krylov_common.cuh`` tagged_round: a block barrier, a tagged
+#: word released to L2 and every CTA's word acquired back, with the little
+#: work between two rounds), charged ``KRYLOV_ROUNDS`` times an iteration
+#: to their resident plans: an iteration on a 16x16 grid over its rounds,
+#: the larger of the two kernels' figures (BiCGStab, 10.35-10.40 us over
+#: three rounds), from ``scripts/kernel_variants.py --kernels krylov`` on
+#: an NVIDIA H100 80GB HBM3 at a 700 W power limit; the ``[rounds]`` line
+#: of ``chip_smoke.py`` prints the same figure (PERF.md). GMRES's cycle
+#: kernel is not charged.
+KRYLOV_ROUND_S = 3.5e-6
+KRYLOV_ROUNDS = {"cg": 2, "bicgstab": 3}
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -412,6 +424,7 @@ def _cg_candidates(problem, chip: Chip, *,
              + (captures + chunks) * DISPATCH_OVERHEAD_S, **common),
     ]
     kind = problem.kind
+    rounds_s = n * KRYLOV_ROUNDS.get(kind, 0) * KRYLOV_ROUND_S
     if problem.data is not None and pol["vector_fraction"] >= 1.0:
         bm = fused_block_rows(problem.b.shape[0])
         # cached bytes still move through on-chip memory every iteration
@@ -425,7 +438,7 @@ def _cg_candidates(problem, chip: Chip, *,
                 cache=vec_cache,
                 predicted_s=max(n * (total_bytes - vec_traffic)
                                 / chip.hbm_bw, t_sm_vec / chip.onchip_bw)
-                + DISPATCH_OVERHEAD_S, **common))
+                + rounds_s + DISPATCH_OVERHEAD_S, **common))
         # the GMRES cycle kernel holds the whole of A beside the basis
         # (no streamed-A variant), so a partial-A MIX plan has no kernel
         if pol["matrix_fraction"] > 0.0 and (
@@ -437,7 +450,7 @@ def _cg_candidates(problem, chip: Chip, *,
                 tier="resident", policy="MIX", block_rows=bm, cache=cache,
                 predicted_s=max(n * max(0.0, total_bytes - saved)
                                 / chip.hbm_bw, t_sm_all / chip.onchip_bw)
-                + DISPATCH_OVERHEAD_S, **common))
+                + rounds_s + DISPATCH_OVERHEAD_S, **common))
     return cands
 
 

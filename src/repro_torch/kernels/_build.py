@@ -51,8 +51,9 @@ NVCC_FLAGS = (
 )
 
 #: ``-D`` flags that ``load`` builds with: the profiles of the deep
-#: schedule's waits (``DEEP_PROFILE``) and of ``stencil_resident``'s step
-#: phases (``RES_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
+#: schedule's waits (``DEEP_PROFILE``), of ``stencil_resident``'s step
+#: phases (``RES_PROFILE``) and of the fused CG and BiCGStab kernels'
+#: rounds (``KRY_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
 #: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
 #: for the shipped kernels. Every other tuning value is a plain constant.
 EXTRA_FLAGS: tuple[str, ...] = ()
@@ -340,6 +341,20 @@ def fit(lib: ctypes.CDLL, prefix: str, n: int, k: int, ctas: int,
             f"n, at most {ctas * min(rows_cap, stride)} rows of A")
     require_ctas(lib, prefix, smem, ctas)
     return stride, ca, smem
+
+
+#: Tag words a CTA of ``cg_fused`` or ``bicgstab_fused`` owns
+#: (``csrc/krylov_common.cuh``: two parities of ``KRY_TAG_VALUES`` = 2
+#: values).
+TAG_WORDS_PER_CTA = 4
+
+
+def tag_words(ctas: int, device: torch.device) -> torch.Tensor:
+    """The tagged rounds' words of a launch on ``ctas`` CTAs (64 bits each;
+    the launch zeroes them on its stream before the kernel runs, and
+    refuses more CTAs than a round polls)."""
+    return torch.empty(TAG_WORDS_PER_CTA * ctas, dtype=torch.int64,
+                       device=device)
 
 
 def is_cpu(x: torch.Tensor, what: str) -> bool:

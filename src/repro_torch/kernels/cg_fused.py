@@ -5,7 +5,9 @@
 for A x = b from x0 = 0 (A in ELL format) in ONE cooperative persistent
 launch (``csrc/cg_fused.cu``) and returns (x, rr), rr = ||r||^2 of shape
 (1,). Each CTA owns a contiguous range of rows and keeps x, r, p and Ap of
-those rows in shared memory for the whole launch; the matrix is:
+those rows in shared memory for the whole launch; the CTAs meet only at the
+two dot products of an iteration (tagged reduction rounds), and form the p
+they gather from other CTAs' r and last p in device memory; the matrix is:
 
 * ``resident_matrix=False`` — streamed from device memory every iteration
   (the paper's VEC policy);
@@ -72,11 +74,11 @@ def cg_fused(
                                VECTOR_BYTES_PER_ROW, "x, r, p and Ap")
         x = torch.empty_like(b)
         rr = torch.empty(1, dtype=b.dtype, device=b.device)
-        p_glob = torch.empty_like(b)
-        partials = torch.empty(2 * sms, dtype=b.dtype, device=b.device)
+        vecs = torch.empty(2 * n, dtype=b.dtype, device=b.device)
+        tags = _build.tag_words(sms, b.device)
         err = lib.cg_fused_launch(
             data.data_ptr(), cols.data_ptr(), b.data_ptr(), x.data_ptr(),
-            rr.data_ptr(), p_glob.data_ptr(), partials.data_ptr(), n, k,
+            rr.data_ptr(), vecs.data_ptr(), tags.data_ptr(), n, k,
             iters, stride, ca, sms, smem, _build.stream())
     _build.check(err, "cg_fused_launch")
     cg_fused.launches += 1

@@ -6,10 +6,26 @@
 // A reduction round sums up to KRY_WARPS values over the whole grid:
 // every thread adds its rows' terms for each value, each warp sums its
 // threads (a butterfly), warp v sums value v over the block's warps and
-// writes the block's partial to partials[v * g + block]; after grid.sync()
-// warp v of every CTA sums the g partials of value v in the same order.
+// publishes the block's partial; warp v of every CTA then sums the g
+// partials of value v in the same order (lane-strided, then a butterfly).
 // So every CTA holds the same sums, and a run repeats bit for bit: no
-// float atomics anywhere.
+// float atomics anywhere. Two forms:
+//   * block_partials + grid.sync() + grid_sums (gmres_cycle_fused.cu): the
+//     partials go to device memory, a full grid barrier, a second read;
+//   * tagged_round (cg_fused.cu, bicgstab_fused.cu): one trip through L2.
+//     Warp v writes the partial as one 64-bit word {value, round} with a
+//     release at gpu scope (after a block barrier, so it also releases the
+//     block's earlier writes to device memory), and polls the g words of
+//     value v with acquire loads, every lane's words in flight at once,
+//     until every tag is the round (relaxed loads and one acquire fence
+//     after them were slower on an H100). Rounds are
+//     numbered 1, 2, ... within a launch, and round k uses the words of
+//     parity k & 1: a CTA writes round k + 2 only after it has read every
+//     partial of round k + 1, which no CTA writes before it has read all of
+//     round k, so no word is overwritten while a CTA may still read it.
+//     The launch zeroes the words first (kry_zero_tags, stream-ordered, so
+//     a captured graph replays it too): a tag left by an earlier launch is
+//     never taken.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,6 +82,215 @@ __device__ __forceinline__ void grid_sums(int nv, const float* partials, int g,
         if (lane == 0) sums[w] = t;
     }
     __syncthreads();
+}
+
+// -- the tagged all-reduce ----------------------------------------------------
+
+// Built with -DKRY_PROFILE, thread 0 of every CTA sums the clock cycles of
+// the fused CG and BiCGStab kernels by phase: 0 the work between rounds
+// outside the SpMVs (forming p or s and its block barrier, the updates),
+// in each tagged round 1 its first block barrier and the block's partial,
+// 2 the release of the tagged word, 3 polling until every tag has come,
+// 4 the sum and the last block barrier; and 5 the SpMVs (thread 0's rows);
+// <kernel>_profile reads and clears the sums.
+#ifdef KRY_PROFILE
+#define KRY_PHASES 6
+__device__ unsigned long long kry_cycles[KRY_PHASES];
+__device__ __forceinline__ long long* kry_prof() {
+    __shared__ long long p[KRY_PHASES + 1];   // the sums, then the last mark
+    return p;
+}
+#define KRY_MARK(kind)                                               \
+    do {                                                             \
+        if (threadIdx.x == 0) {                                      \
+            long long* p_ = kry_prof();                              \
+            const long long t_ = clock64();                          \
+            if ((kind) >= 0)                                         \
+                p_[(kind)] += t_ - p_[KRY_PHASES];                   \
+            else                                                     \
+                for (int i_ = 0; i_ < KRY_PHASES; ++i_) p_[i_] = 0;  \
+            p_[KRY_PHASES] = t_;                                     \
+        }                                                            \
+    } while (0)
+#define KRY_PROF_END()                                                   \
+    do {                                                                 \
+        if (threadIdx.x == 0)                                            \
+            for (int i_ = 0; i_ < KRY_PHASES; ++i_)                      \
+                atomicAdd(&kry_cycles[i_],                               \
+                          (unsigned long long)kry_prof()[i_]);           \
+    } while (0)
+// The sums since the last call into out[0, KRY_PHASES), then cleared.
+static int kry_profile(unsigned long long* out) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, kry_cycles, sizeof(kry_cycles));
+    if (e != cudaSuccess) return (int)e;
+    const unsigned long long zero[KRY_PHASES] = {};
+    return (int)cudaMemcpyToSymbol(kry_cycles, zero, sizeof(zero));
+}
+#else
+#define KRY_MARK(kind) do {} while (0)
+#define KRY_PROF_END() do {} while (0)
+#endif
+
+#define KRY_TAG_VALUES 2                  // values a tagged round sums at most
+#define KRY_MAX_GRID 160                  // CTAs a tagged round polls at most
+#define KRY_POLL (KRY_MAX_GRID / 32)      // words a lane polls at most
+#define KRY_WAIT_CYCLES (1LL << 34)       // a round waited for this long traps
+
+// Bytes of the tag words of a launch on g CTAs: two parities of
+// KRY_TAG_VALUES x g words.
+static size_t kry_tag_bytes(int g) {
+    return sizeof(unsigned long long) * 2 * KRY_TAG_VALUES * (size_t)g;
+}
+
+__device__ __forceinline__ void st_release_gpu(unsigned long long* p,
+                                               unsigned long long v) {
+    asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_gpu(
+    const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.b64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// Round `rnd` (>= 1) of values [0, nv) over the grid: the block's partials
+// (from the warps' in warp_part) published as tagged words, then the grid's
+// sums into sums[0, nv), the same in every CTA and visible to the whole
+// block. Every thread of the block calls it after its warp_partial calls
+// and its writes to device memory that the round publishes.
+__device__ __forceinline__ void tagged_round(int nv, const float* warp_part,
+                                             unsigned long long* tags, int g,
+                                             unsigned rnd, float* sums) {
+    KRY_MARK(0);
+    __syncthreads();
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (w < nv) {
+        unsigned long long* words =
+            tags + ((size_t)(rnd & 1) * KRY_TAG_VALUES + w) * g;
+        const float part = warp_sum(warp_part[w * KRY_WARPS + lane]);
+        const unsigned long long tag = (unsigned long long)rnd << 32;
+        KRY_MARK(1);
+        if (lane == 0)
+            st_release_gpu(words + blockIdx.x, tag | __float_as_uint(part));
+        KRY_MARK(2);
+        unsigned long long got[KRY_POLL];
+#pragma unroll
+        for (int j = 0; j < KRY_POLL; ++j)
+            got[j] = lane + 32 * j < g ? ld_acquire_gpu(words + lane + 32 * j)
+                                       : tag;
+        for (long long start = 0;;) {
+            bool ready = true;
+#pragma unroll
+            for (int j = 0; j < KRY_POLL; ++j)
+                ready = ready && (got[j] >> 32) == rnd;
+            if (__all_sync(0xffffffffu, ready)) break;
+            if (start == 0)
+                start = clock64();
+            else if (clock64() - start > KRY_WAIT_CYCLES)
+                __trap();   // a CTA never came: fail, do not hang the card
+#pragma unroll
+            for (int j = 0; j < KRY_POLL; ++j)
+                if ((got[j] >> 32) != rnd)
+                    got[j] = ld_acquire_gpu(words + lane + 32 * j);
+        }
+        KRY_MARK(3);
+        float t = 0.f;
+#pragma unroll
+        for (int j = 0; j < KRY_POLL; ++j)
+            if (lane + 32 * j < g)
+                t = __fadd_rn(t, __uint_as_float((unsigned)got[j]));
+        t = warp_sum(t);
+        if (lane == 0) sums[w] = t;
+    }
+    __syncthreads();
+    KRY_MARK(4);
+}
+
+// Zeroes the tag words of a launch on `stream` before it; returns the
+// cudaError_t (also for a grid wider than a round polls).
+static int kry_zero_tags(unsigned long long* tags, int grid,
+                         cudaStream_t stream) {
+    if (grid > KRY_MAX_GRID) return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaMemsetAsync(tags, 0, kry_tag_bytes(grid), stream);
+}
+
+// -- SpMV rows with the operand formed at the gather -------------------------
+//
+// An operand Q gives the value of the vector at column c: Q::mine(c) for
+// the CTA's own rows (read from shared memory by Q::value), otherwise
+// Q::load issues the loads of device memory it is formed from (into a
+// Q::Raw) and Q::value forms it, in the plain version's rounding.
+
+// The K slots at a, c (slot j at j * stride) times q: every column (and,
+// from device memory, every value) loaded first, then every gather issued,
+// then the sum in slot order, each product rounded before its add.
+// kGlobal: a, c in device memory (read-only path), else in shared memory,
+// whose values are read at the sum: fewer registers live at once, where a
+// 1024-thread CTA has 64 a thread (loaded early, BiCGStab's spilled).
+template <int K, bool kGlobal, class Q>
+__device__ __forceinline__ float slots_times(const float* a, const int* c,
+                                             size_t stride, const Q& q) {
+    int col[K];
+    float av[K];
+    typename Q::Raw raw[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+        if constexpr (kGlobal) col[j] = __ldg(c + j * stride);
+        else col[j] = c[j * stride];
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+        if constexpr (kGlobal) av[j] = __ldg(a + j * stride);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) q.load(col[j], raw[j]);
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+        if constexpr (!kGlobal) av[j] = a[j * stride];
+        acc = __fadd_rn(acc, __fmul_rn(av[j], q.value(col[j], raw[j])));
+    }
+    return acc;
+}
+
+// Row li of the CTA's range of A times operand q, as ell_row below: rows
+// below `ca` from the slot-major copy in shared memory, the rest streamed.
+// K = 5 (the 2D five-point matrices of the main cells) has every slot's
+// loads in flight at once; any other K walks its slots in turn.
+template <class Q>
+__device__ __forceinline__ float ell_row_q(int li, int row, int ca,
+                                           int ca_max, int k, const float* ad,
+                                           const int* ac,
+                                           const float* __restrict__ data,
+                                           const int* __restrict__ cols,
+                                           const Q& q) {
+    if (k == 5) {
+        if (li < ca) return slots_times<5, false>(ad + li, ac + li, ca_max, q);
+        return slots_times<5, true>(data + (size_t)row * 5,
+                                    cols + (size_t)row * 5, 1, q);
+    }
+    float acc = 0.f;
+    typename Q::Raw raw;
+    if (li < ca) {
+        for (int j = 0; j < k; ++j) {
+            const int c = ac[(size_t)j * ca_max + li];
+            q.load(c, raw);
+            acc = __fadd_rn(acc, __fmul_rn(ad[(size_t)j * ca_max + li],
+                                           q.value(c, raw)));
+        }
+    } else {
+        const size_t base = (size_t)row * k;
+        for (int j = 0; j < k; ++j) {
+            const int c = __ldg(cols + base + j);
+            q.load(c, raw);
+            acc = __fadd_rn(acc, __fmul_rn(__ldg(data + base + j),
+                                           q.value(c, raw)));
+        }
+    }
+    return acc;
 }
 
 // Row li of the CTA's range of A times q (slots in slot order, each product

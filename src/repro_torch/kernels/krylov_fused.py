@@ -5,7 +5,9 @@
   iterations for A x = b from x0 = 0 (A in ELL format) in ONE cooperative
   persistent launch (``csrc/bicgstab_fused.cu``) and returns (x, rr), rr =
   ||r||^2 of shape (1,). Each CTA keeps x, r, rhat, p, v and t of its rows
-  in shared memory; the matrix is streamed twice per iteration
+  in shared memory, meets the others only at three tagged reduction rounds
+  an iteration, and forms the p and s it gathers from other CTAs' r, p and
+  v in device memory; the matrix is streamed twice per iteration
   (``resident_matrix=False``, VEC) or kept on chip, its leading
   ``matrix_rows`` rows (default all) split evenly over the CTAs and the
   rest streamed (``resident_matrix=True``: MIX, partial when A does not fit
@@ -83,11 +85,11 @@ def bicgstab_fused(
                                       "six vectors")
         x = torch.empty_like(b)
         rr = torch.empty(1, dtype=b.dtype, device=b.device)
-        q_glob = torch.empty_like(b)
-        partials = torch.empty(5 * sms, dtype=b.dtype, device=b.device)
+        vecs = torch.empty(3 * n, dtype=b.dtype, device=b.device)
+        tags = _build.tag_words(sms, b.device)
         err = lib.bicgstab_fused_launch(
             data.data_ptr(), cols.data_ptr(), b.data_ptr(), x.data_ptr(),
-            rr.data_ptr(), q_glob.data_ptr(), partials.data_ptr(), n, k,
+            rr.data_ptr(), vecs.data_ptr(), tags.data_ptr(), n, k,
             iters, stride, ca, sms, smem, _build.stream())
     _build.check(err, "bicgstab_fused_launch")
     bicgstab_fused.launches += 1

@@ -613,6 +613,47 @@ def test_cuda_bicgstab_fused_matches_plain_version(side, cuda):
     torch.testing.assert_close(rr[0], torch.dot(b, b), rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["cg", "bicgstab"])
+def test_cuda_fused_krylov_repeats_bit_for_bit_and_in_a_graph(kind, cuda):
+    """Calls in a row and replays of a captured CUDA graph give the same
+    bits under every policy, short launches included: the tagged rounds'
+    words are zeroed on the stream before every launch, so no round takes
+    a tag that an earlier launch left."""
+    if kind == "cg":
+        ell = poisson2d(48).to_ell()
+        data = torch.from_numpy(ell.data).to(cuda)
+        cols = torch.from_numpy(ell.cols).to(cuda)
+        b = torch.from_numpy(_rhs(data.shape[0], seed=5)).to(cuda)
+        fused = ops.cg
+    else:
+        _, data, cols, b = _convdiff(48, cuda, seed=5)
+        fused = ops.bicgstab
+    n = b.shape[0]
+    for iters in (0, 1, 30):
+        for kw in (dict(resident_matrix=False), dict(resident_matrix=True),
+                   dict(resident_matrix=True, matrix_rows=n // 3)):
+            def run():
+                return fused(data, cols, b, iters=iters, **kw)
+            x, rr = run()
+            for _ in range(2):
+                x2, rr2 = run()
+                assert torch.equal(x, x2) and torch.equal(rr, rr2), (iters, kw)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                gx, grr = run()
+            for _ in range(3):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(gx, x) and torch.equal(grr, rr), (iters, kw)
+                x2, rr2 = run()         # an eager call between replays
+                assert torch.equal(x2, x) and torch.equal(rr2, rr)
+
+
 @pytest.mark.parametrize("side,m", [(16, 8), (48, 16), (101, 31)])
 def test_cuda_gmres_cycle_fused_matches_plain_version(side, m, cuda):
     import functools
