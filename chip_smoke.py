@@ -82,7 +82,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    and its replays, and ``solve_refined`` rounds (no launch on a replay);
 11. the ML kernels against their plain versions: ``ssm_scan`` at the
    reference test's shapes and at mamba2-780m's SSD widths (H = 48, P = 64,
-   N = 128, T = 8192) in f32 and bf16 at chunks 128, 15 and 1;
+   N = 128, T = 8192) in f32 and bf16 at chunks 128, 15 and 1, its
+   float32, byte and 3xTF32 tensor-core bounds, and the launch it makes
+   (grid, shared memory a CTA, slots in its ring);
    ``decode_attention`` over four (Hq, Hkv) pairs with and without
    ``length`` in f32 and bf16, its tensor-core kernel (bf16) at D = 64, 80,
    128, 256, four head layouts (groups 1-16), S = 1-1000 and four lengths,
@@ -160,6 +162,7 @@ CG_CELLS = [  # (cell, generator, size): the CG path's three shapes
 ]
 HBM_BW = 3.35e12         # H100 SXM device memory, bytes/s (NVIDIA data sheet)
 FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
+TF32_FLOPS = 495e12      # H100 SXM dense TF32 on the tensor cores, FLOP/s
 SEED = 0
 MAIN = [  # (spec, shape, n_steps, what the one-step resident plan caches)
     ("2d5pt", (8192, 8192), 100, "partial"),
@@ -1257,6 +1260,12 @@ def ml_phases(rng):
         library_ms=None, flops=flops, bytes=moved)
     print(f"  ssm_scan mamba2-780m f32 chunk=128: "
           f"{json.dumps(timing['ssm_scan'])}")
+    from repro_torch.kernels import ssm_scan as kssm
+    print(f"  ssm_scan bounds: float32 {1e3 * t_ops!r} ms (the operations at "
+          f"67 TFLOP/s), bytes {1e3 * t_bytes!r} ms, 3xTF32 on the tensor "
+          f"cores {1e3 * 3 * flops / TF32_FLOPS!r} ms (3 x the operations at "
+          f"495 TFLOP/s); launch "
+          f"{json.dumps(kssm.config(1, SSM_T, SSM_H, SSM_P, SSM_N))}")
     for ck in (15, 1):
         print(f"  ssm_scan mamba2-780m f32 chunk={ck}: ms="
               f"{cuda_ms(lambda: ops.ssd_scan(x, dt, a, b, c, d, chunk=ck), 2)!r}")

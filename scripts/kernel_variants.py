@@ -11,6 +11,8 @@
     python3 scripts/kernel_variants.py --kernels krylov [--src SRC]
                                        [--digests FILE]
     python3 scripts/kernel_variants.py --kernels krylov_profile
+    python3 scripts/kernel_variants.py --kernels ssm [--src SRC]
+    python3 scripts/kernel_variants.py --kernels ssm_profile
 
 Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` flags (the
 step kernel's ``STEP_STREAM_ROWS``; every other tuning value is a plain
@@ -118,6 +120,26 @@ phase (the work between rounds outside the SpMVs; a round's first
 barrier, the release of its tagged word, the polling, its sum and last
 barrier; the SpMVs), read back through ``<kernel>_profile``: cycles an
 iteration a CTA.
+
+``--kernels ssm`` times ``ssd_scan`` at mamba2-780m's SSD widths (B = 1,
+T = 8192, H = 48, P = 64, N = 128; streams from seed 0 as
+``chip_smoke.py`` makes them): float32 and bf16 streams at chunks 128, 15
+and 1, each eager (``ms``) and in a CUDA graph (``graph_ms``), with the
+largest absolute error against the plain version (``ref.ssm_scan`` on
+float32 copies of the same streams) and the launch the tree's build
+reports (the scan kernel's grid, shared memory a CTA, slots in its ring);
+it prints the library's ``ptxas`` registers and spills first. In turns
+with a parent tree (``--src build/parent/src --rounds 1``, this tree, this
+tree, the parent) it is the A/B of the scan.
+
+``--kernels ssm_profile`` times the float32 chunk-128 cell as shipped and
+built with ``-DSSM_PROFILE`` (clock cycles a chunk a CTA by phase, for the
+first row warp, the first state warp and the copy warp), each held to the
+plain version at chunks 128, 15 and 1 (largest absolute errors and a
+digest of the outputs' bits printed), and prints the shipped build's
+device time by kernel from ``torch.profiler``. Other arms of the scan are
+copies of the tree with the kernel changed, timed with ``--kernels ssm
+--src``.
 """
 from __future__ import annotations
 
@@ -720,6 +742,164 @@ def krylov_profile(src: str, rounds: int) -> int:
     return 0
 
 
+#: ``--kernels ssm``: mamba2-780m's SSD widths and the timed cells
+SSM_SHAPE = (1, 8192, 48, 64, 128)
+SSM_CELLS = [(dtype, chunk) for dtype in ("float32", "bfloat16")
+             for chunk in (128, 15, 1)]
+
+
+def ssm(src: str, rounds: int) -> int:
+    """``--kernels ssm``: one JSON line per round."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ssm_scan as kssm
+
+    secs = _build.build_all(("ssm_scan",))
+    log = _build.build_log("ssm_scan").read_text()
+    print(json.dumps({"src": src, "library": "ssm_scan",
+                      "build_s": secs.get("ssm_scan"), **spills(log)}))
+    bsz, t, h, p, n = SSM_SHAPE
+    rng = np.random.default_rng(0)
+
+    def put(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).cuda()
+
+    x = put(0.5 * rng.standard_normal((bsz, t, h, p)))
+    dt = torch.nn.functional.softplus(put(rng.standard_normal((bsz, t, h))))
+    a = -torch.exp(put(rng.standard_normal(h)))
+    b = put(0.5 * rng.standard_normal((bsz, t, n)))
+    c = put(0.5 * rng.standard_normal((bsz, t, n)))
+    d = put(rng.standard_normal(h))
+    streams, want = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        xs, dts, bs, cs = (v.to(td) for v in (x, dt, b, c))
+        streams[dtype] = (xs, dts, a, bs, cs, d)
+        want[dtype] = torch.stack([ref.ssm_scan(
+            xs[i].float(), dts[i].float(), a, bs[i].float(), cs[i].float(),
+            d) for i in range(bsz)])
+    launch = {}
+    for dtype, chunk in SSM_CELLS:
+        if hasattr(kssm, "config"):
+            cfg = kssm.config(bsz, t, h, p, n, chunk, getattr(torch, dtype))
+        else:   # the parent's kernel: 32 columns a CTA
+            lib = _build.load("ssm_scan")
+            cfg = dict(grid=[-(-p // 32), h, bsz],
+                       smem=lib.ssm_scan_smem_bytes(min(chunk, t), n))
+        launch[f"{dtype} chunk={chunk}"] = cfg
+    print(json.dumps({"src": src, "launch": launch}))
+    bad = []
+    for rnd in range(rounds):
+        line = {"src": src, "round": rnd}
+        for dtype, chunk in SSM_CELLS:
+            args = streams[dtype]
+            run = lambda: ops.ssd_scan(*args, chunk=chunk)
+            key = f"{dtype} chunk={chunk}"
+            if rnd == 0:
+                err = (run().float() - want[dtype]).abs().max().item()
+                line[f"{key} max_abs_err"] = err
+                tol = 1e-3 if dtype == "float32" else 5e-2
+                if not torch.allclose(run().float(), want[dtype], rtol=tol,
+                                      atol=tol):
+                    bad.append(f"{key}: misses rtol=atol {tol} ({err})")
+            reps = 10 if chunk == 128 else 3
+            line[f"{key} ms"] = cuda_ms(run, reps)
+            line[f"{key} graph_ms"] = graph_ms(run, 20 if chunk == 128
+                                               else 3)
+        print(json.dumps(line), flush=True)
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+#: ``--kernels ssm_profile``: name -> -D flags
+SSM_VARIANTS = {"shipped": (), "profile": ("-DSSM_PROFILE",)}
+SSM_PHASES = (
+    [f"row {p}" for p in ("barrier", "wait_M", "intra", "wait_slots",
+                          "slots", "y_next_x")]
+    + [f"state {p}" for p in ("barrier_publish", "wait_next_S", "make_M",
+                              "wait_slots", "slots", "h")]
+    + ["copy wait", "copy rest"])
+
+
+def ssm_profile(src: str, rounds: int) -> int:
+    """``--kernels ssm_profile``: one JSON line per build and round."""
+    import ctypes
+    from repro_torch.kernels import _build, ops, ref
+
+    with concurrent.futures.ThreadPoolExecutor(len(SSM_VARIANTS)) as pool:
+        list(pool.map(lambda v: _build.build_all(("ssm_scan",), extra=v),
+                      SSM_VARIANTS.values()))
+    for n, flags in SSM_VARIANTS.items():
+        log = _build.build_log("ssm_scan", flags).read_text()
+        scan = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(json.dumps({"variant": n, **spills(log), "ptxas": scan}))
+    bsz, t, h, p, nn = SSM_SHAPE
+    rng = np.random.default_rng(0)
+
+    def put(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).cuda()
+
+    x = put(0.5 * rng.standard_normal((bsz, t, h, p)))
+    dt = torch.nn.functional.softplus(put(rng.standard_normal((bsz, t, h))))
+    a = -torch.exp(put(rng.standard_normal(h)))
+    b = put(0.5 * rng.standard_normal((bsz, t, nn)))
+    c = put(0.5 * rng.standard_normal((bsz, t, nn)))
+    d = put(rng.standard_normal(h))
+    want = torch.stack([ref.ssm_scan(x[i], dt[i], a, b[i], c[i], d)
+                        for i in range(bsz)])
+    run = lambda: ops.ssd_scan(x, dt, a, b, c, d, chunk=128)
+    ctas = -(-p // 16) * h * bsz
+    bad = []
+    for rnd in range(rounds):
+        for n, flags in SSM_VARIANTS.items():
+            _build.EXTRA_FLAGS = flags
+            lib = _build.load("ssm_scan")
+            line = {"variant": n, "round": rnd}
+            if rnd == 0:
+                for chunk in (128, 15, 1):
+                    got = ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+                    err = (got - want).abs().max().item()
+                    line[f"chunk={chunk} max_abs_err"] = err
+                    line[f"chunk={chunk} digest"] = _digest(got)
+                    if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
+                        bad.append(f"{n} chunk={chunk}: {err}")
+            line["ms"] = cuda_ms(run, 5)
+            line["graph_ms"] = graph_ms(run, 10)
+            if "-DSSM_PROFILE" in flags:
+                prof = lib.ssm_scan_profile
+                prof.argtypes = [ctypes.c_void_p]
+                out = (ctypes.c_ulonglong * len(SSM_PHASES))()
+                _build.check(prof(out), "ssm_scan_profile")
+                run()
+                _build.check(prof(out), "ssm_scan_profile")
+                line.update(zip(SSM_PHASES,
+                                (v / ctas / 64 for v in out)))
+            print(json.dumps(line), flush=True)
+    _build.EXTRA_FLAGS = ()
+    run()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    for ev in prof_.key_averages():
+        dev = getattr(ev, "device_time_total", 0) or getattr(
+            ev, "cuda_time_total", 0)
+        if dev and "ssd" in ev.key:
+            print(json.dumps({"kernel": ev.key[:60], "calls": ev.count,
+                              "device_us_per_call": dev / ev.count}))
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -731,7 +911,8 @@ def main() -> int:
                                           "shallow_resident",
                                           "resident_profile", "perks_stream",
                                           "perks_profile", "krylov",
-                                          "krylov_profile"),
+                                          "krylov_profile", "ssm",
+                                          "ssm_profile"),
                     default="stencil")
     ap.add_argument("--digests", default=None,
                     help="--kernels krylov: keep and compare the outputs' "
@@ -760,6 +941,10 @@ def main() -> int:
         return krylov(src, args.rounds, args.digests)
     if args.kernels == "krylov_profile":
         return krylov_profile(src, args.rounds)
+    if args.kernels == "ssm":
+        return ssm(src, args.rounds)
+    if args.kernels == "ssm_profile":
+        return ssm_profile(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
     from repro_torch.core import perks

@@ -11,8 +11,8 @@ with the batching slice).
 * :class:`SSMScanProblem` — the SSD scan over one sequence, the chunk index
   as time axis. On the loop tiers the state ``h`` (H, N, P) float32 goes
   through device memory once per chunk; the resident tier runs
-  ``kernels/ssm_scan.py``, whose CTAs keep it in shared memory for the
-  whole scan.
+  ``kernels/ssm_scan.py``, whose CTAs keep it on chip (in registers) for
+  the whole scan.
 
 **The state design.** The port's loop runners (``core.perks``) ping-pong
 two sets of buffers the size of the whole state. A decode cache or an SSD

@@ -178,9 +178,9 @@ _SIGNATURES = {
     },
     "ssm_scan": {
         "ssm_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _P]),
-        "ssm_scan_smem_bytes": (_I, [_I, _I]),
-        "ssm_scan_smem": (_I, [_IP, _IP]),
+                                 _I, _I, _I, _I, _P]),
+        "ssm_scan_workspace_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
+        "ssm_scan_config": (_I, [_I, _I, _I, _I, _I, _I, _I, _IP]),
     },
     "decode_attn": {
         "decode_attn_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -11,10 +11,22 @@ raises — there is no fallback. The streams are float32 or bf16; a and d are
 read as float32. The chunk may be any length from 1 to 128 (a longer one
 runs as 128: the result is the same function) and need not divide T (the
 last chunk is shorter), where the reference's TPU kernel asserts
-``T % chunk == 0``. The wrapper counts its launches in
-``ssd_scan.launches``.
+``T % chunk == 0``. The state may have up to 256 rows. A call is two
+kernels (the chunks' scores and slots, then the scan, in a float32
+workspace the wrapper allocates); the wrapper counts its calls in
+``ssd_scan.launches``. ``config`` reports the launch a call makes.
+
+The workspace holds, for every chunk of every sequence, S's lower 16x16
+tiles and the chunk's c and b with its rows padded to a multiple of 16 and
+N to a multiple of 16 (to 128 at chunks of 16 rows or fewer):
+``4 * ssm_scan_workspace_floats(B, T, N, chunk)`` bytes. At N = 128 that
+is 164 KiB a chunk at chunk 128 (1.3 times the chunk's c and b) and 17 KiB a
+chunk at any chunk of 16 rows or fewer: at chunk 1 it is 17 times c and b,
+143 MB a sequence of T = 8192.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,10 +35,6 @@ from repro_torch.kernels import ref
 
 #: The kernel's largest chunk (``SSM_MAX_CHUNK`` in ``csrc/ssm_scan.cu``).
 MAX_CHUNK = 128
-#: Columns of a head one CTA takes (the kernel's ``SSM_MAX_SLICE``): a
-#: thread's register tile spans them whatever the slice, so the widest
-#: slice makes the fewest CTAs for the same work.
-MAX_SLICE = 32
 #: The kernel's largest state (``SSM_MAX_STATE``).
 MAX_STATE = 256
 
@@ -77,21 +85,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.numel() == 0:
         return y
     lib = _build.load("ssm_scan")
-    ps = min(p, MAX_SLICE)
     with _build.on_device(x):
-        smem = lib.ssm_scan_smem_bytes(ck, n)
-        limit = _build.smem_limit(lib, "ssm_scan")
-        if smem > limit:
-            raise ValueError(
-                f"ssd_scan: chunk {ck} with state {n} needs {smem} B "
-                f"of shared memory a CTA; the card gives {limit}")
-        chunks = -(-t_len // ck)
-        scores = torch.empty(bsz * chunks * ck * ck, dtype=torch.float32,
-                             device=x.device)
+        ws = torch.empty(lib.ssm_scan_workspace_floats(bsz, t_len, n, ck),
+                         dtype=torch.float32, device=x.device)
         err = lib.ssm_scan_launch(
             x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d32.data_ptr(), y.data_ptr(), scores.data_ptr(),
-            bsz, t_len, h, p, n, ck, ps, int(x.dtype == torch.bfloat16),
+            c.data_ptr(), d32.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            bsz, t_len, h, p, n, ck, int(x.dtype == torch.bfloat16),
             _build.stream())
     _build.check(err, "ssm_scan_launch")
     ssd_scan.launches += 1
@@ -99,6 +99,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+def config(bsz: int, t_len: int, h: int, p: int, n: int, chunk: int = 128,
+           dtype: torch.dtype = torch.float32) -> dict:
+    """The launch ``ssd_scan`` makes at these shapes on the current card, as
+    the built kernel reports it: the scan kernel's grid, its dynamic shared
+    memory a CTA, the slots in its ring, its threads a CTA, and the prep
+    kernel's shared memory."""
+    lib = _build.load("ssm_scan")
+    out = (ctypes.c_int * 7)()
+    ck = min(chunk, t_len, MAX_CHUNK)
+    _build.check(lib.ssm_scan_config(bsz, t_len, h, p, n, ck,
+                                     int(dtype == torch.bfloat16), out),
+                 "ssm_scan_config")
+    return dict(grid=list(out[:3]), smem=out[3], ring=out[4],
+                threads=out[5], prep_smem=out[6])
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -817,6 +817,43 @@ def test_cuda_ssd_scan_matches_plain_version(t, chunk, dtype, cuda):
                                want.float().numpy(), rtol=tol, atol=tol)
 
 
+# The tensor-core scan at its tile edges: a column slice cut short (P = 40),
+# a state that is not a multiple of 8 (N = 20), a head count that is not a
+# multiple of 4 or 8 (H = 6), several sequences with a ragged last
+# chunk (B = 3, T = 1000), and mamba2-780m's widths; (B, T, H, P, N, chunk).
+SSD_EDGES = [(2, 200, 4, 40, 16, 64), (2, 130, 4, 16, 20, 32),
+             (2, 100, 6, 16, 16, 16), (3, 1000, 4, 16, 16, 128),
+             (1, 1024, 48, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_EDGES,
+                         ids=["P40", "N20", "H6", "B3T1000", "mamba2"])
+def test_cuda_ssd_scan_tile_edges_and_graph_replay(shape, dtype, cuda):
+    bsz, t, h, p, n, chunk = shape
+    x, dt, a, b, c, d = _ssd_inputs(bsz, t, h, p, n, dtype, cuda, seed=t + n)
+    got = ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+    want = torch.stack([ref.ssm_scan(x[i].float(), dt[i].float(), a,
+                                     b[i].float(), c[i].float(), d)
+                        for i in range(bsz)])
+    tol = SSM_TOL[dtype]
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=tol, atol=tol)
+    # a replay inside a CUDA graph gives the eager call's bits (no atomics)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2), (4, 1), (14, 2)])
 @pytest.mark.parametrize("s", [96, 128, 700, 3000])
