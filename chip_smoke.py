@@ -69,7 +69,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    new iterate and |V^T V - I|), the time of one iteration and of one
    reduction round of ``cg_fused`` and ``bicgstab_fused`` on a tiny
    system, then each kernel at the Krylov path's full shapes with its
-   time and its plain version's;
+   time and its plain version's (the GMRES cycle also in a graph, beside
+   its 1 + 3m = 49 tagged rounds);
 9. the Krylov path, with every launch counter set to 0 just before and read
    just after: ``BiCGStabProblem``/``GMRESProblem`` -> ``plan`` ->
    ``execute`` and every offered tier by hand on bicgstab-small and
@@ -778,6 +779,7 @@ def krylov_phases(rng):
     from repro_torch.exec import solve_refined
     from repro_torch.exec import plan_candidates
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.krylov_fused import gmres_cycle_rounds
     from repro_torch.sparse import generate, nonsymmetric_names
     from repro_torch.sparse.generate import convdiff2d, poisson2d
 
@@ -981,13 +983,19 @@ def krylov_phases(rng):
     print(f"  gmres_cycle_fused gmres-small: |V^T V - I| kernel={orth(V)!r} "
           f"plain={orth(pV)!r}")
     timing["gmres_cycle_fused"] = dict(
-        ms=cuda_ms(run, 10),
+        ms=cuda_ms(run, 10), graph_ms=graph_ms(run, 20),
+        rounds=gmres_cycle_rounds(KRYLOV_M),
         plain_ms=cuda_ms(
             lambda: ref.gmres_cycle_update(x0, p.b, mv, KRYLOV_M), 5),
         bound=gmres_cycle_bound(n, gsmall["slots"], KRYLOV_M),
         library_ms=None)
     print(f"  gmres_cycle_fused gmres-small: "
           f"{json.dumps(timing['gmres_cycle_fused'])}")
+    t = timing["gmres_cycle_fused"]
+    print(f"[rounds] gmres_cycle_fused m={KRYLOV_M} on gmres-small: "
+          f"{t['rounds']} tagged rounds a cycle, {t['graph_ms']!r} ms a "
+          f"cycle in a graph, {1e3 * t['graph_ms'] / t['rounds']!r} us a "
+          f"round at most")
 
     # -- 9. the Krylov path, counted ---------------------------------------------------
     print("[krylov path] counters set to 0")

@@ -108,18 +108,24 @@ microseconds of one iteration of each fused kernel on a 16x16 grid (2000
 iterations less none), where the rows' work is small. Each line carries
 a digest of every output's bits (x and rr; V, H, beta and the new
 iterate). With ``--digests FILE`` the digests are kept in FILE by cell,
-policy and cached rows, and a run whose outputs differ from those already
-there fails: run in turns with a parent tree (``--src build/parent/src
---rounds 1``, this tree, this tree, the parent, one FILE) it is the A/B
-of the fused kernels, bit for bit.
+policy and cached rows, and a run whose outputs differ from those
+already there fails: run in turns with a parent tree (``--src
+build/parent/src --rounds 1``, this tree, this tree, the parent, one
+FILE) it is the A/B of the fused kernels, bit for bit. The GMRES cycle is
+also held to its plain version (``ref.gmres_cycle_update`` on the same
+inputs, at the smoke's Krylov tolerance), its largest difference from it
+by output printed beside its digest, so a parent that sums in another
+order (the PR 15 kernel's projections, before 1 + 3m rounds) fails only
+the digest.
 
-``--kernels krylov_profile`` runs the same fused CG and BiCGStab cells
-and tiny grids as shipped and built with ``-DKRY_PROFILE`` (in turns, each
-bit-equal to the shipped build), which sums thread 0's clock cycles by
-phase (the work between rounds outside the SpMVs; a round's first
-barrier, the release of its tagged word, the polling, its sum and last
-barrier; the SpMVs), read back through ``<kernel>_profile``: cycles an
-iteration a CTA.
+``--kernels krylov_profile`` runs the same fused CG and BiCGStab cells,
+tiny grids and GMRES cycle as shipped and built with ``-DKRY_PROFILE`` (in
+turns, each bit-equal to the shipped build), which sums thread 0's clock
+cycles by phase (the work between rounds outside the SpMVs and
+projections; a round's first barrier, the release of its tagged word, the
+polling, its sum and last barrier; the SpMVs; GMRES's projections), read
+back through ``<kernel>_profile``: cycles an iteration (a GMRES cycle) a
+CTA, the GMRES cycle also eager and in a graph.
 
 ``--kernels ssm`` times ``ssd_scan`` at mamba2-780m's SSD widths (B = 1,
 T = 8192, H = 48, P = 64, N = 128; streams from seed 0 as
@@ -156,6 +162,9 @@ import numpy as np
 import torch
 
 ATOL = 5e-6
+#: The GMRES cycle against its plain version: chip_smoke.py's Krylov
+#: tolerance
+KRYLOV_TOL = dict(rtol=1e-3, atol=1e-5)
 #: name -> -D overrides (empty: the shipped kernels)
 VARIANTS = {
     "shipped": (),
@@ -593,11 +602,14 @@ def _digest(*tensors) -> str:
 
 def _krylov_runs(rng):
     """The krylov modes' runs: {key: (fn, iterations, streamed A bytes a
-    run)} over KRYLOV_AB_CELLS (VEC and the planner's MIX; one GMRES
-    cycle), then each fused kernel on a 16x16 grid at 0 and 2000
+    run, plain version or None)} over KRYLOV_AB_CELLS (VEC and the
+    planner's MIX; one GMRES cycle, with ``ref.gmres_cycle_update`` on the
+    same inputs), then each fused kernel on a 16x16 grid at 0 and 2000
     iterations."""
+    import functools
+
     from repro_torch import BiCGStabProblem, CGProblem, GMRESProblem, plan
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.sparse.generate import convdiff2d, poisson2d
 
     runs = {}
@@ -611,7 +623,10 @@ def _krylov_runs(rng):
                                       matrix=csr)
             x0 = torch.zeros_like(p.b)
             runs[cell] = (lambda p=p, x0=x0: ops.gmres_cycle(
-                p.data, p.cols, x0, p.b, m=16), 1, 0.0)
+                p.data, p.cols, x0, p.b, m=16), 1, 0.0,
+                lambda p=p, x0=x0: ref.gmres_cycle_update(
+                    x0, p.b, functools.partial(ref.spmv_ell, p.data,
+                                               p.cols), 16))
             continue
         cls = CGProblem if kind == "cg" else BiCGStabProblem
         p = cls.from_ell(ell.data, ell.cols, b, 100, matrix=csr)
@@ -624,7 +639,7 @@ def _krylov_runs(rng):
                 lambda p=p, f=fused, r=rows: f(p.data, p.cols, p.b,
                                                iters=100, matrix_rows=r,
                                                resident_matrix=r > 0),
-                100, spmvs * ell.data.size * 8 * (n - rows) / n)
+                100, spmvs * ell.data.size * 8 * (n - rows) / n, None)
     for name, f, m in (("cg_fused", ops.cg, poisson2d(16)),
                        ("bicgstab_fused", ops.bicgstab, convdiff2d(16))):
         ell = m.to_ell()
@@ -635,8 +650,18 @@ def _krylov_runs(rng):
         for it in (0, 2000):
             runs[f"{name} tiny iters={it}"] = (
                 lambda f=f, d=d, c=c, b=b, it=it: f(d, c, b, iters=it), it,
-                0.0)
+                0.0, None)
     return runs
+
+
+def _plain_gap(out, plain) -> tuple[list[float], bool]:
+    """The largest absolute difference of each of a GMRES cycle's outputs
+    (V, H, beta, x_new) from its plain version's, and whether every output
+    is within ``KRYLOV_TOL`` of it."""
+    want = plain()
+    return ([(a - b).abs().max().item() for a, b in zip(out, want)],
+            all(torch.allclose(a, b, **KRYLOV_TOL)
+                for a, b in zip(out, want)))
 
 
 def krylov(src: str, rounds: int, digests: str | None) -> int:
@@ -656,12 +681,17 @@ def krylov(src: str, rounds: int, digests: str | None) -> int:
     bad = []
     for rnd in range(rounds):
         line = {"src": src, "round": rnd}
-        for key, (fn, _, streamed) in runs.items():
+        for key, (fn, _, streamed, plain) in runs.items():
             out = fn()
             torch.cuda.synchronize()
             if rnd == 0 and "tiny" not in key:
                 d = _digest(*out)
                 line[f"{key} digest"] = d
+                if plain is not None:
+                    line[f"{key} max_abs_err"], close = _plain_gap(out, plain)
+                    if not close:
+                        bad.append(f"{key}: outside {KRYLOV_TOL} of the "
+                                   f"plain version")
                 if kept.setdefault(key, d) != d:
                     bad.append(f"{key}: outputs {d} differ from {kept[key]}")
             ms = cuda_ms(fn, 20 if key.startswith("gmres") else 5)
@@ -686,15 +716,17 @@ def krylov(src: str, rounds: int, digests: str | None) -> int:
 
 
 def krylov_profile(src: str, rounds: int) -> int:
-    """``--kernels krylov_profile``: the fused CG and BiCGStab runs of
-    ``--kernels krylov``, shipped and built with -DKRY_PROFILE (thread 0's
-    clock cycles by phase, krylov_common.cuh), each bit-equal to the
-    shipped build: one JSON line per build and round, the cycles an
-    iteration a CTA by phase."""
+    """``--kernels krylov_profile``: the fused runs of ``--kernels krylov``
+    (CG, BiCGStab, the GMRES cycle), shipped and built with -DKRY_PROFILE
+    (thread 0's clock cycles by phase, krylov_common.cuh), each bit-equal
+    to the shipped build, the GMRES cycle also held to its plain version
+    at the smoke's Krylov tolerance: one JSON line per build, run and
+    round, the cycles an iteration (a GMRES cycle) a CTA by phase; the
+    GMRES cycle also in a graph."""
     import ctypes
     from repro_torch.kernels import _build
 
-    libs = ("cg_fused", "bicgstab_fused")
+    libs = ("cg_fused", "bicgstab_fused", "gmres_cycle_fused")
     variants = {"shipped": (), "profile": ("-DKRY_PROFILE",)}
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         list(pool.map(lambda v: _build.build_all(libs, extra=v),
@@ -704,27 +736,39 @@ def krylov_profile(src: str, rounds: int) -> int:
             log = _build.build_log(lib, flags).read_text()
             print(json.dumps({"variant": n, "library": lib, **spills(log)}))
     runs = {k: v for k, v in _krylov_runs(np.random.default_rng(0)).items()
-            if not k.startswith("gmres") and not k.endswith("iters=0")}
+            if not k.endswith("iters=0")}
     ctas = torch.cuda.get_device_properties(0).multi_processor_count
     phases = ("work", "round_enter", "release", "poll", "round_exit",
-              "spmv")
+              "spmv", "project")
+
+    def library(key):   # "cg-small ...", "cg_fused tiny ...", "gmres-small"
+        return {"cg": libs[0], "bicgstab": libs[1], "gmres": libs[2]}[
+            key.replace("_", "-").split("-")[0]]
+
     want, bad = {}, []
     for rnd in range(rounds):
         for n, flags in variants.items():
             _build.EXTRA_FLAGS = flags
-            for key, (fn, iters, _) in runs.items():
-                lib = _build.load("cg_fused" if key.startswith("cg")
-                                  else "bicgstab_fused")
+            for key, (fn, iters, _, plain) in runs.items():
+                name = library(key)
+                lib = _build.load(name)
+                line = {"variant": n, "round": rnd, "run": key}
                 if rnd == 0:
-                    d = _digest(*fn())
+                    out = fn()
+                    d = _digest(*out)
+                    line["digest"] = d
+                    if plain is not None:
+                        line["max_abs_err"], close = _plain_gap(out, plain)
+                        if not close:
+                            bad.append(f"{n} {key}: outside {KRYLOV_TOL} "
+                                       f"of the plain version")
                     if want.setdefault(key, d) != d:
                         bad.append(f"{n} {key} differs from the shipped "
                                    f"build")
-                line = {"variant": n, "round": rnd, "run": key,
-                        "ms": cuda_ms(fn, 3)}
-                if flags:
-                    name = "cg_fused" if key.startswith("cg") else \
-                        "bicgstab_fused"
+                line["ms"] = cuda_ms(fn, 3)
+                if key.startswith("gmres"):
+                    line["graph_ms"] = graph_ms(fn, 20)
+                if "-DKRY_PROFILE" in flags:
                     prof = getattr(lib, f"{name}_profile")
                     prof.argtypes = [ctypes.c_void_p]
                     out = (ctypes.c_ulonglong * len(phases))()

@@ -45,9 +45,10 @@ convergence check is declared (EOS decode lands on a chunked device loop).
 A Krylov host loop pays its kind's launches per step (the reference
 charges one): ``problem.step_launches()``, i.e.
 ``adapters.CG_STEP_LAUNCHES``, ``krylov.BICGSTAB_STEP_LAUNCHES`` or
-``krylov.GMRES_CYCLE_LAUNCHES(m)``; a chunked device loop
-(``sync_every < n_steps``) never keeps its graphs, so it always pays the
-capture plus one dispatch per chunk. Everything else is the reference's formula.
+``krylov.GMRES_CYCLE_LAUNCHES(m)``; a Krylov device loop pays the same
+launches at ``GRAPH_LAUNCH_S`` each once its graph is kept and replays; a
+chunked device loop (``sync_every < n_steps``) never keeps its graphs, so
+it always pays the capture plus one dispatch per chunk. Everything else is the reference's formula.
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ from repro_torch.core.perf_model import project_host_loop, sm_bytes_accessed
 from repro_torch.exec.plan import CacheDecision, Plan
 from repro_torch.exec.problem import Problem
 from repro_torch.kernels import stencil2d
+from repro_torch.kernels.krylov_fused import gmres_cycle_rounds
 from repro_torch.kernels.stencil3d import plan_resident_planes
 
 #: Host cost charged per launch; HOST_LOOP pays it n_steps times, the
@@ -134,10 +136,38 @@ PERKS_TERM_S = 4.41e-8
 #: the larger of the two kernels' figures (BiCGStab, 10.35-10.40 us over
 #: three rounds), from ``scripts/kernel_variants.py --kernels krylov`` on
 #: an NVIDIA H100 80GB HBM3 at a 700 W power limit; the ``[rounds]`` line
-#: of ``chip_smoke.py`` prints the same figure (PERF.md). GMRES's cycle
-#: kernel is not charged.
+#: of ``chip_smoke.py`` prints the same figure (PERF.md).
 KRYLOV_ROUND_S = 3.5e-6
 KRYLOV_ROUNDS = {"cg": 2, "bicgstab": 3}
+#: The GMRES cycle kernel (``csrc/gmres_cycle_fused.cu``) per tagged
+#: round, charged ``gmres_cycle_rounds(m)`` = 1 + 3m times a cycle. It is
+#: not the cost of a round (``KRYLOV_ROUND_S``) but the round's share of
+#: a whole cycle, so it carries the SpMV, the projections and the updates
+#: too, whose work grows with n and m: one m = 16 cycle on gmres-small
+#: (``convdiff2d(448)``, n = 200,704) in a CUDA graph, 0.2063-0.2124 ms,
+#: over its 49 rounds, from ``scripts/kernel_variants.py --kernels
+#: krylov`` on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md).
+#: At other n or m the price drifts.
+GMRES_ROUND_SHARE_S = 4.3e-6
+#: A launch replayed from a kept CUDA graph of a Krylov device loop, over
+#: and above its bytes: the loop's many small launches (19 an iteration of
+#: CG, 40 of BiCGStab, 630 a GMRES(16) cycle) run back to back, each
+#: paying its launch and tail. The median over cg-small, bicgstab-small
+#: and gmres-small of (kept device loop - its priced bytes) / launches
+#: (1.82, 2.00 and 2.19 us; 4.18, 9.33 and 5.58 ms measured), from the
+#: ``[cg tiers]`` and ``[krylov tiers]`` lines of ``chip_smoke.py`` on an
+#: NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md).
+GRAPH_LAUNCH_S = 2.0e-6
+
+
+def krylov_round_s(problem) -> float:
+    """Seconds of tagged rounds a step of the problem's fused kernel:
+    ``KRYLOV_ROUNDS`` at ``KRYLOV_ROUND_S`` an iteration of CG or BiCGStab,
+    ``gmres_cycle_rounds(m)`` at ``GMRES_ROUND_SHARE_S`` a GMRES(m) cycle
+    (which carries the cycle's work between rounds too)."""
+    if problem.kind == "gmres":
+        return gmres_cycle_rounds(problem.m) * GMRES_ROUND_SHARE_S
+    return KRYLOV_ROUNDS.get(problem.kind, 0) * KRYLOV_ROUND_S
 
 
 def _as_chip(chip: Union[str, Chip]) -> Chip:
@@ -411,20 +441,22 @@ def _cg_candidates(problem, chip: Chip, *,
                   sync_every=sync_every)
     launches = problem.step_launches()
     chunks = -(-n // sync_every) if sync_every and sync_every < n else 1
-    captures = n * launches
+    # the device loop's launches: captured (with their first run) until
+    # its graph is kept, then replayed
+    launch_s = DISPATCH_OVERHEAD_S
     if chunks == 1 and perks.graph_cached(problem.step_fn(),
                                           problem.initial_state(), n):
-        captures = 0
+        launch_s = GRAPH_LAUNCH_S
     cands = [
         Plan(tier="host_loop",
              predicted_s=n * (total_bytes / chip.hbm_bw
                               + launches * DISPATCH_OVERHEAD_S), **common),
         Plan(tier="device_loop", policy="IMP",
-             predicted_s=n * total_bytes / chip.hbm_bw
-             + (captures + chunks) * DISPATCH_OVERHEAD_S, **common),
+             predicted_s=n * (total_bytes / chip.hbm_bw + launches * launch_s)
+             + chunks * DISPATCH_OVERHEAD_S, **common),
     ]
     kind = problem.kind
-    rounds_s = n * KRYLOV_ROUNDS.get(kind, 0) * KRYLOV_ROUND_S
+    rounds_s = n * krylov_round_s(problem)
     if problem.data is not None and pol["vector_fraction"] >= 1.0:
         bm = fused_block_rows(problem.b.shape[0])
         # cached bytes still move through on-chip memory every iteration

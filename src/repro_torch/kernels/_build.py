@@ -52,8 +52,8 @@ NVCC_FLAGS = (
 
 #: ``-D`` flags that ``load`` builds with: the profiles of the deep
 #: schedule's waits (``DEEP_PROFILE``), of ``stencil_resident``'s step
-#: phases (``RES_PROFILE``) and of the fused CG and BiCGStab kernels'
-#: rounds (``KRY_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
+#: phases (``RES_PROFILE``) and of the fused Krylov kernels' rounds
+#: (``KRY_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
 #: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
 #: for the shipped kernels. Every other tuning value is a plain constant.
 EXTRA_FLAGS: tuple[str, ...] = ()
@@ -172,7 +172,8 @@ _SIGNATURES = {
     },
     "gmres_cycle_fused": {
         "gmres_cycle_fused_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                                          _P, _I, _I, _I, _I, _I, _I, _P]),
+                                          _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _P]),
         "gmres_cycle_fused_max_ctas": (_I, [_I, _IP]),
         "gmres_cycle_fused_smem": (_I, [_IP, _IP]),
     },
@@ -343,18 +344,19 @@ def fit(lib: ctypes.CDLL, prefix: str, n: int, k: int, ctas: int,
     return stride, ca, smem
 
 
-#: Tag words a CTA of ``cg_fused`` or ``bicgstab_fused`` owns
-#: (``csrc/krylov_common.cuh``: two parities of ``KRY_TAG_VALUES`` = 2
-#: values).
-TAG_WORDS_PER_CTA = 4
+#: Values a tagged round of ``cg_fused`` or ``bicgstab_fused`` sums at most
+#: (``csrc/krylov_common.cuh`` ``KRY_TAG_VALUES``); ``gmres_cycle_fused``'s
+#: rounds sum up to ``KRY_WARPS`` = 32.
+TAG_VALUES = 2
 
 
-def tag_words(ctas: int, device: torch.device) -> torch.Tensor:
-    """The tagged rounds' words of a launch on ``ctas`` CTAs (64 bits each;
-    the launch zeroes them on its stream before the kernel runs, and
-    refuses more CTAs than a round polls)."""
-    return torch.empty(TAG_WORDS_PER_CTA * ctas, dtype=torch.int64,
-                       device=device)
+def tag_words(ctas: int, device: torch.device,
+              values: int = TAG_VALUES) -> torch.Tensor:
+    """The tagged rounds' words of a launch on ``ctas`` CTAs whose rounds
+    sum up to ``values`` values: two parities of ``values`` words a CTA (64
+    bits each; the launch zeroes them on its stream before the kernel runs,
+    and refuses more CTAs than a round polls)."""
+    return torch.empty(2 * values * ctas, dtype=torch.int64, device=device)
 
 
 def is_cpu(x: torch.Tensor, what: str) -> bool:

@@ -1,7 +1,7 @@
 // Helpers shared by the cooperative Krylov kernels (cg_fused.cu,
 // bicgstab_fused.cu, gmres_cycle_fused.cu): the zero-guarded division, the
-// ELL row product, the grid-wide reductions in one fixed order, and the
-// capacity queries and launch of a cooperative kernel.
+// ELL row products, the grid-wide reduction rounds in one fixed order, and
+// the capacity queries and launch of a cooperative kernel.
 //
 // A reduction round sums up to KRY_WARPS values over the whole grid:
 // every thread adds its rows' terms for each value, each warp sums its
@@ -9,28 +9,25 @@
 // publishes the block's partial; warp v of every CTA then sums the g
 // partials of value v in the same order (lane-strided, then a butterfly).
 // So every CTA holds the same sums, and a run repeats bit for bit: no
-// float atomics anywhere. Two forms:
-//   * block_partials + grid.sync() + grid_sums (gmres_cycle_fused.cu): the
-//     partials go to device memory, a full grid barrier, a second read;
-//   * tagged_round (cg_fused.cu, bicgstab_fused.cu): one trip through L2.
-//     Warp v writes the partial as one 64-bit word {value, round} with a
-//     release at gpu scope (after a block barrier, so it also releases the
-//     block's earlier writes to device memory), and polls the g words of
-//     value v with acquire loads, every lane's words in flight at once,
-//     until every tag is the round (relaxed loads and one acquire fence
-//     after them were slower on an H100). Rounds are
-//     numbered 1, 2, ... within a launch, and round k uses the words of
-//     parity k & 1: a CTA writes round k + 2 only after it has read every
-//     partial of round k + 1, which no CTA writes before it has read all of
-//     round k, so no word is overwritten while a CTA may still read it.
-//     The launch zeroes the words first (kry_zero_tags, stream-ordered, so
-//     a captured graph replays it too): a tag left by an earlier launch is
-//     never taken.
+// float atomics anywhere. The round is tagged_round, one trip through L2.
+// A launch's words hold kValues values a round (KRY_TAG_VALUES = 2 in
+// cg_fused.cu and bicgstab_fused.cu, KRY_WARPS = 32 for the projections of
+// gmres_cycle_fused.cu). Warp v writes the partial as one 64-bit word
+// {value, round} with a release at gpu scope (after a block barrier, so it
+// also releases the block's earlier writes to device memory), and polls
+// the g words of value v with acquire loads, every lane's words in flight
+// at once, until every tag is the round (relaxed loads and one acquire
+// fence after them were slower on an H100). Rounds are numbered 1, 2, ...
+// within a launch, and round k uses the words of parity k & 1: a CTA
+// writes round k + 2 only after it has read every partial of round k + 1,
+// which no CTA writes before it has read all of round k, so no word is
+// overwritten while a CTA may still read it. A word of a value that the
+// round before did not sum holds an older round's tag, which is never
+// taken. The launch zeroes the words first (kry_zero_tags,
+// stream-ordered, so a captured graph replays it too): a tag left by an
+// earlier launch is never taken either.
 #pragma once
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 #define KRY_THREADS 1024
 #define KRY_WARPS (KRY_THREADS / 32)
@@ -56,45 +53,18 @@ __device__ __forceinline__ void warp_partial(float v, int slot,
     if ((threadIdx.x & 31) == 0) warp_part[slot * KRY_WARPS + (threadIdx.x >> 5)] = v;
 }
 
-// The block's partials of values [0, nv) to partials[v * g + blockIdx.x].
-// Every thread of the block calls it after its warp_partial calls.
-__device__ __forceinline__ void block_partials(int nv, const float* warp_part,
-                                               float* partials, int g) {
-    __syncthreads();
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (w < nv) {
-        const float t = warp_sum(warp_part[w * KRY_WARPS + lane]);
-        if (lane == 0) partials[w * g + blockIdx.x] = t;
-    }
-}
-
-// After grid.sync(): the grid's sums of values [0, nv) into sums[0, nv),
-// the same in every CTA and visible to the whole block. L1 is bypassed:
-// other SMs wrote the partials.
-__device__ __forceinline__ void grid_sums(int nv, const float* partials, int g,
-                                          float* sums) {
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (w < nv) {
-        float t = 0.f;
-        for (int i = lane; i < g; i += 32)
-            t = __fadd_rn(t, __ldcg(partials + w * g + i));
-        t = warp_sum(t);
-        if (lane == 0) sums[w] = t;
-    }
-    __syncthreads();
-}
-
 // -- the tagged all-reduce ----------------------------------------------------
 
 // Built with -DKRY_PROFILE, thread 0 of every CTA sums the clock cycles of
-// the fused CG and BiCGStab kernels by phase: 0 the work between rounds
-// outside the SpMVs (forming p or s and its block barrier, the updates),
-// in each tagged round 1 its first block barrier and the block's partial,
-// 2 the release of the tagged word, 3 polling until every tag has come,
-// 4 the sum and the last block barrier; and 5 the SpMVs (thread 0's rows);
-// <kernel>_profile reads and clears the sums.
+// the fused Krylov kernels by phase: 0 the work between rounds outside the
+// SpMVs and projections (forming p, s or v and its block barrier, the
+// updates), in each tagged round 1 its first block barrier and the block's
+// partial, 2 the release of the tagged word, 3 polling until every tag has
+// come, 4 the sum and the last block barrier; 5 the SpMVs (thread 0's
+// rows); 6 GMRES's projections (one pass over the rows and the warps'
+// sums); <kernel>_profile reads and clears the sums.
 #ifdef KRY_PROFILE
-#define KRY_PHASES 6
+#define KRY_PHASES 7
 __device__ unsigned long long kry_cycles[KRY_PHASES];
 __device__ __forceinline__ long long* kry_prof() {
     __shared__ long long p[KRY_PHASES + 1];   // the sums, then the last mark
@@ -131,20 +101,26 @@ static int kry_profile(unsigned long long* out) {
 #define KRY_PROF_END() do {} while (0)
 #endif
 
-#define KRY_TAG_VALUES 2                  // values a tagged round sums at most
+#define KRY_TAG_VALUES 2                  // CG's and BiCGStab's values a round
 #define KRY_MAX_GRID 160                  // CTAs a tagged round polls at most
 #define KRY_POLL (KRY_MAX_GRID / 32)      // words a lane polls at most
 #define KRY_WAIT_CYCLES (1LL << 34)       // a round waited for this long traps
 
-// Bytes of the tag words of a launch on g CTAs: two parities of
-// KRY_TAG_VALUES x g words.
-static size_t kry_tag_bytes(int g) {
-    return sizeof(unsigned long long) * 2 * KRY_TAG_VALUES * (size_t)g;
+// Bytes of the tag words of a launch on g CTAs whose rounds sum up to
+// `values` values: two parities of values x g words.
+static size_t kry_tag_bytes(int g, int values = KRY_TAG_VALUES) {
+    return sizeof(unsigned long long) * 2 * (size_t)values * (size_t)g;
 }
 
 __device__ __forceinline__ void st_release_gpu(unsigned long long* p,
                                                unsigned long long v) {
     asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ void st_relaxed_gpu(unsigned long long* p,
+                                               unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
                  : "memory");
 }
 
@@ -156,11 +132,16 @@ __device__ __forceinline__ unsigned long long ld_acquire_gpu(
     return v;
 }
 
-// Round `rnd` (>= 1) of values [0, nv) over the grid: the block's partials
-// (from the warps' in warp_part) published as tagged words, then the grid's
-// sums into sums[0, nv), the same in every CTA and visible to the whole
-// block. Every thread of the block calls it after its warp_partial calls
-// and its writes to device memory that the round publishes.
+// Round `rnd` (>= 1) of values [0, nv) over the grid, nv <= kValues (the
+// values of the launch's tag words): the block's partials (from the warps'
+// in warp_part) published as tagged words, then the grid's sums into
+// sums[0, nv), the same in every CTA and visible to the whole block. Every
+// thread of the block calls it after its warp_partial calls and its writes
+// to device memory that the round publishes. A round with kRelease false
+// stores its words relaxed, with no fence: it carries its sums and orders
+// nothing else, so it publishes no write to device memory (its polls still
+// acquire, which orders the reuse of the words two rounds on).
+template <int kValues = KRY_TAG_VALUES, bool kRelease = true>
 __device__ __forceinline__ void tagged_round(int nv, const float* warp_part,
                                              unsigned long long* tags, int g,
                                              unsigned rnd, float* sums) {
@@ -169,12 +150,16 @@ __device__ __forceinline__ void tagged_round(int nv, const float* warp_part,
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (w < nv) {
         unsigned long long* words =
-            tags + ((size_t)(rnd & 1) * KRY_TAG_VALUES + w) * g;
+            tags + ((size_t)(rnd & 1) * kValues + w) * g;
         const float part = warp_sum(warp_part[w * KRY_WARPS + lane]);
         const unsigned long long tag = (unsigned long long)rnd << 32;
         KRY_MARK(1);
-        if (lane == 0)
-            st_release_gpu(words + blockIdx.x, tag | __float_as_uint(part));
+        if (lane == 0) {
+            if constexpr (kRelease)
+                st_release_gpu(words + blockIdx.x, tag | __float_as_uint(part));
+            else
+                st_relaxed_gpu(words + blockIdx.x, tag | __float_as_uint(part));
+        }
         KRY_MARK(2);
         unsigned long long got[KRY_POLL];
 #pragma unroll
@@ -212,9 +197,9 @@ __device__ __forceinline__ void tagged_round(int nv, const float* warp_part,
 // Zeroes the tag words of a launch on `stream` before it; returns the
 // cudaError_t (also for a grid wider than a round polls).
 static int kry_zero_tags(unsigned long long* tags, int grid,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int values = KRY_TAG_VALUES) {
     if (grid > KRY_MAX_GRID) return (int)cudaErrorInvalidConfiguration;
-    return (int)cudaMemsetAsync(tags, 0, kry_tag_bytes(grid), stream);
+    return (int)cudaMemsetAsync(tags, 0, kry_tag_bytes(grid, values), stream);
 }
 
 // -- SpMV rows with the operand formed at the gather -------------------------

@@ -17,7 +17,10 @@
   and the whole of A in shared memory: the Arnoldi process, the small
   least-squares solve and x + y V[:m], and returns (V (m+1, n),
   H (m+1, m), beta (1,), x_new (n,)); the first three are what the
-  reference's kernel returns.
+  reference's kernel returns. The CTAs meet at ``gmres_cycle_rounds(m)``
+  = 1 + 3m tagged rounds of up to 32 values, and form v_j at the SpMV's
+  gather from the w published (in two buffers, by the step's parity)
+  before the last ||w|| round.
 
 A plan that asks more shared memory than a CTA holds raises ``ValueError``
 with the capacity, read from the built kernel. A CPU tensor runs the plain
@@ -40,9 +43,17 @@ from repro_torch.kernels.spmv_ell import check_ell, check_vector
 #: Bytes of shared memory per owned row for BiCGStab's x, r, rhat, p, v and
 #: t (float32; s takes r's slot).
 BICGSTAB_VECTOR_BYTES_PER_ROW = 24
-#: Values one reduction round of the cycle kernel sums (a warp each):
-#: the projections on m+1 basis vectors, so m <= GMRES_MAX_M.
-GMRES_MAX_M = 31
+#: Values one tagged round of the cycle kernel can sum (a warp each), the
+#: words its launch zeroes; the projections of step j sum j+1 <= m values,
+#: and the m+1 rows of H are one warp's lanes, so m <= GMRES_MAX_M.
+GMRES_ROUND_VALUES = 32
+GMRES_MAX_M = GMRES_ROUND_VALUES - 1
+
+
+def gmres_cycle_rounds(m: int) -> int:
+    """Tagged rounds of one ``gmres_cycle_fused`` cycle: beta, then h1,
+    h2 and ||w|| a step."""
+    return 1 + 3 * m
 
 
 def bicgstab_fused(
@@ -134,12 +145,13 @@ def gmres_cycle_fused(
         H = torch.empty((m + 1, m), dtype=b.dtype, device=b.device)
         beta = torch.empty(1, dtype=b.dtype, device=b.device)
         x_new = torch.empty_like(x)
-        partials = torch.empty((2 * (m + 1) + 1) * sms, dtype=b.dtype,
-                               device=b.device)
+        u = torch.empty(2 * n, dtype=b.dtype, device=b.device)
+        tags = _build.tag_words(sms, b.device, GMRES_ROUND_VALUES)
         err = lib.gmres_cycle_fused_launch(
             data.data_ptr(), cols.data_ptr(), x.data_ptr(), b.data_ptr(),
             V.data_ptr(), H.data_ptr(), beta.data_ptr(), x_new.data_ptr(),
-            partials.data_ptr(), n, k, m, stride, sms, smem, _build.stream())
+            u.data_ptr(), tags.data_ptr(), n, k, m, stride, sms, smem,
+            _build.stream())
     _build.check(err, "gmres_cycle_fused_launch")
     gmres_cycle_fused.launches += 1
     return V, H, beta, x_new

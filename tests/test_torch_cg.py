@@ -361,8 +361,10 @@ def test_host_loop_is_charged_per_launch(monkeypatch):
         dev.predicted_s - (30 * CG_STEP_LAUNCHES + 1) * o)
     monkeypatch.setattr(perks, "graph_cached", lambda *a: True)
     kept = {(c.tier, c.policy): c for c in plan_candidates(tp)}
+    # a kept graph replays every launch at GRAPH_LAUNCH_S
     assert kept[("device_loop", "IMP")].predicted_s == pytest.approx(
-        dev.predicted_s - 30 * CG_STEP_LAUNCHES * o)
+        dev.predicted_s - 30 * CG_STEP_LAUNCHES
+        * (o - planner.GRAPH_LAUNCH_S))
 
 
 # -- the runners take tuple states ----------------------------------------------------

@@ -654,8 +654,12 @@ def test_cuda_fused_krylov_repeats_bit_for_bit_and_in_a_graph(kind, cuda):
                 assert torch.equal(x2, x) and torch.equal(rr2, rr)
 
 
-@pytest.mark.parametrize("side,m", [(16, 8), (48, 16), (101, 31)])
+@pytest.mark.parametrize("side,m", [(8, 8), (12, 16), (16, 8), (48, 16),
+                                    (101, 31)])
 def test_cuda_gmres_cycle_fused_matches_plain_version(side, m, cuda):
+    """Sides 8 and 12 (n = 64, 144) give a grid wider than the rows: every
+    CTA owns one row or none (two at most at 144), and still takes part in
+    every round."""
     import functools
     _, data, cols, b = _convdiff(side, cuda, seed=side)
     x0 = 0.1 * torch.from_numpy(_rhs(b.shape[0], seed=1)).to(cuda)
@@ -669,6 +673,57 @@ def test_cuda_gmres_cycle_fused_matches_plain_version(side, m, cuda):
     assert (V @ V.T - eye).abs().max().item() < 1e-4
     again = ops.gmres_cycle(data, cols, x0, b, m=m)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_cuda_gmres_cycle_fused_arnoldi_breakdown(cuda):
+    """An exact breakdown at the first step: A diagonal and b on one axis,
+    so A v_0 = d v_0 and hn = 0; inv is 0, every later v and column of H
+    is 0, and the Givens solve gives the plain version's answer."""
+    import functools
+    n = 300
+    d = torch.arange(2, n + 2, dtype=torch.float32)
+    data = torch.zeros((n, 3))
+    data[:, 0] = d
+    cols = torch.arange(n, dtype=torch.int32)[:, None].repeat(1, 3)
+    b = torch.zeros(n)
+    b[150] = 4.0
+    data, cols, b = data.to(cuda), cols.to(cuda), b.to(cuda)
+    x0 = torch.zeros_like(b)
+    want = ref.gmres_cycle_update(x0, b, functools.partial(ref.spmv_ell,
+                                                           data, cols), 8)
+    V, H, beta, x = ops.gmres_cycle(data, cols, x0, b, m=8)
+    for g, w in zip((V, H, beta, x), want):
+        torch.testing.assert_close(g, w, **CG_TOL)
+    assert float(beta[0]) == 4.0 and float(H[0, 0]) == 152.0
+    assert (H[1:, 0] == 0).all() and (H[:, 1:] == 0).all()
+    assert (V[1:] == 0).all()
+    assert float(x[150]) == pytest.approx(4.0 / 152.0)
+
+
+def test_cuda_gmres_cycle_fused_repeats_in_a_graph(cuda):
+    """Calls in a row and replays of a captured CUDA graph give the same
+    bits: the launch zeroes its 2 x 32 tag words a CTA on the stream, so
+    no round of a replay takes a tag an earlier launch left."""
+    _, data, cols, b = _convdiff(48, cuda, seed=5)
+    x0 = 0.1 * torch.from_numpy(_rhs(b.shape[0], seed=2)).to(cuda)
+    for m in (1, 16):
+        def run():
+            return ops.gmres_cycle(data, cols, x0, b, m=m)
+        want = run()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = run()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), m
+            again = run()           # an eager call between replays
+            assert all(torch.equal(a, w) for a, w in zip(again, want)), m
 
 
 def test_cuda_krylov_kernels_refuse_what_a_cta_does_not_hold(cuda):

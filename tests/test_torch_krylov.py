@@ -377,6 +377,40 @@ def test_planner_regimes_on_the_h100():
         17 * 4 * 2**20
 
 
+def test_planner_charges_the_gmres_cycles_rounds(monkeypatch):
+    """gmres-small (convdiff2d(448), m = 16, 4 cycles): its resident MIX
+    plan carries 1 + 3m = 49 tagged rounds a cycle at GMRES_ROUND_SHARE_S,
+    and is still the pick, also once the device loop's graph is kept
+    (measured 0.97 ms against 5.6 ms for the kept device loop, PERF.md):
+    the kept loop pays its 630 launches a cycle at GRAPH_LAUNCH_S. The
+    loop tiers carry no round, and BiCGStab's three an iteration stay at
+    KRYLOV_ROUND_S."""
+    from repro_torch.core import perks
+    from repro_torch.exec import planner
+    from repro_torch.exec.krylov import GMRES_CYCLE_LAUNCHES
+    p = _sized("gmres", 448, m=16)
+    assert planner.krylov_round_s(p) == 49 * planner.GMRES_ROUND_SHARE_S
+    assert planner.krylov_round_s(_sized("gmres", 448, m=8)) == \
+        25 * planner.GMRES_ROUND_SHARE_S
+    assert planner.krylov_round_s(_sized("bicgstab", 448)) == \
+        3 * planner.KRYLOV_ROUND_S
+    cands = plan_candidates(p)
+    assert (cands[0].tier, cands[0].policy) == ("resident", "MIX")
+    monkeypatch.setattr(perks, "graph_cached", lambda *a: True)
+    kept = plan_candidates(p)
+    assert (kept[0].tier, kept[0].policy) == ("resident", "MIX")
+    loop = next(c for c in kept if c.tier == "device_loop")
+    assert GMRES_CYCLE_LAUNCHES(16) == 630
+    assert loop.predicted_s >= 4 * 630 * planner.GRAPH_LAUNCH_S
+    monkeypatch.setattr(perks, "graph_cached", lambda *a: False)
+    monkeypatch.setattr(planner, "GMRES_ROUND_SHARE_S", 0.0)
+    free = {(c.tier, c.policy): c.predicted_s for c in plan_candidates(p)}
+    for c in cands:
+        rounds = 4 * 49 * 4.3e-6 if c.tier == "resident" else 0.0
+        assert c.predicted_s == pytest.approx(free[c.tier, c.policy]
+                                              + rounds, rel=1e-12)
+
+
 # -- the problem surface --------------------------------------------------------------
 
 @pytest.mark.parametrize("kind", ["bicgstab", "gmres"])
