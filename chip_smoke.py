@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's stencil, conjugate-gradient, Krylov
-(BiCGStab, GMRES(m)), SSD-scan and serving paths on one NVIDIA GPU.
+(BiCGStab, GMRES(m)), SSD-scan, serving, batched and solver-service paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -105,14 +106,38 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    identical everywhere, ``decode_attention`` 24 launches a token on the
    host loop, every one on the tensor cores, times per tier; and the smoke
    config in float32 on the card against the CPU;
-14. one ``{"kernels": [...]}`` line with all twelve kernels, the card's
-   name and power limit, and ``{"ok": true, "device": {...}}`` as the last
-   line.
+14. [batch kernels] the batched launches, B instances in one launch: the
+   batched ``stencil_step`` on every Table-III spec in f32 and bf16 at
+   B = 3, ``spmv_ell`` at B = 1, 2, 4, 8 on poisson2d(1024), ``vdot`` on
+   eight lanes, and ``cg_fused`` at B = 1, 2, 4 on poisson2d(512) (100
+   iterations, A on chip), each bit for bit against B single launches and
+   (``cg_fused``: x and rr held to a float64 run) its plain version, and
+   timed at full size, in a graph too, beside one library call;
+15. [batch path] counted: ``BatchedProblem`` -> ``plan_candidates`` ->
+   ``execute`` on every offered tier against ``execute_sequential`` (bit
+   for bit, per-instance ms) for stencil-batch (2d5pt, B = 8 domains of
+   2048x2048, 100 steps), cg-batch-small (poisson2d(512), B = 4, 100
+   iterations) and cg-batch-large (poisson2d(1024), B = 8), and the
+   launches of one batched step against one single step (1 and 19);
+16. [service] a ``SolverService(max_batch=8)`` fed 16 stencil and 8 CG
+   requests, interleaved: its stats, its plans, the graph captures per key
+   (one for the stencil key), every result bit for bit against its own
+   ``execute``, and the ``service_*``/``executor_*`` Prometheus lines;
+17. [obs] traced ``execute`` bit-equal to untraced on four plans, and the
+   Chrome trace's event count;
+18. [autotune] ``autotune(top_k=4)`` with a drift ledger file on 2d5pt and
+   2ds25pt at 8192x8192 and 3d7pt 256^3 (100 steps): each candidate's
+   predicted and measured ms, and a second call against the same file
+   that measures nothing;
+19. one ``{"kernels": [...]}`` line with all twelve kernels, the three
+   batched launches and ``vdot``, the card's name and power limit, and
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -124,6 +149,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ATOL = 5e-6              # the reference's kernel bound (tests/test_deep_blocking.py)
 BF16_ATOL = 2e-2         # the reference's bf16 bound (tests/test_kernels_stencil.py)
@@ -1642,6 +1668,398 @@ def ml_phases(rng):
     return errs, timing, launches
 
 
+BATCH_KERNELS = {
+    "stencil_baseline_step_batched": (
+        "src/repro_torch/kernels/csrc/stencil_step.cu",
+        "src/repro/kernels/stencil2d.py:566"),
+    "spmv_ell_batched": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
+                         "src/repro/kernels/spmv_ell.py:38"),
+    "cg_fused_batched": ("src/repro_torch/kernels/csrc/cg_fused.cu",
+                         "src/repro/kernels/cg_fused.py:104"),
+    "vdot": ("src/repro_torch/kernels/csrc/vdot.cu",
+             "src/repro/kernels/ref.py:70"),
+}
+# The batched path's cells: (cell, what, size, B, steps)
+BATCH_CELLS = [
+    ("stencil-batch", "2d5pt", (2048, 2048), 8, 100),
+    ("cg-batch-small", "poisson2d", 512, 4, 100),
+    ("cg-batch-large", "poisson2d", 1024, 8, 100),
+]
+BATCH_B = 3                          # [batch kernels] stencil instances
+SPMV_LANES = (1, 2, 4, 8)
+CG_LANES = (1, 2, 4)
+SERVICE_STENCILS, SERVICE_CGS = 16, 8
+SERVICE_SHAPE, SERVICE_STEPS = (1024, 1024), 100
+AUTOTUNE = [("2d5pt", (8192, 8192), 100), ("2ds25pt", (8192, 8192), 100),
+            ("3d7pt", (256, 256, 256), 100)]
+
+
+class LaunchCount(TorchDispatchMode):
+    """Counts the torch operators that launch a kernel (views and
+    allocations launch none); the port's own kernels are counted by their
+    wrappers."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += not (func.is_view or func.__name__.startswith("empty"))
+        return func(*args, **(kwargs or {}))
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def batch_phases(rng):
+    """Phases 14-18: the batched launches against B single launches and
+    their plain versions, the batched path counted against
+    ``execute_sequential``, the ``SolverService``, a traced ``execute``, and
+    ``autotune`` with the drift ledger. Returns (errors, timing, launches)
+    by kernel name."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core import perks
+    from repro_torch.exec import (BatchedProblem, CGProblem, Plan,
+                                  StencilProblem, autotune, execute,
+                                  execute_sequential, plan_candidates)
+    from repro_torch.exec.adapters import CG_STEP_LAUNCHES
+    from repro_torch.kernels import ops, ref, vdot as kvdot
+    from repro_torch.kernels.common import BENCHMARKS, get_spec
+    from repro_torch.runtime.solver_service import (ServiceConfig,
+                                                    SolverService)
+    from repro_torch.sparse.generate import poisson2d
+
+    card = card_line()
+    errs = {k: 0.0 for k in BATCH_KERNELS}
+    timing = {}
+
+    def keep(k, e):
+        errs[k] = max(errs[k], e)
+
+    def vecs(b, n):
+        return torch.from_numpy(
+            rng.standard_normal((b, n)).astype(np.float32)).cuda()
+
+    def same(what, got, want):
+        ok = all(torch.equal(g, w) for g, w in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        if not ok:
+            print(f"  {what}: not bit-equal FAIL")
+            FAILS.append(f"{what} is not bit-equal")
+        return ok
+
+    # -- 14. the batched launches ---------------------------------------------------
+    print(f"[batch kernels] {card}: every Table-III spec, f32 and bf16, "
+          f"B={BATCH_B}: one batched stencil_step launch against "
+          f"{BATCH_B} single launches and the plain version, bit for bit")
+    n_ok = 0
+    for name, spec in BENCHMARKS.items():
+        shape = (384, 320) if spec.ndim == 2 else (48, 40, 36)
+        for dt in (torch.float32, torch.bfloat16):
+            xs = torch.from_numpy(rng.standard_normal(
+                (BATCH_B,) + shape).astype(np.float32)).cuda().to(dt)
+            got = ops.stencil_baseline_step(xs, spec=spec)
+            ok = same(f"{name} {dt} batched stencil_step vs single",
+                      got, torch.stack([ops.stencil_baseline_step(
+                          xs[i], spec=spec) for i in range(BATCH_B)]))
+            want = ref.stencil_step(xs, spec)
+            ok &= same(f"{name} {dt} batched stencil_step vs plain", got,
+                       want)
+            keep("stencil_baseline_step_batched",
+                 (got.double() - want.double()).abs().max().item())
+            n_ok += ok
+    print(f"  {n_ok} of {2 * len(BENCHMARKS)} bit-equal")
+    cell, sname, shape, B, steps = BATCH_CELLS[0]
+    spec = get_spec(sname)
+    xs = vecs(B, math.prod(shape)).view((B,) + shape)
+    out = torch.empty_like(xs)
+    run = lambda: ops.stencil_baseline_step(xs, spec=spec, out=out)
+    w = torch.zeros((1, 1, 3, 3), device=xs.device)
+    for (d0, d1), wt in zip(spec.offsets, spec.weights):
+        w[0, 0, d0 + 1, d1 + 1] = wt
+    conv = lambda: torch.nn.functional.conv2d(xs[:, None], w)
+    dom = math.prod(shape) * 4
+    timing["stencil_baseline_step_batched"] = dict(
+        B=B, shape=shape, ms=cuda_ms(run, 20), graph_ms=graph_ms(run),
+        host_us=host_us(run),
+        plain_ms=cuda_ms(lambda: ref.stencil_step(xs, spec), 5),
+        bound=(max(1e3 * 2 * B * dom / HBM_BW, bound(spec, shape, B, 0)[0]),
+               "bytes" if 2 * B * dom / HBM_BW >= bound(spec, shape, B, 0)[0]
+               / 1e3 else "operations"),
+        library_ms=cuda_ms(conv, 20))
+    print(f"  stencil_step {sname} B={B} x {shape} f32: "
+          f"{json.dumps(timing['stencil_baseline_step_batched'])}")
+
+    csr = poisson2d(1024)
+    ell = csr.to_ell()
+    data = torch.from_numpy(ell.data).cuda()
+    cols = torch.from_numpy(ell.cols).cuda()
+    n = data.shape[0]
+    print(f"[batch kernels] {card}: spmv_ell on poisson2d(1024) (n={n}), "
+          f"B in {SPMV_LANES}: one launch against B single launches and "
+          f"the plain version, bit for bit")
+    for b in SPMV_LANES:
+        x = vecs(b, n)
+        got = ops.spmv(data, cols, x)
+        same(f"spmv_ell B={b} vs single", got,
+             torch.stack([ops.spmv(data, cols, x[i]) for i in range(b)]))
+        want = ref.spmv_ell(data, cols, x)
+        same(f"spmv_ell B={b} vs plain", got, want)
+        keep("spmv_ell_batched", (got - want).abs().max().item())
+        if b == max(SPMV_LANES):
+            sp = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr.astype(np.int32)).cuda(),
+                torch.from_numpy(csr.indices.astype(np.int32)).cuda(),
+                torch.from_numpy(csr.data).cuda(), size=csr.shape)
+            xt = x.t().contiguous()
+            run = lambda: ops.spmv(data, cols, x)
+            timing["spmv_ell_batched"] = dict(
+                B=b, ms=cuda_ms(run, 20), graph_ms=graph_ms(run),
+                host_us=host_us(run),
+                single_graph_ms=graph_ms(lambda: ops.spmv(data, cols, x[0])),
+                plain_ms=cuda_ms(lambda: ref.spmv_ell(data, cols, x), 5),
+                bound=spmv_bound(b * n, b * n, ell.data.size, 0),
+                library_ms=cuda_ms(lambda: sp @ xt, 20))
+            print(f"  spmv_ell B={b}: "
+                  f"{json.dumps(timing['spmv_ell_batched'])}")
+
+    a, c = vecs(8, n), vecs(8, n)
+    got = ops.vdot(a, c)
+    same("vdot B=8 vs single", got, torch.stack(
+        [ops.vdot(a[i].contiguous(), c[i].contiguous()) for i in range(8)]))
+    want = (a.double() * c.double()).sum(-1)
+    keep("vdot", check_close("vdot B=8 against float64", got, want, 1e-5,
+                             1e-3))
+    run = lambda: ops.vdot(a, c)
+    timing["vdot"] = dict(
+        B=8, n=n, ms=cuda_ms(run, 20), graph_ms=graph_ms(run),
+        host_us=host_us(run),
+        single_graph_ms=graph_ms(lambda: ops.vdot(a[0], c[0])),
+        plain_ms=cuda_ms(lambda: kvdot.plain_vdot(a, c), 20),
+        bound=(1e3 * 2 * 8 * n * 4 / HBM_BW, "bytes"),
+        library_ms=cuda_ms(lambda: torch.linalg.vecdot(a, c), 20))
+    print(f"  vdot B=8 n={n}: {json.dumps(timing['vdot'])}")
+
+    csr_s = poisson2d(512)
+    ell_s = csr_s.to_ell()
+    ds = torch.from_numpy(ell_s.data).cuda()
+    cs = torch.from_numpy(ell_s.cols).cuda()
+    ns = ds.shape[0]
+    print(f"[batch kernels] {card}: cg_fused on poisson2d(512) (n={ns}), "
+          f"MIX with A on chip, {CG_ITERS} iterations, B in {CG_LANES}: x "
+          f"and rr against B single-instance launches (bit for bit) and "
+          f"a float64 plain run")
+    for b in CG_LANES:
+        bs = vecs(b, ns)
+        x, rr = ops.cg(ds, cs, bs, iters=CG_ITERS)
+        for i in range(b):
+            x1, rr1 = ops.cg(ds, cs, bs[i].contiguous(), iters=CG_ITERS)
+            same(f"cg_fused B={b} lane {i} vs single", (x[i], rr[i]),
+                 (x1, rr1[0]))
+            x32, rr32 = ref.cg_run(ds, cs, bs[i], CG_ITERS)
+            x64, rr64 = ref.cg_run(ds.double(), cs, bs[i].double(), CG_ITERS)
+            keep("cg_fused_batched", check_x64(
+                f"cg_fused B={b} lane {i} x", x[i], x32, x64))
+            check_rr(f"cg_fused B={b} lane {i} rr", rr[i], [rr32], rr64,
+                     float(torch.dot(bs[i].double(), bs[i].double())))
+        if b == max(CG_LANES):
+            run = lambda: ops.cg(ds, cs, bs, iters=CG_ITERS)
+            moved = (ell_s.data.size * 8 + b * (ns * 4 * 2 + 4))
+            ops_ = CG_ITERS * b * (2 * ell_s.data.size + 10 * ns)
+            t_b, t_o = moved / HBM_BW, ops_ / FP32_FLOPS
+            timing["cg_fused_batched"] = dict(
+                B=b, ms=cuda_ms(run, 3), graph_ms=graph_ms(run, 3),
+                single_ms=cuda_ms(lambda: ops.cg(ds, cs, bs[0],
+                                                 iters=CG_ITERS), 3),
+                plain_ms=cuda_ms(lambda: [ref.cg_run(ds, cs, bs[i], CG_ITERS)
+                                          for i in range(b)], 1),
+                bound=(1e3 * max(t_b, t_o),
+                       "bytes" if t_b >= t_o else "operations"),
+                library_ms=None)
+            print(f"  cg_fused B={b}: "
+                  f"{json.dumps(timing['cg_fused_batched'])}")
+
+    # -- 15. the batched path, counted ----------------------------------------------
+    print(f"[batch path] {card}: counters set to 0; every tier the planner "
+          f"offers, batched against execute_sequential, per-instance ms")
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    for cell, what, size, B, steps in BATCH_CELLS:
+        # the instances share their step function (with_payload), so the
+        # sequential device loop replays one kept graph, as the batch does
+        if cell == "stencil-batch":
+            first = StencilProblem(vecs(1, math.prod(size)).view(size),
+                                   get_spec(what), steps)
+            insts = [first] + [first.with_payload(
+                vecs(1, math.prod(size)).view(size)) for _ in range(B - 1)]
+        else:
+            csr = poisson2d(size)
+            ell = csr.to_ell()
+            seed_rng = np.random.default_rng(SEED)
+            rhs = [seed_rng.standard_normal(csr.shape[0]).astype(np.float32)
+                   for _ in range(B)]
+            first = CGProblem.from_ell(ell.data, ell.cols, rhs[0], steps,
+                                       matrix=csr)
+            insts = [first] + [first.with_payload(
+                torch.from_numpy(v).cuda()) for v in rhs[1:]]
+        bp = BatchedProblem.from_instances(insts)
+        # one batched step's launches against one single-instance step's
+        n_launch = {}
+        for what_, prob in (("batched", bp), ("single", insts[0])):
+            state = prob.initial_state()
+            bufs = tuple(torch.empty_like(t) for t in state) if isinstance(
+                state, tuple) else torch.empty_like(state)
+            before = ops.launch_counts()
+            with LaunchCount() as lc:
+                prob.step_fn()(state, bufs)
+            torch.cuda.synchronize()
+            ours = {k: v - before[k] for k, v in ops.launch_counts().items()
+                    if v != before[k] and not k.endswith("_batched")}
+            n_launch[what_] = (lc.n + sum(ours.values()), ours)
+        want_n = 1 if cell == "stencil-batch" else CG_STEP_LAUNCHES
+        ok = n_launch["batched"][0] == n_launch["single"][0] == want_n
+        print(f"  {cell}: launches of one step: batched B={B} "
+              f"{n_launch['batched'][0]} (the port's kernels "
+              f"{n_launch['batched'][1]}, the rest torch's), one instance "
+              f"{n_launch['single'][0]} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            FAILS.append(f"{cell}: a batched step launched {n_launch}")
+        cands = plan_candidates(bp)
+        for p in cands:
+            single = dataclasses.replace(p, batch=1, problem="")
+            out = execute(bp, p)
+            seq = execute_sequential(insts, single)
+            good = all(same(f"{cell} {p.tier}/{p.policy} lane {i}", g, w)
+                       for i, (g, w) in enumerate(zip(bp.split(out), seq)))
+            ms = cuda_ms(lambda: execute(bp, p), 2)
+            seq_ms = cuda_ms(lambda: execute_sequential(insts, single), 1)
+            print("  " + json.dumps(dict(
+                cell=cell, B=B, tier=p.tier, policy=p.policy,
+                bit_equal=good, batched_ms=ms, per_instance_ms=ms / B,
+                sequential_per_instance_ms=seq_ms / B,
+                predicted_ms=1e3 * p.predicted_s)))
+        perks.clear_graphs()
+    launches = ops.launch_counts()
+    print(f"[batch path] launches {json.dumps(launches)}")
+    for k in BATCH_KERNELS:
+        if launches[k] == 0:
+            FAILS.append(f"{k} was not launched on the batched path")
+
+    # -- 16. the service ------------------------------------------------------------
+    print(f"[service] {card}: SolverService(max_batch=8), "
+          f"{SERVICE_STENCILS} stencil requests (2d5pt {SERVICE_SHAPE} x "
+          f"{SERVICE_STEPS}) and {SERVICE_CGS} CG requests (poisson2d(512), "
+          f"{CG_ITERS} iterations, tol 1e-8) interleaved")
+    reg = obs.MetricsRegistry()
+    svc = SolverService(ServiceConfig(max_batch=8), metrics=reg)
+    spec = get_spec("2d5pt")
+    csr = poisson2d(512)
+    ell = csr.to_ell()
+    d = torch.from_numpy(ell.data).cuda()
+    c = torch.from_numpy(ell.cols).cuda()
+    reqs = {}
+    for i in range(max(SERVICE_STENCILS, SERVICE_CGS)):
+        if i < SERVICE_STENCILS:
+            p = StencilProblem(vecs(1, math.prod(SERVICE_SHAPE)).view(
+                SERVICE_SHAPE), spec, SERVICE_STEPS)
+            reqs[svc.submit(p)] = p
+        if i < SERVICE_CGS and i % 2 == 0:
+            for _ in range(2):
+                p = CGProblem.from_ell(d, c, vecs(1, d.shape[0])[0],
+                                       CG_ITERS, matrix=csr, tol=1e-8)
+                reqs[svc.submit(p)] = p
+    perks.clear_graphs()
+    with obs.use_metrics(reg):
+        results = svc.drain()
+    print(f"  stats {json.dumps(svc.stats())}")
+    for key, p in svc.chosen_plans().items():
+        print(f"  key {key[2][0]}: plan {p.to_json(indent=None)}")
+    snap = reg.snapshot()
+    caps = {k: v for k, v in snap.items()
+            if k.startswith("service_graph_captures_total")}
+    print(f"  graph captures per key: {json.dumps(caps)}")
+    for k, v in caps.items():
+        if "stencil" in k and v != 1:
+            FAILS.append(f"service key {k} captured {v} graphs, not one")
+    n_same = 0
+    for rid, p in reqs.items():
+        rr = results[rid]
+        alone = execute(p, dataclasses.replace(rr.plan, batch=1,
+                                               problem=""))
+        n_same += same(f"service request {rid} vs its own execute",
+                       rr.result, alone)
+    print(f"  {n_same} of {len(reqs)} results bit-equal to their own "
+          f"execute")
+    for ln in reg.prometheus_text().splitlines():
+        if ln.startswith(("service_", "executor_")):
+            print(f"  prom {ln}")
+    perks.clear_graphs()
+
+    # -- 17. tracing --------------------------------------------------------------------
+    print(f"[obs] {card}: a traced execute against an untraced one")
+    xs = vecs(1, 2048 * 2048).view(2048, 2048)
+    sp = StencilProblem(xs, spec, 100)
+    cp = CGProblem.from_ell(d, c, vecs(1, d.shape[0])[0], CG_ITERS,
+                            matrix=csr, tol=1e-8)
+    tr = obs.Tracer()
+    for prob, p in ((sp, Plan(tier="device_loop")),
+                    (sp, Plan(tier="host_loop")),
+                    (cp, Plan(tier="host_loop", sync_every=25)),
+                    (cp, Plan(tier="resident", policy="MIX"))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            base = execute(prob, p)
+            with obs.use_tracer(tr):
+                traced = execute(prob, p)
+        same(f"traced execute {prob.name} {p.tier}", traced, base)
+    doc = tr.to_chrome()
+    print(f"  Chrome trace: {len(doc['traceEvents'])} events, by category "
+          f"{json.dumps({k: len(tr.by_cat(k)) for k in obs.CATEGORIES})}")
+    perks.clear_graphs()
+
+    # -- 18. autotune ---------------------------------------------------------------------
+    print(f"[autotune] {card}: autotune(top_k=4), median of 3 after 1 "
+          f"warm-up, each candidate's predicted and measured ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ledger.json")
+        for sname, shape, steps in AUTOTUNE:
+            prob = StencilProblem(vecs(1, math.prod(shape)).view(shape),
+                                  get_spec(sname), steps)
+            led = obs.DriftLedger(path)
+            res = autotune(prob, top_k=4, ledger=led)
+            for row in res.table:
+                print("  " + json.dumps(dict(
+                    problem=obs.problem_key(prob),
+                    plan=obs.plan_signature(row.plan),
+                    predicted_ms=1e3 * row.predicted_s,
+                    measured_ms=1e3 * row.measured_s,
+                    ratio=row.prediction_ratio)))
+            print(f"  {sname} {shape}: best "
+                  f"{obs.plan_signature(res.best)}; planner's pick "
+                  f"{obs.plan_signature(res.table[0].plan)}")
+            perks.clear_graphs()      # the planner prices as it did first
+            again = obs.DriftLedger(path)
+            res2 = autotune(prob, top_k=4, ledger=again)
+            print(f"  second autotune against the same ledger file: "
+                  f"hits={again.hits} misses={again.misses}")
+            if again.hits != len(res.table) or (obs.plan_signature(
+                    res2.best) != obs.plan_signature(res.best)):
+                FAILS.append(f"autotune {sname} measured again")
+            perks.clear_graphs()
+        drift = obs.DriftLedger(path).drift_report()
+        print(f"  drift report (ratio beyond 4x): "
+              f"{json.dumps([(r['plan_signature'], r['prediction_ratio']) for r in drift])}")
+    return errs, timing, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2086,20 +2504,25 @@ def main() -> int:
     # -- 11-13. the ML kernels, the SSD scan path and the serving path ---------------
     ml_errs, ml_timing, ml_launches = ml_phases(rng)
 
-    # -- 14. report -------------------------------------------------------------------
+    # -- 14-18. batched launches and path, the service, tracing, autotune -------------
+    b_errs, b_timing, b_launches = batch_phases(rng)
+
+    # -- 19. report -------------------------------------------------------------------
     kernels = []
     for table, e, tm, ln in ((STENCIL_KERNELS, errs, timing, launches),
                              (CG_KERNELS, cg_errs, cg_timing, cg_launches),
                              (KRYLOV_KERNELS, kr_errs, kr_timing,
                               kr_launches),
-                             (ML_KERNELS, ml_errs, ml_timing, ml_launches)):
+                             (ML_KERNELS, ml_errs, ml_timing, ml_launches),
+                             (BATCH_KERNELS, b_errs, b_timing, b_launches)):
         for k, (source, replaces) in table.items():
             t = tm[k]
             kernels.append(dict(
                 name=k, route="cuda", source=source, replaces=replaces,
                 launches=ln[k], max_abs_err=e[k], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-                bound_by=t["bound"][1], library_ms=t["library_ms"]))
+                bound_by=t["bound"][1], library_ms=t["library_ms"],
+                graph_ms=t.get("graph_ms")))
     print(json.dumps({"kernels": kernels}))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,15 +44,33 @@ The ML serving path::
     problem = SSMScanProblem(x, dt, a, b, c, d, chunk=128)
     y = execute(problem, plan(problem))     # resident: ssm_scan
 
+Batching, serving and observability::
+
+    from repro_torch import BatchedProblem, ServiceConfig, SolverService
+    from repro_torch import obs
+
+    batch = BatchedProblem.from_instances([p1, p2, p3])   # same batch_key
+    xs = batch.split(execute(batch, plan(batch)))   # one launch a step
+    svc = SolverService(ServiceConfig(max_batch=8))
+    rid = svc.submit(problem)
+    results = svc.drain()                   # {request_id: RequestResult}
+    with obs.use_tracer(obs.Tracer()) as tr:
+        execute(problem, plan(problem))     # spans, events
+    best = autotune(problem, top_k=4, ledger=obs.DriftLedger("l.json")).best
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the plain torch versions of the kernels run.
 """
-from repro_torch.exec import (BiCGStabProblem, CGProblem,
+from repro_torch.exec import (BatchedProblem, BiCGStabProblem, CGProblem,
                               DecodeAttentionProblem, GMRESProblem, Plan,
-                              SSMScanProblem, StencilProblem, execute, plan)
+                              SSMScanProblem, StencilProblem, autotune,
+                              execute, execute_sequential, plan)
 from repro_torch.models.lm import Model
-from repro_torch.runtime.server import Engine
+from repro_torch.runtime.server import Engine, start_metrics_server
+from repro_torch.runtime.solver_service import ServiceConfig, SolverService
 
-__all__ = ["BiCGStabProblem", "CGProblem", "DecodeAttentionProblem",
-           "Engine", "GMRESProblem", "Model", "Plan", "SSMScanProblem",
-           "StencilProblem", "execute", "plan"]
+__all__ = ["BatchedProblem", "BiCGStabProblem", "CGProblem",
+           "DecodeAttentionProblem", "Engine", "GMRESProblem", "Model",
+           "Plan", "SSMScanProblem", "ServiceConfig", "SolverService",
+           "StencilProblem", "autotune", "execute", "execute_sequential",
+           "plan", "start_metrics_server"]

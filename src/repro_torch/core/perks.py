@@ -128,6 +128,7 @@ def capture(step_fn: StepFn, x: State, n_steps: int
     Returns the graph, the buffers (the graph writes them, so they must
     live as long as it does) and the state its last step writes; nothing
     has run until the graph is replayed."""
+    capture.count += 1
     bufs = _buffers(x)
     dev = _device(x)
     side = torch.cuda.Stream(device=dev)
@@ -142,6 +143,9 @@ def capture(step_fn: StepFn, x: State, n_steps: int
             cur = step_fn(cur, bufs[k % 2])
     return graph, bufs, cur
 
+
+#: Graphs captured in this process (a kept graph's replay adds none).
+capture.count = 0
 
 #: Captured device loops, least recently used first: (the step function's
 #: id, each state tensor's shape and dtype, device, steps) -> (graph, its

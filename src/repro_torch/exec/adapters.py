@@ -1,6 +1,10 @@
 """Problem adapters: the stencil and conjugate gradient described for the
-executor — the single-device part of ``repro/exec/adapters.py``. BiCGStab
-and GMRES(m) are in ``krylov.py``.
+executor — the single-device part of ``repro/exec/adapters.py``, with
+their batching surface (``exec/batch.py``): a batch of stencils steps in
+one ``stencil_step`` launch a step, a batch of CG right-hand sides on one
+ELL operator in one ``spmv_ell`` and one ``vdot`` launch for each SpMV and
+dot, and its resident tier is one ``cg_fused`` launch. BiCGStab and
+GMRES(m) are in ``krylov.py``.
 """
 from __future__ import annotations
 
@@ -211,6 +215,37 @@ class StencilProblem(Problem):
 
     def domain_bytes(self) -> int:
         return self.x.numel() * self.x.element_size()
+
+    # -- batching -------------------------------------------------------------
+
+    def payload(self):
+        return self.x
+
+    def with_payload(self, payload) -> "StencilProblem":
+        """This problem on the domain ``payload``, sharing its step
+        function (so its device loop's kept graphs)."""
+        copy = dataclasses.replace(self, x=payload)
+        object.__setattr__(copy, "_step", self._step)
+        return copy
+
+    def batch_key(self) -> tuple:
+        return ("stencil", self.spec.name, tuple(self.x.shape),
+                str(self.x.dtype).replace("torch.", ""), self.n_steps,
+                str(self.device))
+
+    def batched_tiers(self) -> tuple[str, ...]:
+        return ("host_loop", "device_loop")
+
+    def batched_step_fn(self):
+        # stencil_baseline_step takes [B, ...] as B domains in one launch
+        return self._step
+
+    batched_resident_missing = (
+        "batched resident stencil plans have no batched launch yet: "
+        "csrc/stencil_resident.cu, stencil_perks.cu, stencil_shallow.cu "
+        "and stencil_tb.cu take one domain a launch (ROADMAP, Queue 1: the "
+        "batched launches of the resident stencil kernels); a batched "
+        "stencil runs on the loop tiers")
 
     # -- tiers ----------------------------------------------------------------
 
@@ -445,9 +480,48 @@ class CGProblem(SharedSteps, Problem):
     def halo_spec(self) -> HaloSpec:
         return HaloSpec(axis=0, halo=0, partitions=("rows", "nnz"))
 
+    # -- batching -------------------------------------------------------------
+
+    def payload(self):
+        return self.b
+
+    def with_payload(self, payload) -> "CGProblem":
+        return self.with_rhs(payload)
+
+    def array_scales_with_batch(self, name: str) -> bool:
+        # the matrix is shared by every instance of a batch; the Krylov
+        # vectors are per-instance
+        return name != "A"
+
+    def batched_tiers(self) -> tuple[str, ...]:
+        if self.matvec is not None:
+            return ()
+        return ("host_loop", "device_loop", "resident")
+
+    def batched_step_fn(self):
+        """The loop tiers' step over (B, n) lanes: ``spmv_ell`` and
+        ``vdot`` take every lane in one launch, so a batched step makes
+        ``CG_STEP_LAUNCHES`` launches whatever B is."""
+        if self.matvec is not None:
+            raise NotImplementedError(
+                "batched CG over a matvec callable (a SELL-C-sigma operator "
+                "through csrc/spmv_sell.cu, or any opaque matvec) has no "
+                "batched launch yet (ROADMAP, Queue 1: the batched "
+                "spmv_sell); batch CG given as ELL planes")
+        # the ELL step takes (B, n) stacks as it takes vectors
+        return self._step
+
+    def run_resident_batched(self, payload, plan):
+        """``cg_fused`` over the B right-hand sides ``payload`` (B, n) in
+        one launch; returns (x (B, n), rr (B,))."""
+        check_fused(self, "CG")
+        return kops.cg(self.data, self.cols, payload, iters=self.n_steps,
+                       block_rows=plan.block_rows or 256,
+                       matrix_rows=self.resident_matrix_rows(plan))
+
     def batch_key(self) -> tuple:
         # instances share one batch iff they solve against the same
-        # operator with the same iteration budget (the batching slice)
+        # operator with the same iteration budget
         fp = operator_fingerprint(self.data, self.cols, self.matrix,
                                   self.matvec)
         return ("cg", fp, _operand_sig(self.data), _operand_sig(self.cols),

@@ -18,8 +18,10 @@ Not ported here: the distributed tier (``bicgstab_distributed``,
 ``gmres_distributed``, s-step CG: ``sstep_block``, ``cg_sstep_run``,
 ``cg_sstep_distributed``) comes with the multi-device slice, so
 ``run_distributed`` is the ``Problem`` default, which raises; the batching
-surface (``payload``, ``with_payload``, ``array_scales_with_batch``) comes
-with the batching slice.
+surface (``payload``, ``with_payload``, ``array_scales_with_batch``, a
+batched step) comes with the next slice, and until then a
+``BatchedProblem`` of them raises ``NotImplementedError`` naming the
+family.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """ML workloads as Problem adapters: LM decode and the Mamba2 SSD scan — the
 port of ``repro/exec/ml.py`` (single instances; the batching surface comes
-with the batching slice).
+with the next slice, and until then a ``BatchedProblem`` of them raises
+``NotImplementedError`` naming the family).
 
 * :class:`DecodeAttentionProblem` — token-by-token greedy decode. The time
   axis is the generated-token index; a step is ``models.lm.token_step``

@@ -1,6 +1,8 @@
 """``plan(problem)``: the planner of the port — the ``_stencil_candidates``,
 ``_cg_candidates`` and ``_ml_candidates`` branches of
-``repro/exec/planner.py`` for one instance on one card. The CG branch
+``repro/exec/planner.py`` on one card, for one instance or a batch of B
+in one dispatch (``batch=``, or a ``BatchedProblem``), re-ranked by the
+drift ledger where it has measured the candidates. The CG branch
 serves the Krylov family (``"cg"``, ``"bicgstab"``, ``"gmres"``) with the
 reference's gates: no VEC candidate for GMRES, and its MIX only when all
 of A fits beside the basis (the cycle kernel streams no row of A).
@@ -192,7 +194,15 @@ def _rank(cands: list[Plan]) -> list[Plan]:
 
 
 def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
-                        max_fuse: int) -> list[Plan]:
+                        max_fuse: int, batch: int = 1,
+                        runs=None, graph_kept: bool = False) -> list[Plan]:
+    """The stencil candidates of one instance ``problem``, priced for a
+    batch of ``batch`` of them in one dispatch (``runs``, the problem that
+    runs: the ``BatchedProblem`` itself, whose kept graph the device loop
+    looks for; ``graph_kept`` prices the device loop as a replay all the
+    same). A batch's memory traffic scales by B, its launches do not."""
+    runs = problem if runs is None else runs
+    B = batch
     shape = tuple(problem.x.shape)
     db = problem.x.element_size()
     cells = int(math.prod(shape))
@@ -202,13 +212,13 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
     r = problem.spec.radius
     base = project_host_loop(chip, n_steps=n, domain_cells=cells,
                              dtype_bytes=db)
-    common = dict(n_steps=n, problem=problem.name, chip=chip.name)
-    captures = 0 if perks.graph_cached(problem.step_fn(),
-                                       problem.initial_state(), n) else n
+    common = dict(n_steps=n, problem=runs.name, chip=chip.name, batch=B)
+    captures = 0 if graph_kept or perks.graph_cached(
+        runs.step_fn(), runs.initial_state(), n) else n
     cands = [
-        Plan(tier="host_loop", predicted_s=base.t_total
+        Plan(tier="host_loop", predicted_s=B * base.t_total
              + n * DISPATCH_OVERHEAD_S, predicted_bound=base.bound, **common),
-        Plan(tier="device_loop", predicted_s=base.t_total
+        Plan(tier="device_loop", predicted_s=B * base.t_total
              + (captures + 1) * DISPATCH_OVERHEAD_S,
              predicted_bound=base.bound, **common),
     ]
@@ -416,11 +426,39 @@ def cg_policy_from_arrays(arrays, budget_bytes: int) -> dict:
             "_plan": cplan}
 
 
+def _cg_lanes_fit(problem, chip: Chip, batch: int) -> bool:
+    """Whether ``csrc/cg_fused.cu`` holds x, r, p and Ap of ``batch``
+    right-hand sides of ``problem`` in one CTA an SM of ``chip`` (16 B a
+    row a lane and 128 B a lane of warp partials, 1 KB left for the
+    kernel's static shared memory; at most ``cg_fused.MAX_LANES`` lanes).
+    The share of A beside them is the B-scaled cache plan's, which the
+    kernel's wrapper checks again at launch."""
+    from repro_torch.kernels import cg_fused as kcg
+    if batch > kcg.MAX_LANES:
+        return False
+    stride = -(-problem.b.shape[0] // chip.sms)
+    need = (kcg.VECTOR_BYTES_PER_ROW * stride + kcg.WARP_PART_BYTES) * batch
+    return need <= chip.smem_per_block - 1024
+
+
 def _cg_candidates(problem, chip: Chip, *,
-                   sync_every: Optional[int]) -> list[Plan]:
+                   sync_every: Optional[int], batch: int = 1,
+                   runs=None, graph_kept: bool = False) -> list[Plan]:
+    """The Krylov candidates of one instance ``problem``, priced for a
+    batch of ``batch`` right-hand sides on its operator (``runs``: the
+    problem that runs). The Krylov vectors scale by B (footprint and
+    traffic), A does not: one resident copy serves every lane, and a
+    batched SpMV streams A once an iteration for the whole batch. Launches
+    are paid once a step for the batch; ``graph_kept`` prices the device
+    loop as the replay of its kept graph."""
     from repro_torch.exec.adapters import fused_block_rows
 
-    arrays = list(problem.cacheable_arrays())
+    runs = problem if runs is None else runs
+    arrays = [
+        a if not problem.array_scales_with_batch(a.name) or batch == 1
+        else dataclasses.replace(a, bytes=a.bytes * batch)
+        for a in problem.cacheable_arrays()
+    ]
     budget = int(chip.onchip_bytes * 0.9)
     pol = cg_policy_from_arrays(arrays, budget)
     cplan = pol["_plan"]
@@ -437,15 +475,15 @@ def _cg_candidates(problem, chip: Chip, *,
                       for a in arrays if a.name != "A")
     cache = tuple(CacheDecision(a.array.name, a.cached_bytes, a.array.bytes)
                   for a in cplan.assignments)
-    common = dict(n_steps=n, problem=problem.name, chip=chip.name,
-                  sync_every=sync_every)
+    common = dict(n_steps=n, problem=runs.name, chip=chip.name,
+                  sync_every=sync_every, batch=batch)
     launches = problem.step_launches()
     chunks = -(-n // sync_every) if sync_every and sync_every < n else 1
     # the device loop's launches: captured (with their first run) until
     # its graph is kept, then replayed
     launch_s = DISPATCH_OVERHEAD_S
-    if chunks == 1 and perks.graph_cached(problem.step_fn(),
-                                          problem.initial_state(), n):
+    if chunks == 1 and (graph_kept or perks.graph_cached(
+            runs.step_fn(), runs.initial_state(), n)):
         launch_s = GRAPH_LAUNCH_S
     cands = [
         Plan(tier="host_loop",
@@ -457,7 +495,11 @@ def _cg_candidates(problem, chip: Chip, *,
     ]
     kind = problem.kind
     rounds_s = n * krylov_round_s(problem)
-    if problem.data is not None and pol["vector_fraction"] >= 1.0:
+    # a batch runs resident only where cg_fused's lanes hold it (whether
+    # the family has a batched resident launch at all is its
+    # batched_tiers(), the gate of plan_candidates)
+    if problem.data is not None and pol["vector_fraction"] >= 1.0 and (
+            batch == 1 or _cg_lanes_fit(problem, chip, batch)):
         bm = fused_block_rows(problem.b.shape[0])
         # cached bytes still move through on-chip memory every iteration
         # (Eq. 7)
@@ -487,15 +529,24 @@ def _cg_candidates(problem, chip: Chip, *,
 
 
 def _ml_candidates(problem, chip: Chip, *,
-                   sync_every: Optional[int]) -> list[Plan]:
+                   sync_every: Optional[int], batch: int = 1) -> list[Plan]:
     """Candidates for the ML problems (``exec/ml.py``), the reference's
     formulas for one instance: the loop tiers stream every
     ``cacheable_arrays`` byte each step, the resident tier all but the
     ``carry_names`` arrays' (kept on chip for the whole loop). Where the
     problem keeps its carry on chip on every tier
     (``carry_on_chip_every_tier``: the port's decode, whose every tier runs
-    the flash-decode kernel), no tier is charged the carry."""
-    arrays = list(problem.cacheable_arrays())
+    the flash-decode kernel), no tier is charged the carry. ``batch``
+    prices B instances in one dispatch: per-instance arrays scale by B,
+    the resident scratch must fit the per-instance budget
+    (``batch.per_instance_chip``)."""
+    from repro_torch.exec.batch import per_instance_chip
+
+    arrays = [
+        a if not problem.array_scales_with_batch(a.name) or batch == 1
+        else dataclasses.replace(a, bytes=a.bytes * batch)
+        for a in problem.cacheable_arrays()
+    ]
     n = problem.n_steps
     carry_names = frozenset(getattr(problem, "carry_names", ()))
     total = sum(a.bytes * (a.loads_per_step + a.stores_per_step)
@@ -512,7 +563,7 @@ def _ml_candidates(problem, chip: Chip, *,
         # the reference's
         sync_every = min(8, max(1, n - 1))
     common = dict(n_steps=n, problem=problem.name, chip=chip.name,
-                  sync_every=sync_every)
+                  sync_every=sync_every, batch=batch)
     cands = [
         Plan(tier="host_loop",
              predicted_s=n * (total / chip.hbm_bw + DISPATCH_OVERHEAD_S),
@@ -524,7 +575,8 @@ def _ml_candidates(problem, chip: Chip, *,
     # RESIDENT: the whole loop in one fused program with the carry on chip;
     # never with a convergence check (it has no host-sync point)
     if (not has_sync and n > 0
-            and problem.resident_scratch_bytes() <= chip.onchip_bytes * 0.9):
+            and problem.resident_scratch_bytes()
+            <= per_instance_chip(chip, batch).onchip_bytes * 0.9):
         t_gm = n * max(0.0, total - carry) / chip.hbm_bw
         t_sm = sm_bytes_accessed(n, carry_bytes) / chip.onchip_bw
         cands.append(Plan(
@@ -540,38 +592,98 @@ def _ml_candidates(problem, chip: Chip, *,
 def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
                     max_fuse: int = 4, sub_rows: int = 128,
                     budget_bytes: Optional[int] = None,
-                    sync_every: Optional[int] = None) -> list[Plan]:
+                    sync_every: Optional[int] = None, batch: int = 1,
+                    ledger=None) -> list[Plan]:
     """Every candidate Plan for ``problem``, ranked by projected time.
     Planning reads shapes only; it launches nothing. ``max_fuse`` caps the
     shallow stencil depth; ``budget_bytes`` replaces the card's on-chip
     capacity (the reference's proxy regimes); ``sync_every`` sets CG's
-    host-check cadence."""
+    host-check cadence.
+
+    ``batch`` plans for B instances served by ONE dispatch
+    (``repro_torch.exec.batch``): per-step traffic and per-instance
+    on-chip budgets scale with B, launches and barriers do not. A
+    :class:`~repro_torch.exec.batch.BatchedProblem` gives its own B. A
+    batch is offered the tiers of the family's ``batched_tiers()`` only
+    (not the resident stencil kernels, which have no batched launch yet).
+
+    ``ledger`` (default: the ambient ``repro_torch.obs.get_ledger()``)
+    re-ranks with measured evidence: candidates the drift ledger has timed
+    on this device with this torch outrank the projected ones, in order of
+    their measured seconds."""
+    return _candidates(problem, chip=chip, max_fuse=max_fuse,
+                       sub_rows=sub_rows, budget_bytes=budget_bytes,
+                       sync_every=sync_every, batch=batch, ledger=ledger)
+
+
+def _candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
+                max_fuse: int = 4, sub_rows: int = 128,
+                budget_bytes: Optional[int] = None,
+                sync_every: Optional[int] = None, batch: int = 1,
+                ledger=None, graph_kept: bool = False) -> list[Plan]:
+    """``plan_candidates``; with ``graph_kept`` a device loop is priced as
+    the replay of its kept graph even where none is kept yet, for
+    ``SolverService``, which runs every later batch of a key through the
+    key's first runner and so pays the capture once."""
+    from repro_torch import obs
+    from repro_torch.exec.batch import BatchedProblem
+
     chip = _budget_chip(_as_chip(chip), budget_bytes)
-    if problem.batch != 1:
-        raise NotImplementedError("batched planning is not ported yet "
-                                  "(ROADMAP)")
-    if problem.kind == "stencil":
-        cands = _stencil_candidates(problem, chip, sub_rows=sub_rows,
-                                    max_fuse=max_fuse)
-    elif problem.kind in ("cg", "bicgstab", "gmres"):
-        cands = _cg_candidates(problem, chip, sync_every=sync_every)
-    elif problem.kind in ("decode", "ssm"):
-        cands = _ml_candidates(problem, chip, sync_every=sync_every)
+    if max_fuse < 1:
+        raise ValueError(f"max_fuse must be >= 1, got {max_fuse}")
+    template = problem
+    if isinstance(problem, BatchedProblem):
+        if batch not in (1, problem.batch):
+            raise ValueError(
+                f"batch={batch} conflicts with problem.batch="
+                f"{problem.batch}")
+        batch = problem.batch
+        template = problem.template
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if template.kind == "stencil":
+        cands = _stencil_candidates(template, chip, sub_rows=sub_rows,
+                                    max_fuse=max_fuse, batch=batch,
+                                    runs=problem, graph_kept=graph_kept)
+    elif template.kind in ("cg", "bicgstab", "gmres"):
+        cands = _cg_candidates(template, chip, sync_every=sync_every,
+                               batch=batch, runs=problem,
+                               graph_kept=graph_kept)
+    elif template.kind in ("decode", "ssm"):
+        cands = _ml_candidates(template, chip, sync_every=sync_every,
+                               batch=batch)
     else:
         raise NotImplementedError(
-            f"no candidate generator for problem kind {problem.kind!r}")
-    return _rank([c for c in cands if problem.supports(c.tier)])
+            f"no candidate generator for problem kind {template.kind!r}")
+    # the one gate of what a batch runs: its family's batched tiers
+    supports = (problem.supports if batch == 1 else
+                (lambda tier: tier in template.batched_tiers()))
+    cands = _rank([c for c in cands if supports(c.tier)])
+    if ledger is None:
+        ledger = obs.get_ledger()
+    if ledger is not None:
+        cands = ledger.rerank(problem, cands)
+    tr = obs.get_tracer()
+    if tr.enabled and cands:
+        tr.event(f"plan:{problem.name}", cat="plan", track="planner",
+                 n_candidates=len(cands), best_tier=cands[0].tier,
+                 best_predicted_s=cands[0].predicted_s, batch=batch)
+    return cands
 
 
 def plan(problem: Problem, *, chip: Union[str, Chip] = "h100",
          max_fuse: int = 4, sub_rows: int = 128,
          budget_bytes: Optional[int] = None,
-         sync_every: Optional[int] = None) -> Plan:
-    """The planner's top candidate for ``problem``."""
+         sync_every: Optional[int] = None, batch: int = 1,
+         ledger=None) -> Plan:
+    """The planner's top candidate for ``problem``: the lowest measured
+    time where the drift ledger has evidence, the lowest projected time
+    otherwise."""
     return plan_candidates(problem, chip=chip, max_fuse=max_fuse,
                            sub_rows=sub_rows,
                            budget_bytes=budget_bytes,
-                           sync_every=sync_every)[0]
+                           sync_every=sync_every, batch=batch,
+                           ledger=ledger)[0]
 
 
 def cg_policy(n_rows: Optional[int] = None, nnz: Optional[int] = None,

@@ -6,11 +6,15 @@ the recurrences re-ground on ||r||^2-scale quantities whose accumulated
 error grows as O(n eps). ``precision="mixed"`` keeps the SpMV in the
 storage dtype and hardens only the dots:
 
-* ``"uniform"`` reduces in the storage dtype with ``torch.dot``;
+* ``"uniform"`` reduces in the storage dtype with ``kernels.vdot.vdot``:
+  ``torch.dot`` on the CPU, on the card ``csrc/vdot.cu``, whose order of
+  additions depends on the length only, so one pair and a lane of a
+  ``[B, n]`` batch (the batched tier, ``exec/batch.py``) give the same
+  bits;
 * ``"mixed"`` takes the reference's float64 branch (``jax_enable_x64``):
-  both operands cast to float64, one float64 dot, one rounding back. The
-  float32 products are exact in float64, so only the final rounding
-  remains. The H100 has native float64, and this is three casts and one
+  both operands cast to float64, one float64 dot (``vdot`` again), one
+  rounding back. The float32 products are exact in float64, so only the
+  final rounding remains. The H100 has native float64, and this is three casts and one
   dot with no host read, so a CUDA graph holds it. The reference's other
   branch, a Neumaier scan over 256-element block partials, is not ported:
   in torch it would put n/256 sequential launches into every dot, and its
@@ -29,23 +33,26 @@ from typing import Callable
 import torch
 
 from repro_torch.exec.plan import PRECISIONS
+from repro_torch.kernels.vdot import vdot
 
 
 def compensated_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A float64 dot rounded once to ``a``'s dtype (0-dim, on ``a``'s
-    device); not a compensated sum: the name is the reference's, kept so
-    the two packages name the mixed-precision dot alike."""
-    return torch.dot(a.double(), b.double()).to(a.dtype)
+    """A float64 dot rounded once to ``a``'s dtype (0-dim, or ``[B]`` for
+    ``[B, n]`` stacks, on ``a``'s device); not a compensated sum: the name
+    is the reference's, kept so the two packages name the mixed-precision
+    dot alike."""
+    return vdot(a.double(), b.double()).to(a.dtype)
 
 
 def dot_for(precision: str) -> Callable[[torch.Tensor, torch.Tensor],
                                         torch.Tensor]:
     """The reduction the Krylov step functions use under ``precision``
-    ('uniform' -> ``torch.dot``, 'mixed' -> ``compensated_vdot``)."""
+    ('uniform' -> ``vdot``, 'mixed' -> ``compensated_vdot``); both take
+    vectors or ``[B, n]`` stacks."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
-    return compensated_vdot if precision == "mixed" else torch.dot
+    return compensated_vdot if precision == "mixed" else vdot
 
 
 def solve_refined(problem, plan, *, rounds: int = 2):

@@ -1,6 +1,7 @@
 """The ``Problem`` protocol: what a workload exposes to the executor — the
-port of ``repro/exec/problem.py`` (single-instance surface; the batching
-surface comes with the batching slice).
+port of ``repro/exec/problem.py``, with its batching surface
+(``payload``/``with_payload``/``batch_key``/``array_scales_with_batch``,
+read by ``exec/batch.py``).
 """
 from __future__ import annotations
 
@@ -45,6 +46,13 @@ def operand_fingerprint(*operands) -> str:
         if sample is not None:
             h = zlib.crc32(np.ascontiguousarray(sample).tobytes(), h)
     return f"{h:08x}"
+
+
+def _leaves(x) -> list:
+    """The tensors of a payload: a tensor, or a (nested) tuple of them."""
+    if isinstance(x, (tuple, list)):
+        return [t for e in x for t in _leaves(e)]
+    return [x]
 
 
 def _sample_elements(a, shape, k: int = 16):
@@ -136,6 +144,66 @@ class Problem(abc.ABC):
     def domain_bytes(self) -> int:
         """Total bytes of the per-step working set."""
         return sum(a.bytes for a in self.cacheable_arrays())
+
+    # -- batching surface (repro_torch.exec.batch) -----------------------------
+
+    def payload(self) -> Any:
+        """The per-instance data that varies across a batch (a tensor or a
+        tuple of tensors). Everything else (operators, specs, step counts)
+        is shared by every instance of a batch; two instances may be
+        packed together only when their ``batch_key`` matches. Defaults to
+        the initial state."""
+        return self.initial_state()
+
+    def with_payload(self, payload: Any) -> "Problem":
+        """A copy of this problem carrying ``payload`` instead of its own
+        per-instance data (adapters implement it as a dataclass replace)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support batched execution "
+            f"(no with_payload)")
+
+    def batch_key(self) -> tuple:
+        """Hashable compatibility key: instances may share one batched
+        dispatch iff their keys are equal (same family, shapes, dtypes,
+        shared operands and step count). The default is conservative: the
+        shape and dtype of every payload tensor plus kind, name and
+        n_steps."""
+        return (self.kind, self.name, self.n_steps,
+                tuple((tuple(a.shape), _dtype_name(a))
+                      for a in _leaves(self.payload())))
+
+    def array_scales_with_batch(self, name: str) -> bool:
+        """Whether the cacheable array ``name`` grows with the batch
+        (per-instance state) or is shared by every instance (a common
+        operator). Default: everything is per-instance."""
+        return True
+
+    def batched_tiers(self) -> tuple[str, ...]:
+        """The tiers a batch of instances of this problem runs
+        (``exec.batch.BatchedProblem.supports``); none until the family
+        has its batched step."""
+        return ()
+
+    def batched_step_fn(self) -> Callable[[Any, Any], Any]:
+        """The step function over a stacked state (leading axis: the
+        instances), one dispatch a step for the whole batch, each lane
+        stepping exactly as its instance alone (``core.perks``'s
+        signature). Raises for a family without one."""
+        raise NotImplementedError(
+            f"{type(self).__name__} (family {self.kind!r}) has no batched "
+            f"execution in the port yet: its batching surface comes with "
+            f"the next slice (ROADMAP, Queue 1)")
+
+    #: Why a batch of this family runs no resident tier (the message of a
+    #: batched resident plan's ``NotImplementedError``, raised by
+    #: ``execute`` through ``BatchedProblem.unsupported``).
+    batched_resident_missing = "its resident kernel has no batched launch"
+
+    def run_resident_batched(self, payload: Any, plan) -> Any:
+        """The resident tier over B stacked payloads in one launch, for a
+        family whose ``batched_tiers()`` holds 'resident'."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no run_resident_batched")
 
     def with_precision(self, precision: str) -> "Problem":
         """A copy of this problem running under ``precision``; a problem

@@ -40,6 +40,7 @@ SOURCES = {
     "gmres_cycle_fused": "gmres_cycle_fused.cu",
     "ssm_scan": "ssm_scan.cu",
     "decode_attn": "decode_attn.cu",
+    "vdot": "vdot.cu",
 }
 HEADERS = ("stencil_common.cuh", "stencil_band.cuh", "stencil_async.cuh",
            "krylov_common.cuh")
@@ -122,7 +123,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures: library -> {function: (restype, argtypes)}
 _SIGNATURES = {
     "stencil_step": {
-        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _I, _P]),
+        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _I, _I, _P]),
     },
     "stencil_perks": {
         "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, PerksArgs,
@@ -153,14 +154,14 @@ _SIGNATURES = {
         "stencil_tb_max_row_cells": (_I, []),
     },
     "spmv_ell": {
-        "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "spmv_ell_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     },
     "spmv_sell": {
         "spmv_sell_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     },
     "cg_fused": {
         "cg_fused_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _P]),
+                                 _I, _I, _I, _I, _P]),
         "cg_fused_max_ctas": (_I, [_I, _IP]),
         "cg_fused_smem": (_I, [_IP, _IP]),
     },
@@ -182,6 +183,10 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _P]),
         "ssm_scan_workspace_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
         "ssm_scan_config": (_I, [_I, _I, _I, _I, _I, _I, _I, _IP]),
+    },
+    "vdot": {
+        "vdot_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "vdot_blocks_for": (_I, [_I]),
     },
     "decode_attn": {
         "decode_attn_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -307,30 +312,30 @@ MATRIX_BYTES_PER_SLOT = 8
 
 
 def layout(n: int, k: int, ctas: int, matrix_rows: int,
-           vector_bytes: int) -> tuple[int, int, int]:
+           vector_bytes: int, extra: int = 0) -> tuple[int, int, int]:
     """``(rows per CTA, cached A rows per CTA, dynamic shared memory bytes)``
     of a row-split cooperative Krylov kernel (``cg_fused``,
     ``bicgstab_fused``, ``gmres_cycle_fused``, each with its own
     ``vector_bytes`` per owned row) for ``n`` rows of ``k`` slots
     over ``ctas`` CTAs with ``matrix_rows`` rows of A kept on chip in
-    all."""
+    all, and ``extra`` bytes of the kernel's own before them."""
     stride = -(-n // ctas)
     ca = min(stride, -(-matrix_rows // ctas))
-    smem = vector_bytes * stride + MATRIX_BYTES_PER_SLOT * k * ca
+    smem = extra + vector_bytes * stride + MATRIX_BYTES_PER_SLOT * k * ca
     return stride, ca, smem
 
 
 def fit(lib: ctypes.CDLL, prefix: str, n: int, k: int, ctas: int,
         matrix_rows: int, vector_bytes: int,
-        vectors: str) -> tuple[int, int, int]:
+        vectors: str, extra: int = 0) -> tuple[int, int, int]:
     """``layout``, checked against the built kernel ``prefix``: raises
     ``ValueError`` with the capacity when a CTA cannot hold its rows'
     ``vectors`` (described for the message) and cached rows of A, or when
     ``ctas`` such CTAs are not co-resident."""
     limit = smem_limit(lib, prefix)
-    stride, ca, smem = layout(n, k, ctas, matrix_rows, vector_bytes)
+    stride, ca, smem = layout(n, k, ctas, matrix_rows, vector_bytes, extra)
     if smem > limit:
-        vec = vector_bytes * stride
+        vec = vector_bytes * stride + extra
         rows_cap = max(0, (limit - vec) // (MATRIX_BYTES_PER_SLOT * k))
         raise ValueError(
             f"{prefix} cannot hold this plan: {n} rows over {ctas} CTAs "
@@ -344,9 +349,10 @@ def fit(lib: ctypes.CDLL, prefix: str, n: int, k: int, ctas: int,
     return stride, ca, smem
 
 
-#: Values a tagged round of ``cg_fused`` or ``bicgstab_fused`` sums at most
-#: (``csrc/krylov_common.cuh`` ``KRY_TAG_VALUES``); ``gmres_cycle_fused``'s
-#: rounds sum up to ``KRY_WARPS`` = 32.
+#: Values a tagged round of ``bicgstab_fused`` sums at most
+#: (``csrc/krylov_common.cuh`` ``KRY_TAG_VALUES``); the rounds of
+#: ``gmres_cycle_fused`` and of ``cg_fused`` (one value a right-hand side)
+#: sum up to ``KRY_WARPS`` = 32.
 TAG_VALUES = 2
 
 

@@ -11,8 +11,8 @@
 // So every CTA holds the same sums, and a run repeats bit for bit: no
 // float atomics anywhere. The round is tagged_round, one trip through L2.
 // A launch's words hold kValues values a round (KRY_TAG_VALUES = 2 in
-// cg_fused.cu and bicgstab_fused.cu, KRY_WARPS = 32 for the projections of
-// gmres_cycle_fused.cu). Warp v writes the partial as one 64-bit word
+// bicgstab_fused.cu, KRY_WARPS = 32 for the projections of
+// gmres_cycle_fused.cu and for cg_fused.cu, one value a right-hand side). Warp v writes the partial as one 64-bit word
 // {value, round} with a release at gpu scope (after a block barrier, so it
 // also releases the block's earlier writes to device memory), and polls
 // the g words of value v with acquire loads, every lane's words in flight
@@ -101,7 +101,7 @@ static int kry_profile(unsigned long long* out) {
 #define KRY_PROF_END() do {} while (0)
 #endif
 
-#define KRY_TAG_VALUES 2                  // CG's and BiCGStab's values a round
+#define KRY_TAG_VALUES 2                  // BiCGStab's values a round
 #define KRY_MAX_GRID 160                  // CTAs a tagged round polls at most
 #define KRY_POLL (KRY_MAX_GRID / 32)      // words a lane polls at most
 #define KRY_WAIT_CYCLES (1LL << 34)       // a round waited for this long traps

@@ -32,6 +32,15 @@
 // (ref.spmv_ell), so the two agree bit for bit. cg_fused has its own SpMV.
 // Known cost, for later work: a thread reads its slots from shared memory
 // at a stride of K words, so an even K meets bank conflicts.
+//
+// Batched (kLanes): B right-hand sides on the one A, Y = A X, in ONE launch
+// that reads A once. The lanes are stored instance-major, x as [B, n_cols]
+// and y as [B, n] (the batched tier's public layout, so no transpose on
+// either side). A run's slots are staged once as above; a thread loads its
+// row's K columns and values from shared memory once, then for each lane
+// gathers that lane's x at those columns and sums in slot order, the
+// single-instance order, so each lane is bit-equal to its own launch.
+// Bound: A's bytes once, plus B times (x gathered once, y written once).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,17 +102,51 @@ __device__ __forceinline__ float row_sum(const float* ds, const int* cs,
     return acc;
 }
 
+// One row for every lane: the K columns and values read from shared
+// memory once, then each lane's gathers and its sum in slot order (the
+// order of row_sum, so each lane's y is bit-equal to a single launch's).
+template <int K>
+__device__ __forceinline__ void row_lanes(const float* ds, const int* cs,
+                                          const float* __restrict__ x,
+                                          float* __restrict__ y, int i, int n,
+                                          int ncols, int lanes, int k) {
+    if constexpr (K > 0) {
+        int col[K];
+        float av[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            col[j] = cs[j];
+            av[j] = ds[j];
+        }
+        for (int b = 0; b < lanes; ++b) {
+            const float* xb = x + (size_t)b * ncols;
+            float xv[K];
+#pragma unroll
+            for (int j = 0; j < K; ++j) xv[j] = __ldg(xb + col[j]);
+            float acc = 0.f;
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+                acc = __fadd_rn(acc, __fmul_rn(av[j], xv[j]));
+            y[(size_t)b * n + i] = acc;
+        }
+    } else {
+        for (int b = 0; b < lanes; ++b)
+            y[(size_t)b * n + i] = row_sum<0>(ds, cs, x + (size_t)b * ncols, k);
+    }
+}
+
 // Words of one plane of one run in shared memory (a 16-byte multiple).
 __host__ __device__ __forceinline__ int run_words(int R, int k) {
     return (R * k + 3) & ~3;
 }
 
 // blockDim.x = R rows a run. Shared memory: two buffers of [data | cols].
-template <int K>
+// kLanes: `lanes` right-hand sides, x [lanes, ncols] and y [lanes, n].
+template <int K, bool kLanes>
 __global__ void __launch_bounds__(SPMV_MAX_RUN)
 spmv_ell_kernel(const float* __restrict__ data, const int* __restrict__ cols,
                 const float* __restrict__ x, float* __restrict__ y, int n,
-                int k_rt, int runs) {
+                int k_rt, int runs, int lanes, int ncols) {
     const int k = K > 0 ? K : k_rt;
     const int R = blockDim.x, t = threadIdx.x;
     const int W = run_words(R, k);
@@ -129,18 +172,22 @@ spmv_ell_kernel(const float* __restrict__ data, const int* __restrict__ cols,
         const int i = run * R + t;
         if (i < n) {
             const uint32_t* b = sm + buf * 2 * W;
-            y[i] = row_sum<K>(reinterpret_cast<const float*>(b) + t * k,
-                              reinterpret_cast<const int*>(b + W) + t * k, x,
-                              k);
+            const float* ds = reinterpret_cast<const float*>(b) + t * k;
+            const int* cs = reinterpret_cast<const int*>(b + W) + t * k;
+            if constexpr (kLanes)
+                row_lanes<K>(ds, cs, x, y, i, n, ncols, lanes, k);
+            else
+                y[i] = row_sum<K>(ds, cs, x, k);
         }
         __syncthreads();    // the buffer is refilled by the next iteration
         buf ^= 1;
     }
 }
 
-template <int K>
+template <int K, bool kLanes>
 static int launch(const float* data, const int* cols, const float* x,
-                  float* y, int n, int k, int R, cudaStream_t stream) {
+                  float* y, int n, int k, int R, int lanes, int ncols,
+                  cudaStream_t stream) {
     const size_t smem = (size_t)2 * 2 * run_words(R, k) * sizeof(uint32_t);
     // the grid: as many CTAs as the card holds at once, asked once per
     // (device, rows, shared memory) of this instance
@@ -150,7 +197,7 @@ static int launch(const float* data, const int* cols, const float* x,
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (dev != c_dev || R != c_R || smem != c_smem) {
-        e = cudaFuncSetAttribute(spmv_ell_kernel<K>,
+        e = cudaFuncSetAttribute(spmv_ell_kernel<K, kLanes>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
         if (e != cudaSuccess) return (int)e;
@@ -158,24 +205,31 @@ static int launch(const float* data, const int* cols, const float* x,
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess) return (int)e;
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, spmv_ell_kernel<K>, R, smem);
+            &per_sm, spmv_ell_kernel<K, kLanes>, R, smem);
         if (e != cudaSuccess) return (int)e;
         if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
         c_dev = dev; c_R = R; c_smem = smem; c_blocks = per_sm * sms;
     }
     const int runs = (n + R - 1) / R;
-    spmv_ell_kernel<K><<<min(runs, c_blocks), R, smem, stream>>>(
-        data, cols, x, y, n, k, runs);
+    spmv_ell_kernel<K, kLanes><<<min(runs, c_blocks), R, smem, stream>>>(
+        data, cols, x, y, n, k, runs, lanes, ncols);
     return (int)cudaGetLastError();
 }
 
-// Launches on `stream` with runs of R rows (1 <= R <= 256); returns the
-// cudaError_t of the launch (0 = success).
+// Launches on `stream` with runs of R rows (1 <= R <= 256) for `lanes`
+// right-hand sides (x [lanes, ncols], y [lanes, n]; lanes = 1 is the
+// single-instance kernel); returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int spmv_ell_launch(const float* data, const int* cols,
                                const float* x, float* y, int n, int k, int R,
-                               cudaStream_t stream) {
-    if (n <= 0) return 0;
-    if (k < 0 || R < 1 || R > SPMV_MAX_RUN) return (int)cudaErrorInvalidValue;
-    if (k == 5) return launch<5>(data, cols, x, y, n, k, R, stream);
-    return launch<0>(data, cols, x, y, n, k, R, stream);
+                               int lanes, int ncols, cudaStream_t stream) {
+    if (n <= 0 || lanes == 0) return 0;
+    if (k < 0 || R < 1 || R > SPMV_MAX_RUN || lanes < 0)
+        return (int)cudaErrorInvalidValue;
+    if (lanes == 1) {
+        if (k == 5) return launch<5, false>(data, cols, x, y, n, k, R, 1, ncols, stream);
+        return launch<0, false>(data, cols, x, y, n, k, R, 1, ncols, stream);
+    }
+    if (k == 5) return launch<5, true>(data, cols, x, y, n, k, R, lanes, ncols, stream);
+    return launch<0, true>(data, cols, x, y, n, k, R, lanes, ncols, stream);
 }

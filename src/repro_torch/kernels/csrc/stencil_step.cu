@@ -18,6 +18,15 @@
 // unrolls and a thread's loads issue together.
 // Nothing survives the launch, which is the point of the host-loop
 // baseline (the paper's Fig. 3, left).
+//
+// Batched: B domains of the same shape, stored one after another
+// ([B, H, ...], the batched tier's stacked state), step in ONE launch. The
+// instance is the grid's z index: a block works inside one instance, so it
+// never mixes two instances' halos, and each cell's update is the same
+// function of the same neighbours as in a single-instance launch, so every
+// instance's result is bit-equal to its own launch (B = 1 is the
+// single-instance launch itself). The x/y grid shrinks with B to keep
+// about STEP_BLOCKS blocks. Bound: 2 * B * H * P * sizeof(T) bytes.
 #include "stencil_common.cuh"
 
 #define STEP_THREADS 256
@@ -35,6 +44,9 @@ stencil_step_kernel(const T* __restrict__ src, T* __restrict__ dst,
                     StencilArgs a) {
     __shared__ SpecShared s;
     load_spec(a, s);
+    const size_t inst = (size_t)blockIdx.z * a.H * a.P;   // this instance
+    src += inst;
+    dst += inst;
     step_rows<NPTS, STEP_STREAM_ROWS>(src, dst, a, s, blockIdx.y, gridDim.y,
                     blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
 }
@@ -53,17 +65,22 @@ static void launch_bf16(const void* src, void* dst, const StencilArgs& a,
         (const __nv_bfloat16*)src, (__nv_bfloat16*)dst, a);
 }
 
-// Launches on `stream` for elements of type `dtype` (STENCIL_F32 or
-// STENCIL_BF16); returns the cudaError_t of the launch (0 = success).
+// Launches on `stream` one step of `batch` domains stored one after
+// another (batch = 1: one domain) for elements of type `dtype`
+// (STENCIL_F32 or STENCIL_BF16); returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int stencil_step_launch(const void* src, void* dst, StencilArgs a,
-                                   int dtype, cudaStream_t stream) {
-    // About STEP_BLOCKS blocks: x across a row, y over rows (grid-stride).
+                                   int dtype, int batch, cudaStream_t stream) {
+    if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+    // About STEP_BLOCKS blocks: x across a row, y over rows (grid-stride),
+    // z over the instances.
     const int gx = min((a.P + STEP_THREADS - 1) / STEP_THREADS, 64);
-    const int gy = max(1, min(min(a.H, 65535), STEP_BLOCKS / gx));
+    const int gy = max(1, min(min(a.H, 65535), STEP_BLOCKS / (gx * batch)));
+    const dim3 grid(gx, gy, batch);
     if (dtype == STENCIL_BF16) {
-        STENCIL_DISPATCH_NPTS(a.npts, launch_bf16, src, dst, a, dim3(gx, gy), stream)
+        STENCIL_DISPATCH_NPTS(a.npts, launch_bf16, src, dst, a, grid, stream)
     } else {
-        STENCIL_DISPATCH_NPTS(a.npts, launch_f32, src, dst, a, dim3(gx, gy), stream)
+        STENCIL_DISPATCH_NPTS(a.npts, launch_f32, src, dst, a, grid, stream)
     }
     return (int)cudaGetLastError();
 }

@@ -20,6 +20,7 @@ from repro_torch.kernels import spmv_ell as _spmv
 from repro_torch.kernels import spmv_sell as _sell
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import stencil2d as _s2d
+from repro_torch.kernels import vdot as _vdot
 from repro_torch.kernels.common import StencilSpec
 
 #: kernel name -> (the wrapper that carries its launch counter, the
@@ -30,7 +31,9 @@ from repro_torch.kernels.common import StencilSpec
 #: counts all its launches, and those that loaded level 0 by TMA apart;
 #: ``stencil_resident`` those whose halo rows came by cp.async apart;
 #: ``decode_attention`` counts all its launches, and its tensor-core and
-#: CUDA-core kernels' apart
+#: CUDA-core kernels' apart; ``stencil_baseline_step``, ``spmv_ell`` and
+#: ``cg_fused`` count their batched launches (B instances a launch) apart
+#: too, as ``<name>_batched``
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
     "stencil_perks_window": (_s2d.stencil_perks, "window_launches"),
@@ -41,15 +44,20 @@ KERNELS = {
     "stencil_resident": (_s2d.stencil_resident, "launches"),
     "stencil_resident_async": (_s2d.stencil_resident, "async_launches"),
     "stencil_baseline_step": (_s2d.stencil_baseline_step, "launches"),
+    "stencil_baseline_step_batched": (_s2d.stencil_baseline_step,
+                                      "batched_launches"),
     "spmv_ell": (_spmv.spmv_ell, "launches"),
+    "spmv_ell_batched": (_spmv.spmv_ell, "batched_launches"),
     "spmv_sell": (_sell.spmv_sell, "launches"),
     "cg_fused": (_cg.cg_fused, "launches"),
+    "cg_fused_batched": (_cg.cg_fused, "batched_launches"),
     "bicgstab_fused": (_kry.bicgstab_fused, "launches"),
     "gmres_cycle_fused": (_kry.gmres_cycle_fused, "launches"),
     "ssm_scan": (_ssm.ssd_scan, "launches"),
     "decode_attention": (_da.decode_attention, "launches"),
     "decode_attention_tc": (_da.decode_attention, "tc_launches"),
     "decode_attention_cc": (_da.decode_attention, "cc_launches"),
+    "vdot": (_vdot.vdot, "launches"),
 }
 
 
@@ -87,6 +95,12 @@ def spmv(data: torch.Tensor, cols: torch.Tensor,
          x: torch.Tensor) -> torch.Tensor:
     """ELL SpMV, y = A @ x (the loop tiers' SpMV for ELL planes)."""
     return _spmv.spmv_ell(data, cols, x)
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product of two vectors, or of each lane of two ``[B, n]``
+    stacks in one launch, in an order that depends on n only."""
+    return _vdot.vdot(a, b)
 
 
 def spmv_sell(data: torch.Tensor, cols: torch.Tensor,

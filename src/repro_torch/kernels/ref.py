@@ -22,7 +22,14 @@ from repro_torch.kernels.common import StencilSpec
 
 def stencil_step(x: torch.Tensor, spec: StencilSpec,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One time step: interior updated, outermost ``radius`` cells frozen."""
+    """One time step: interior updated, outermost ``radius`` cells frozen.
+    ``x`` of rank ``spec.ndim + 1`` is ``[B, ...]``, B domains each stepped
+    on its own."""
+    if x.dim() == spec.ndim + 1:
+        out = torch.empty_like(x) if out is None else out
+        for i in range(x.shape[0]):
+            spec.apply(x[i], out=out[i])
+        return out
     return spec.apply(x, out=out)
 
 
@@ -44,10 +51,12 @@ def stencil_run(x: torch.Tensor, spec: StencilSpec, steps: int) -> torch.Tensor:
 def spmv_ell(data: torch.Tensor, cols: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for A in ELL format: ``data``/``cols`` (n_rows, K), padding
-    slots data 0 and column 0 (they add 0 * x[0] = 0). Slot order."""
-    acc = torch.zeros(data.shape[0], dtype=x.dtype, device=x.device)
+    slots data 0 and column 0 (they add 0 * x[0] = 0). Slot order. ``x`` of
+    shape (B, n_cols) gives (B, n_rows): each row of x on its own."""
+    acc = torch.zeros(x.shape[:-1] + (data.shape[0],), dtype=x.dtype,
+                      device=x.device)
     for j in range(data.shape[1]):
-        acc = acc + data[:, j] * x[cols[:, j]]
+        acc = acc + data[:, j] * x[..., cols[:, j]]
     return acc
 
 
@@ -84,6 +93,12 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(b.abs() > 0, a / b, 0.0)
 
 
+def _lanes(s: torch.Tensor) -> torch.Tensor:
+    """A scalar of a step as a factor of its vectors: a 0-dim tensor as
+    it is, a batch's (B,) lane scalars as a (B, 1) view (no launch)."""
+    return s.unsqueeze(-1) if s.dim() else s
+
+
 CGState = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -93,11 +108,13 @@ def cg_iteration_matvec(state: CGState,
                         out: Optional[CGState] = None) -> CGState:
     """One textbook CG iteration with a pluggable SpMV and reduction;
     state = (x, r, p, rr). With ``out`` (buffers like ``state``, not
-    aliasing it) x, r and p are written there; rr is always a new
-    tensor."""
+    aliasing it) x, r and p are written there; rr is always a new tensor.
+    A batched state (x, r, p of shape (B, n), rr of shape (B,); the matvec
+    and the dot taking such stacks) steps every lane as it would step
+    alone: alpha and beta are (B,) and scale their own lane's row."""
     x, r, p, rr = state
     ap = matvec(p)
-    alpha = _safe_div(rr, dot(p, ap))
+    alpha = _lanes(_safe_div(rr, dot(p, ap)))
     if out is None:
         x = x + alpha * p
         r = r - alpha * ap
@@ -105,7 +122,7 @@ def cg_iteration_matvec(state: CGState,
         x = torch.add(x, alpha * p, out=out[0])
         r = torch.sub(r, alpha * ap, out=out[1])
     rr_new = dot(r, r)
-    beta = _safe_div(rr_new, rr)
+    beta = _lanes(_safe_div(rr_new, rr))
     if out is None:
         p = r + beta * p
     else:

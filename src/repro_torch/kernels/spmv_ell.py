@@ -2,7 +2,8 @@
 
 ``spmv_ell(data, cols, x)`` computes y = A @ x for A in ELL format
 (``data`` float32 and ``cols`` int32, both (n_rows, K), rows padded with
-data 0 and column 0). A CPU tensor runs the plain torch version
+data 0 and column 0), or Y = A X for B right-hand sides x of shape
+(B, n_cols) in one launch (the batched CG loop tiers). A CPU tensor runs the plain torch version
 (``ref.spmv_ell``); a CUDA tensor launches ``csrc/spmv_ell.cu`` or raises —
 there is no fallback. The wrapper counts its launches in ``launches``.
 
@@ -84,24 +85,35 @@ def run_rows(k: int) -> int:
 
 def spmv_ell(data: torch.Tensor, cols: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x, A in ELL format: data/cols (n_rows, K), x (n_cols,)."""
+    """y = A @ x, A in ELL format: data/cols (n_rows, K), x (n_cols,).
+    ``x`` of shape (B, n_cols) gives y of shape (B, n_rows): B right-hand
+    sides in ONE launch that reads A once, each row bit-equal to its own
+    single launch."""
     check_ell(data, cols, "spmv_ell")
-    check_vector(x, data, "spmv_ell")
+    lanes = x.shape[0] if x.dim() == 2 else 1
+    check_vector(x[0] if x.dim() == 2 else x, data, "spmv_ell")
     if _build.is_cpu(data, "spmv_ell"):
         return ref.spmv_ell(data, cols, x)
+    if not x.is_contiguous():
+        raise TypeError("spmv_ell: the CUDA kernel takes contiguous "
+                        "right-hand sides")
     n, k = data.shape
-    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     lib = _build.load("spmv_ell")
     with _build.on_device(data):
         err = lib.spmv_ell_launch(data.data_ptr(), cols.data_ptr(),
                                   x.data_ptr(), out.data_ptr(), n, k,
-                                  run_rows(k), _build.stream())
+                                  run_rows(k), lanes, x.shape[-1],
+                                  _build.stream())
     _build.check(err, "spmv_ell_launch")
     spmv_ell.launches += 1
+    spmv_ell.batched_launches += x.dim() == 2
     return out
 
 
 spmv_ell.launches = 0
+#: the launches that took a batch of right-hand sides ((B, n_cols) x)
+spmv_ell.batched_launches = 0
 
 
 # -- host-side ELL construction helpers (numpy; data prep, not hot path) ------

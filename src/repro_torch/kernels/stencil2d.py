@@ -1194,11 +1194,17 @@ def stencil_baseline_step(
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One non-persistent time step (the host-loop baseline's kernel),
-    written into ``out`` when given (it must not alias ``x``). ``sub_rows``
-    is accepted for the reference's signature and not used."""
+    written into ``out`` when given (it must not alias ``x``). ``x`` is one
+    domain, or ``[B, ...]``: B domains of ``spec``'s rank stepped in ONE
+    launch (the batched tier), each bit-equal to its own launch.
+    ``sub_rows`` is accepted for the reference's signature and not used."""
+    batched = x.dim() == spec.ndim + 1
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_step(x, spec, out=out)
-    _check_cuda(x, spec)
+    dom = x[0] if batched else x
+    _check_cuda(dom, spec)
+    if not x.is_contiguous():
+        raise ValueError("the CUDA stencil kernels take contiguous tensors")
     if out is None:
         out = torch.empty_like(x)
     elif (out.shape != x.shape or out.dtype != x.dtype
@@ -1209,11 +1215,16 @@ def stencil_baseline_step(
     lib = _build.load("stencil_step")
     with _build.on_device(x):
         err = lib.stencil_step_launch(x.data_ptr(), out.data_ptr(),
-                                      stencil_args(spec, tuple(x.shape)),
-                                      DTYPES[x.dtype], _build.stream())
+                                      stencil_args(spec, tuple(dom.shape)),
+                                      DTYPES[x.dtype],
+                                      x.shape[0] if batched else 1,
+                                      _build.stream())
     _build.check(err, "stencil_step_launch")
     stencil_baseline_step.launches += 1
+    stencil_baseline_step.batched_launches += batched
     return out
 
 
 stencil_baseline_step.launches = 0
+#: the launches that stepped a batch ([B, ...]) of domains
+stencil_baseline_step.batched_launches = 0

@@ -1,2 +1,3 @@
 """Serving runtime of the port (``repro/runtime``): the batched ``Engine``
-with PERKS persistent decode (``server.py``)."""
+with PERKS persistent decode and the Prometheus ``MetricsServer``
+(``server.py``), and the batched ``SolverService`` (``solver_service.py``)."""

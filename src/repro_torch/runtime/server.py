@@ -11,20 +11,87 @@ card. The host-loop mode calls ``decode_step`` per token, for the
 comparison. The weights are cast to the compute dtype once, when the
 engine is made.
 
-The reference's ``MetricsServer`` and Prometheus counters wait for the
-observability slice (ROADMAP, Queue 1, item 4); ``run_batch`` still returns
-the stats dict.
+``run_batch`` returns the stats dict.
+
+:func:`start_metrics_server` serves any :class:`repro_torch.obs.MetricsRegistry`
+(the ambient one by default) over HTTP in the Prometheus text exposition
+format, from a daemon thread bound to the address the caller gives: point
+a scraper at ``GET /metrics``.
 """
 from __future__ import annotations
 
 import dataclasses
+import http.server
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.exec import DecodeAttentionProblem, execute, plan
 from repro_torch.models.lm import Model
+
+
+class MetricsServer:
+    """A daemon-threaded HTTP server serving one registry at /metrics."""
+
+    def __init__(self, registry: obs.MetricsRegistry, host: str, port: int):
+        self.registry = registry
+
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path.rstrip("/") != "/metrics":
+                    self.send_error(404, "only /metrics is served here")
+                    return
+                body = server.registry.prometheus_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):     # scrapes are not stdout events
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}/metrics"
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def start_metrics_server(registry: Optional[obs.MetricsRegistry] = None, *,
+                         host: str = "127.0.0.1",
+                         port: int = 0) -> MetricsServer:
+    """Serve ``registry`` (default: the ambient metrics registry) at
+    ``GET /metrics`` in Prometheus text format on ``host``:``port``
+    (``port=0`` picks a free port; read it back from ``.port``). The server
+    runs on a daemon thread; call ``.close()`` (or use it as a context
+    manager) to stop it."""
+    if registry is None:
+        registry = obs.get_metrics()
+    return MetricsServer(registry, host, port)
 
 
 @dataclasses.dataclass

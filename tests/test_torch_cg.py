@@ -280,7 +280,12 @@ def test_cg_problem_surface_matches_reference():
 
 def test_dot_for_runs_uniform_and_names_the_roadmap_for_mixed():
     from repro_torch.exec.precision import compensated_vdot
-    assert dot_for("uniform") is torch.dot
+    from repro_torch.kernels.vdot import vdot
+    # vdot: torch.dot on the CPU, csrc/vdot.cu (one order for a pair and
+    # for a lane of a batch) on the card
+    assert dot_for("uniform") is vdot
+    a, b = torch.from_numpy(_rhs(50)), torch.from_numpy(_rhs(50, seed=1))
+    assert torch.equal(vdot(a, b), torch.dot(a, b))
     assert dot_for("mixed") is compensated_vdot
     with pytest.raises(ValueError, match="precision"):
         dot_for("double")

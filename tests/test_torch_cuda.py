@@ -10,6 +10,8 @@ runs on a machine without them:
 Every test needs a CUDA device and skips, with its reason, where torch
 finds none.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -535,13 +537,17 @@ def test_cuda_cg_tiers_match_plain_version(cuda):
     cands = plan_candidates(p)
     assert {c.policy for c in cands if c.tier == "resident"} == {"VEC", "MIX"}
     perks.clear_graphs()
+    loop = None
     for pl in cands + [Plan(tier="device_loop"), Plan(tier="device_loop",
                                                       sync_every=7)]:
         x, rr = execute(p, pl)
         torch.testing.assert_close(x, want_x, **CG_TOL)
         torch.testing.assert_close(rr, want_rr, **CG_TOL)
-        if pl.tier != "resident":   # same step function, same order
-            assert torch.equal(x, want_x), pl
+        # the loop tiers run one step function (their dot is csrc/vdot.cu,
+        # the oracle's torch.dot): the same bits on every loop tier
+        if pl.tier != "resident":
+            loop = (x, rr) if loop is None else loop
+            assert torch.equal(x, loop[0]) and torch.equal(rr, loop[1]), pl
     assert perks.graph_cached(p.step_fn(), p.initial_state(), 25)
     before = ops.launch_counts()["spmv_ell"]
     execute(p, Plan(tier="device_loop"))        # a replay: no new launch
@@ -759,12 +765,15 @@ def test_cuda_krylov_tiers_match_plain_version(kind, cuda):
     assert {c.policy for c in cands if c.tier == "resident"} == (
         {"VEC", "MIX"} if kind == "bicgstab" else {"MIX"})
     perks.clear_graphs()
+    loop = None
     for pl in cands + [Plan(tier="device_loop"), Plan(tier="device_loop",
                                                       sync_every=7)]:
         x, rr = execute(p, pl)
         _hold(x, want_x, x64)
-        if pl.tier != "resident":   # same step function, same order
-            assert torch.equal(x, want_x) and torch.equal(rr, want_rr), pl
+        # one step function on every loop tier: the same bits
+        if pl.tier != "resident":
+            loop = (x, rr) if loop is None else loop
+            assert torch.equal(x, loop[0]) and torch.equal(rr, loop[1]), pl
     name = "bicgstab_fused" if kind == "bicgstab" else "gmres_cycle_fused"
     before = ops.launch_counts()[name]
     execute(p, next(c for c in cands if c.tier == "resident"))
@@ -783,9 +792,10 @@ def test_cuda_gmres_device_loop_keeps_its_graph(cuda):
     before = ops.launch_counts()["spmv_ell"]
     second = execute(p, Plan(tier="device_loop"))   # a replay: no launch
     assert ops.launch_counts()["spmv_ell"] == before
-    want = p.oracle()
-    for got in (first, second):
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                           second[1])
+    x64, _ = ref.gmres_run(data.double(), cols, b.double(), 2, 8)
+    _hold(first[0], p.oracle()[0], x64)
     perks.clear_graphs()
 
 
@@ -1141,4 +1151,220 @@ def test_cuda_ssm_tiers_match_oracle(cuda):
                                    rtol=1e-3, atol=1e-3, err_msg=tier)
     assert ops.launch_counts()["ssm_scan"] == 1
     assert plan(prob).tier == "resident"
+    perks.clear_graphs()
+
+
+# -- batched launches: B instances in one launch ---------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_batched_stencil_step_is_bit_equal_to_single_launches(
+        name, dtype, cuda):
+    spec = get_spec(name)
+    for b in (1, 3):
+        xs = torch.stack([torch.from_numpy(_domain(spec, seed=s))
+                          for s in range(b)]).to(cuda, dtype)
+        before = ops.launch_counts()["stencil_baseline_step"]
+        got = ops.stencil_baseline_step(xs, spec=spec)
+        assert ops.launch_counts()["stencil_baseline_step"] - before == 1
+        for i in range(b):
+            assert torch.equal(got[i], ops.stencil_baseline_step(xs[i],
+                                                                 spec=spec))
+        assert torch.equal(got, ref.stencil_step(xs, spec))
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [0, 3, 5, 7])
+def test_cuda_batched_spmv_ell_is_bit_equal_to_single_launches(b, k, cuda):
+    rng = np.random.default_rng(k + 10 * b)
+    n = 1031
+    data = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n, (n, k)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    data, cols, x = data.to(cuda), cols.to(cuda), x.to(cuda)
+    before = ops.launch_counts()["spmv_ell"]
+    got = ops.spmv(data, cols, x)
+    assert ops.launch_counts()["spmv_ell"] - before == 1
+    assert got.shape == (b, n)
+    for i in range(b):
+        assert torch.equal(got[i], ops.spmv(data, cols, x[i]))
+    assert torch.equal(got, ref.spmv_ell(data, cols, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [0, 1, 1000, 65536, 262145])
+def test_cuda_vdot_lanes_are_bit_equal_to_single_launches(n, dtype, cuda):
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((5, n))).to(cuda, dtype)
+    c = torch.from_numpy(rng.standard_normal((5, n))).to(cuda, dtype)
+    before = ops.launch_counts()["vdot"]
+    got = ops.vdot(a, c)
+    assert ops.launch_counts()["vdot"] - before == 1
+    for i in range(5):
+        one = ops.vdot(a[i].clone(), c[i].clone())
+        assert one.dim() == 0 and torch.equal(got[i], one)
+    if dtype == torch.float64:
+        _hold_float64_sums(a, c, got)
+    else:
+        want = (a.double() * c.double()).sum(-1)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+    # repeated launches give the same bits (the ticket counters reset)
+    assert torch.equal(ops.vdot(a, c), got)
+
+
+def test_cuda_vdot_streams_and_graphs_keep_their_own_counters(cuda):
+    """Launches in flight at once on two streams, and a captured launch
+    replayed beside them, never take each other's tickets: each gives the
+    bits of a launch alone."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((8, 1 << 20)).astype(
+        np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((8, 1 << 20)).astype(
+        np.float32)).to(cuda)
+    want = ops.vdot(a, c)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        in_graph = ops.vdot(a, c)
+    main = torch.cuda.current_stream()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    assert s1.cuda_stream != s2.cuda_stream
+    outs = []
+    for _ in range(20):
+        s1.wait_stream(main)
+        s2.wait_stream(main)
+        with torch.cuda.stream(s1):
+            o1 = ops.vdot(a, c)
+        with torch.cuda.stream(s2):
+            graph.replay()
+        o0 = ops.vdot(a, c)          # beside both
+        main.wait_stream(s1)
+        main.wait_stream(s2)
+        outs += [o0, o1, in_graph.clone()]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+def _hold_float64_sums(a, c, got):
+    """float64 lanes against the correctly rounded sum of the same float64
+    products (``math.fsum``), within 1e-12 of the sum of their magnitudes:
+    a kernel that loaded doubles and added in float32 would miss it by
+    five orders of magnitude or more."""
+    a, c = a.cpu().numpy(), c.cpu().numpy()
+    for i in range(a.shape[0]):
+        prods = a[i] * c[i]
+        want = math.fsum(prods)
+        assert abs(got[i].item() - want) <= 1e-12 * np.abs(prods).sum(), i
+
+
+@pytest.mark.parametrize("n", [3, 1000, 262145])
+def test_cuda_vdot_float64_keeps_what_cancels_in_float32(n, cuda):
+    """The mixed-precision dot (``compensated_vdot``) rests on vdot's
+    float64 lanes: +2^26 and -2^26 around unit terms cancel exactly in
+    float64, while a float32 sum (ulp 8 at 2^26) drops the unit terms."""
+    from repro_torch.exec.precision import compensated_vdot
+    rng = np.random.default_rng(n)
+    a, c = rng.standard_normal((2, 2, n))
+    a[1, 0], a[1, -1], c[1, 0], c[1, -1] = 2.0 ** 26, -2.0 ** 26, 1.0, 1.0
+    a, c = torch.from_numpy(a).to(cuda), torch.from_numpy(c).to(cuda)
+    got = ops.vdot(a, c)
+    _hold_float64_sums(a, c, got)
+    # the mixed dot of float32 vectors: a float64 sum of exact products,
+    # one rounding to float32 (a float32 sum would be off by the lost
+    # unit terms, about sqrt(n))
+    a32, c32 = a[1].float(), c[1].float()
+    want = np.float32(math.fsum(a32.double().cpu().numpy()
+                                * c32.double().cpu().numpy()))
+    got32 = compensated_vdot(a32, c32)
+    assert got32.dtype == torch.float32
+    assert abs(got32.item() - want) <= abs(np.spacing(want))
+
+
+@pytest.mark.parametrize("policy_rows", [0, None])
+def test_cuda_batched_cg_fused_is_bit_equal_to_single_launches(policy_rows,
+                                                              cuda):
+    ell = poisson2d(48).to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    n = data.shape[0]
+    rng = np.random.default_rng(7)
+    for b in (1, 2, 4):
+        bs = torch.from_numpy(rng.standard_normal((b, n)).astype(
+            np.float32)).to(cuda)
+        x, rr = ops.cg(data, cols, bs, iters=40, matrix_rows=policy_rows,
+                       resident_matrix=policy_rows is None)
+        assert x.shape == (b, n) and rr.shape == (b,)
+        for i in range(b):
+            x1, rr1 = ops.cg(data, cols, bs[i].clone(), iters=40,
+                             matrix_rows=policy_rows,
+                             resident_matrix=policy_rows is None)
+            assert torch.equal(x[i], x1) and torch.equal(rr[i], rr1[0])
+            xw, rrw = ref.cg_run(data, cols, bs[i], 40)
+            torch.testing.assert_close(x[i], xw, **CG_TOL)
+
+
+def test_cuda_batched_cg_step_launches_what_one_step_launches(cuda):
+    from repro_torch.exec import BatchedProblem, execute_sequential
+    ell = poisson2d(32).to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)     # one operator, shared
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    rng = np.random.default_rng(3)
+    insts = [CGProblem.from_ell(data, cols,
+                                rng.standard_normal(ell.data.shape[0]).astype(
+                                    np.float32), 7, device=cuda)
+             for _ in range(4)]
+    bp = BatchedProblem.from_instances(insts)
+    ops.reset_launch_counts()
+    out = execute(bp, Plan(tier="host_loop", batch=4))
+    counts = ops.launch_counts()
+    assert counts["spmv_ell"] == 7 and counts["vdot"] == 14
+    for (x, rr), (xs, rrs) in zip(bp.split(out), execute_sequential(
+            insts, Plan(tier="host_loop"))):
+        assert torch.equal(x, xs) and torch.equal(rr, rrs)
+    for tier in ("device_loop", "resident"):
+        single = Plan(tier=tier, policy="MIX" if tier == "resident" else None)
+        out = execute(bp, Plan(tier=tier, batch=4, policy=single.policy))
+        for (x, rr), (xs, rrs) in zip(bp.split(out), execute_sequential(
+                insts, single)):
+            assert torch.equal(x, xs) and torch.equal(rr, rrs), tier
+    perks.clear_graphs()
+
+
+def test_cuda_lane_runner_admission_replays_the_kept_graph(cuda):
+    from repro_torch.exec import LaneRunner
+    spec = get_spec("2d5pt")
+    insts = [StencilProblem(_domain(spec, seed=s), spec, 6, device=cuda)
+             for s in range(3)]
+    runner = LaneRunner(insts[0], width=2)
+    lanes = runner.admit(runner.fresh(), 0, insts[0])
+    runner.advance(lanes, 3)
+    captured = perks.capture.count
+    lanes = runner.admit(lanes, 1, insts[1])
+    runner.advance(lanes, 3)
+    runner.advance(lanes, 3)
+    assert perks.capture.count == captured     # no capture after admit
+    assert torch.equal(runner.harvest(lanes, 0),
+                       execute(insts[0], Plan(tier="host_loop")))
+    assert torch.equal(runner.harvest(lanes, 1),
+                       execute(insts[1], Plan(tier="host_loop")))
+    perks.clear_graphs()
+
+
+def test_cuda_service_captures_a_keys_graph_once(cuda):
+    from repro_torch.runtime.solver_service import ServiceConfig, SolverService
+    spec = get_spec("2d5pt")
+    svc = SolverService(ServiceConfig(max_batch=2))
+    probs = {svc.submit(StencilProblem(_domain(spec, seed=s), spec, 5,
+                                       device=cuda)): s for s in range(6)}
+    before = perks.capture.count
+    results = svc.drain()
+    assert svc.stats()["batches"] == 3
+    (chosen,) = svc.chosen_plans().values()
+    if chosen.tier == "device_loop":
+        assert perks.capture.count - before == 1
+    for rid, s in probs.items():
+        alone = execute(StencilProblem(_domain(spec, seed=s), spec, 5,
+                                       device=cuda), Plan(tier=chosen.tier))
+        assert torch.equal(results[rid].result, alone)
     perks.clear_graphs()

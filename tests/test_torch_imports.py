@@ -38,7 +38,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.models.transformer, repro_torch.models.lm\n"
         "import repro_torch.runtime.server, repro_torch.launch.serve\n"
         "import repro_torch.exec.ml, repro_torch.kernels.ssm_scan\n"
-        "import repro_torch.kernels.decode_attn\n"
+        "import repro_torch.kernels.decode_attn, repro_torch.kernels.vdot\n"
+        "import repro_torch.obs, repro_torch.obs.metrics\n"
+        "import repro_torch.obs.trace, repro_torch.obs.ledger\n"
+        "import repro_torch.exec.batch, repro_torch.exec.executor\n"
+        "import repro_torch.runtime.solver_service\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")

@@ -422,7 +422,7 @@ def test_rounds_an_iteration_and_no_publish_barrier(kind):
     assert all(p.sync == "round" for p in schedule.prologue + schedule.body)
     code = "\n".join(ln.split("//")[0] for ln in
                      (CSRC / f"{kind}_fused.cu").read_text().splitlines())
-    calls = len(re.findall(r"\btagged_round\(", code))
+    calls = len(re.findall(r"\btagged_round(?:<[^>]*>)?\(", code))
     assert calls == len(schedule.prologue) + schedule.per_iteration("round")
     assert "grid.sync" not in code and "this_grid" not in code
 
