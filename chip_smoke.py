@@ -129,9 +129,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    2ds25pt at 8192x8192 and 3d7pt 256^3 (100 steps): each candidate's
    predicted and measured ms, and a second call against the same file
    that measures nothing;
-19. one ``{"kernels": [...]}`` line with all twelve kernels, the three
-   batched launches and ``vdot``, the card's name and power limit, and
-   ``{"ok": true, "device": {...}}`` as the last line.
+19. [step specs] the loop tiers' step (``csrc/stencil_step.cu``) on every
+   Table-III spec at the loop tiers' full shapes (2D specs 8192x8192, 3D
+   specs 256^3) in f32 and bf16: bit for bit against its plain version
+   (and B = 3 domains in one launch, each lane against its own launch),
+   timed eager and in a CUDA graph beside its byte bound, the plain
+   version and one cuDNN convolution (``conv2d``/``conv3d``, TF32 off);
+   then, counted, ``StencilProblem`` -> ``execute`` on the host and device
+   loop tiers (4 steps), bit for bit against the plain run, every launch
+   on a compiled shape and on 16-byte rows;
+20. one ``{"kernels": [...]}`` line with all twelve kernels, the three
+   batched launches, ``vdot`` and the step kernel per spec and type, the
+   card's name and power limit, and ``{"ok": true, "device": {...}}`` as
+   the last line.
 
 Without a CUDA device it prints no result and exits non-zero.
 """
@@ -1679,6 +1689,22 @@ BATCH_KERNELS = {
     "vdot": ("src/repro_torch/kernels/csrc/vdot.cu",
              "src/repro/kernels/ref.py:70"),
 }
+# [step specs]: the loop tiers' step on every Table-III spec at the loop
+# tiers' full shapes, and the steps of its counted path on each tier
+STEP_SPEC_SHAPES = {2: (8192, 8192), 3: (256, 256, 256)}
+STEP_SPEC_STEPS = 4
+STEP_SPEC_BATCH = {2: (3, 1536, 1000), 3: (3, 96, 100, 104)}
+STEP_SPEC_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def step_spec_kernels() -> dict:
+    """The [step specs] entries of the kernels line: one a spec and type."""
+    from repro_torch.kernels.common import BENCHMARKS
+    return {f"stencil_baseline_step[{name} {t}]":
+            STENCIL_KERNELS["stencil_baseline_step"]
+            for name in BENCHMARKS for t in STEP_SPEC_TYPES}
+
+
 # The batched path's cells: (cell, what, size, B, steps)
 BATCH_CELLS = [
     ("stencil-batch", "2d5pt", (2048, 2048), 8, 100),
@@ -1714,6 +1740,112 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def conv_yardstick(spec, x):
+    """One cuDNN convolution computing the interior of one step of ``spec``
+    on ``x`` (2D or 3D) in x's type: the [step specs] library time (the
+    port never calls it)."""
+    r, k = spec.radius, 2 * spec.radius + 1
+    w = torch.zeros((1, 1) + (k,) * spec.ndim, device=x.device,
+                    dtype=x.dtype)
+    for off, wt in zip(spec.offsets, spec.weights):
+        w[(0, 0) + tuple(o + r for o in off)] = wt
+    conv = (torch.nn.functional.conv2d if spec.ndim == 2
+            else torch.nn.functional.conv3d)
+    return lambda: conv(x[None, None], w)
+
+
+def step_spec_phase(rng):
+    """Phase 19: the step kernel on every Table-III spec and type at full
+    shape against its plain version, timed; then its counted path on both
+    loop tiers. Returns (errors, timing, launches) by kernel-line name."""
+    from repro_torch.core import perks
+    from repro_torch.exec import Plan, StencilProblem, execute
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.common import BENCHMARKS
+
+    card = card_line()
+    errs, timing, launches = {}, {}, {}
+    print(f"[step specs] {card}: csrc/stencil_step.cu on every Table-III "
+          f"spec, 2D {STEP_SPEC_SHAPES[2]} and 3D {STEP_SPEC_SHAPES[3]}, "
+          f"f32 and bf16, bit for bit; ms (eager), graph_ms, bound, plain, "
+          f"cuDNN; then host and device loop, {STEP_SPEC_STEPS} steps, "
+          f"counters set to 0 before each")
+    n_ok = 0
+    for name, spec in BENCHMARKS.items():
+        shape = STEP_SPEC_SHAPES[spec.ndim]
+        base = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+        for tag, dt in STEP_SPEC_TYPES.items():
+            key = f"stencil_baseline_step[{name} {tag}]"
+            x = base.to(dt)
+            out = torch.empty_like(x)
+            run = lambda: ops.stencil_baseline_step(x, spec=spec, out=out)
+            got = run().clone()
+            want = ref.stencil_step(x, spec)
+            errs[key] = (got.double() - want.double()).abs().max().item()
+            ok = torch.equal(got, want)
+            if not ok:
+                print(f"  {key}: not bit-equal to its plain version FAIL")
+                FAILS.append(f"{key} is not bit-equal")
+            moved = 2 * x.numel() * x.element_size()
+            timing[key] = dict(
+                ms=cuda_ms(run, 20), graph_ms=graph_ms(run, 20),
+                bound=bound(spec, shape, 1, moved),
+                plain_ms=cuda_ms(lambda: ref.stencil_step(x, spec), 3),
+                library_ms=cuda_ms(conv_yardstick(spec, x), 5))
+            del got, want, out
+            # a batch: each lane bit-equal to its own launch
+            xs = torch.from_numpy(rng.standard_normal(
+                STEP_SPEC_BATCH[spec.ndim]).astype(np.float32)).cuda().to(dt)
+            got = ops.stencil_baseline_step(xs, spec=spec)
+            lanes = all(torch.equal(got[i], ops.stencil_baseline_step(
+                xs[i], spec=spec)) for i in range(xs.shape[0]))
+            if not (lanes and torch.equal(got, ref.stencil_step(xs, spec))):
+                print(f"  {key} batched {tuple(xs.shape)}: a lane differs "
+                      f"from its own launch or the plain version FAIL")
+                FAILS.append(f"{key} batched is not bit-equal")
+                ok = False
+            del xs, got
+            # the counted path: both loop tiers, bit for bit
+            want = ref.stencil_run(x, spec, STEP_SPEC_STEPS)
+            problem = StencilProblem(x, spec, STEP_SPEC_STEPS)
+            perks.clear_graphs()
+            ops.reset_launch_counts()
+            for tier in ("host_loop", "device_loop"):
+                y = execute(problem, Plan(tier=tier))
+                torch.cuda.synchronize()
+                if not torch.equal(y, want):
+                    print(f"  {key} {tier}: not bit-equal to the plain run "
+                          f"FAIL")
+                    FAILS.append(f"{key} {tier} is not bit-equal")
+                    ok = False
+            counts = ops.launch_counts()
+            perks.clear_graphs()
+            launches[key] = counts["stencil_baseline_step"]
+            # the host loop's steps, the graph's warm-up step and its steps
+            expect = 2 * STEP_SPEC_STEPS + 1
+            if (counts["stencil_baseline_step"] != expect
+                    or counts["stencil_baseline_step_runtime"]
+                    or counts["stencil_baseline_step_unaligned"]):
+                FAILS.append(f"{key}: the loop tiers made "
+                             f"{counts['stencil_baseline_step']} launches "
+                             f"({counts['stencil_baseline_step_runtime']} on "
+                             f"the runtime path, "
+                             f"{counts['stencil_baseline_step_unaligned']} "
+                             f"unaligned), not {expect} on a compiled shape")
+            n_ok += ok
+            t = timing[key]
+            print(f"  {key}: ms={t['ms']!r} graph_ms={t['graph_ms']!r} "
+                  f"bound_ms={t['bound'][0]!r} ({t['bound'][1]}) "
+                  f"plain_ms={t['plain_ms']!r} library_ms="
+                  f"{t['library_ms']!r} launches={launches[key]} "
+                  f"{'ok' if ok else 'FAIL'}")
+            del x, y, want, problem
+    print(f"  {n_ok} of {len(launches)} bit-equal on the kernel and both "
+          f"loop tiers")
+    return errs, timing, launches
 
 
 def batch_phases(rng):
@@ -2507,9 +2639,14 @@ def main() -> int:
     # -- 14-18. batched launches and path, the service, tracing, autotune -------------
     b_errs, b_timing, b_launches = batch_phases(rng)
 
-    # -- 19. report -------------------------------------------------------------------
+    # -- 19. the step kernel on every spec ---------------------------------------------
+    s_errs, s_timing, s_launches = step_spec_phase(rng)
+
+    # -- 20. report -------------------------------------------------------------------
     kernels = []
     for table, e, tm, ln in ((STENCIL_KERNELS, errs, timing, launches),
+                             (step_spec_kernels(), s_errs, s_timing,
+                              s_launches),
                              (CG_KERNELS, cg_errs, cg_timing, cg_launches),
                              (KRYLOV_KERNELS, kr_errs, kr_timing,
                               kr_launches),

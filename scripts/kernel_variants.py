@@ -1,6 +1,6 @@
-"""Time build variants of the port's stencil kernels on one NVIDIA GPU.
+"""Time the port's kernels, and build variants of them, on one NVIDIA GPU.
 
-    python3 scripts/kernel_variants.py [--variants NAME,NAME,...] [--src SRC]
+    python3 scripts/kernel_variants.py [--src SRC]
     python3 scripts/kernel_variants.py --kernels spmv_decode [--src SRC]
     python3 scripts/kernel_variants.py --kernels sell_deep [--src SRC]
     python3 scripts/kernel_variants.py --kernels deep_profile
@@ -13,28 +13,27 @@
     python3 scripts/kernel_variants.py --kernels krylov_profile
     python3 scripts/kernel_variants.py --kernels ssm [--src SRC]
     python3 scripts/kernel_variants.py --kernels ssm_profile
+    python3 scripts/kernel_variants.py --kernels step_specs [--src SRC]
 
-Each variant builds ``repro_torch/kernels/csrc`` with ``-D`` flags (the
-step kernel's ``STEP_STREAM_ROWS``; every other tuning value is a plain
-constant; all variants compile at once), prints its
-``ptxas`` register and spill counts, holds its kernels against the plain
-torch version at atol 5e-6 (rtol 0), and times them at the main path's
-shapes: one step of 2d5pt on 8192x8192 (``stencil_baseline_step``),
+With no ``--kernels`` it builds the step and one-step kernels
+(``csrc/stencil_step.cu``, ``csrc/stencil_perks.cu``), prints their
+``ptxas`` register and spill counts, holds them against the plain torch
+version at atol 5e-6 (rtol 0), and times them at the main path's shapes:
+one step of 2d5pt on 8192x8192 (``stencil_baseline_step``),
 ``stencil_perks`` on 8192x8192 for 100 steps at the one-step plan's cached
 rows, ``stencil_resident`` on 3072x1152 for 1000 steps, and the kept
 device loop's replay on 8192x8192 x 100 (``execute`` with
-``Plan(tier="device_loop")`` after its first run). The variants are
-timed in turn, twice over (A B C ... A B C ...), in one process on one
-card, so they can be compared with each other. Prints one JSON line per
-variant and round, then the card's name and power limit. Exits non-zero
-without a CUDA device or if a kernel disagrees with its plain version.
+``Plan(tier="device_loop")`` after its first run). Every tuning value is
+a plain constant, so another arm of a kernel is a copy of the tree with
+the constant changed, timed with ``--src``. Prints one JSON line per
+round, then the card's name and power limit. Exits non-zero without a
+CUDA device or if a kernel disagrees with its plain version.
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's); its kernels build into that tree's own ``build/``. To compare
 two commits on one card, unpack the other one (``git archive <commit> |
 tar -x -C build/parent``) and run both in one call, in turns: ``--src
-build/parent/src --variants shipped --rounds 1``, this tree, this tree,
-the other.
+build/parent/src --rounds 1``, this tree, this tree, the other.
 
 ``--kernels spmv_decode`` times the shipped ``spmv_ell`` and
 ``decode_attention`` instead, at the main path's shapes, each beside the
@@ -146,6 +145,22 @@ digest of the outputs' bits printed), and prints the shipped build's
 device time by kernel from ``torch.profiler``. Other arms of the scan are
 copies of the tree with the kernel changed, timed with ``--kernels ssm
 --src``.
+
+``--kernels step_specs`` times ``stencil_baseline_step`` (one step,
+``csrc/stencil_step.cu``) on every Table-III spec, 2D specs on 8192x8192
+and 3D specs on 256^3, in float32 and bf16: eager (``ms``) and in a CUDA
+graph of 20 calls (``graph_ms``), beside the byte bound (each cell read
+once and written once at 3.35 TB/s), the plain version's time
+(``ref.stencil_step``, against which each output must be bit-equal) and
+one cuDNN convolution computing the interior (``conv2d``/``conv3d``, TF32
+off; ``library_ms``), with the launches the step made; then the batched
+step on 2d5pt, B = 8 domains of 2048x2048 f32 (each lane bit-equal to
+its own launch), one ``copy_`` of the 8192x8192 f32 domain (the card's
+achievable copy rate), and ``execute`` of 2ds25pt 8192x8192 x 100 on the
+host and device loop tiers. It prints the step library's ``ptxas``
+registers and spills first. In turns with a parent tree (``--src
+build/parent/src --rounds 1``, this tree, this tree, the parent) it is
+the A/B of the step kernel.
 """
 from __future__ import annotations
 
@@ -165,12 +180,6 @@ ATOL = 5e-6
 #: The GMRES cycle against its plain version: chip_smoke.py's Krylov
 #: tolerance
 KRYLOV_TOL = dict(rtol=1e-3, atol=1e-5)
-#: name -> -D overrides (empty: the shipped kernels)
-VARIANTS = {
-    "shipped": (),
-    "step_stream_rows_4": ("-DSTEP_STREAM_ROWS=4",),
-}
-
 
 def cuda_ms(fn, reps: int) -> float:
     fn()
@@ -944,9 +953,103 @@ def ssm_profile(src: str, rounds: int) -> int:
     return 0
 
 
+#: The [step specs] cells: every Table-III spec at the loop tiers' full
+#: shapes (2D 8192x8192, 3D 256^3)
+STEP_SHAPES = {2: (8192, 8192), 3: (256, 256, 256)}
+HBM_BW = 3.35e12
+
+
+def conv_yardstick(spec, x):
+    """One cuDNN convolution computing the interior of one step of ``spec``
+    on ``x`` (2D or 3D), in x's type; the port never calls it."""
+    r, k = spec.radius, 2 * spec.radius + 1
+    w = torch.zeros((1, 1) + (k,) * spec.ndim, device=x.device,
+                    dtype=x.dtype)
+    for off, wt in zip(spec.offsets, spec.weights):
+        w[(0, 0) + tuple(o + r for o in off)] = wt
+    conv = (torch.nn.functional.conv2d if spec.ndim == 2
+            else torch.nn.functional.conv3d)
+    return lambda: conv(x[None, None], w)
+
+
+def step_specs(src: str, rounds: int) -> int:
+    """``--kernels step_specs``: one JSON line per cell and round."""
+    from repro_torch import Plan, StencilProblem, execute
+    from repro_torch.core import perks
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.common import BENCHMARKS
+
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all(("stencil_step",))
+    print(json.dumps({"src": src, "library": "stencil_step",
+                      "build_s": secs.get("stencil_step"),
+                      **spills(_build.build_log("stencil_step").read_text())}))
+    rng = np.random.default_rng(0)
+    step = ops.stencil_baseline_step
+    bad = []
+    for rnd in range(rounds):
+        for name, spec in BENCHMARKS.items():
+            shape = STEP_SHAPES[spec.ndim]
+            base = torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                x = base.to(dt)
+                out = torch.empty_like(x)
+                fn = lambda x=x, s=spec, o=out: step(x, spec=s, out=o)
+                line = {"src": src, "round": rnd, "spec": name,
+                        "shape": list(shape), "dtype": str(dt)[6:]}
+                before = ops.launch_counts()
+                got = fn()
+                torch.cuda.synchronize()
+                line["launches"] = {k: v - before[k] for k, v in
+                                    ops.launch_counts().items()
+                                    if v != before[k]}
+                want = ref.stencil_step(x, spec)
+                if not torch.equal(got, want):
+                    bad.append(f"{name} {line['dtype']} is not bit-equal to "
+                               f"ref.stencil_step")
+                line["bit_equal"] = bool(torch.equal(got, want))
+                line["ms"] = cuda_ms(fn, 20)
+                line["graph_ms"] = graph_ms(fn, 20)
+                line["bound_ms"] = 1e3 * 2 * x.numel() * x.element_size() / HBM_BW
+                line["plain_ms"] = cuda_ms(lambda: ref.stencil_step(x, spec), 3)
+                line["library_ms"] = cuda_ms(conv_yardstick(spec, x), 5)
+                print(json.dumps(line), flush=True)
+                del x, out, got, want
+        spec = BENCHMARKS["2d5pt"]
+        xs = torch.from_numpy(rng.standard_normal(
+            (8, 2048, 2048), dtype=np.float32)).cuda()
+        out = torch.empty_like(xs)
+        fn = lambda: step(xs, spec=spec, out=out)
+        got = fn().clone()
+        lanes = all(torch.equal(got[i], step(xs[i], spec=spec))
+                    for i in range(8))
+        if not lanes:
+            bad.append("batched 2d5pt: a lane differs from its own launch")
+        big = torch.from_numpy(rng.standard_normal(
+            (8192, 8192), dtype=np.float32)).cuda()
+        dst = torch.empty_like(big)
+        line = {"src": src, "round": rnd,
+                "batched_2d5pt_8x2048_ms": cuda_ms(fn, 20),
+                "batched_2d5pt_8x2048_graph_ms": graph_ms(fn, 20),
+                "batched_lanes_bit_equal": lanes,
+                "copy_8192_f32_graph_ms": graph_ms(lambda: dst.copy_(big), 20)}
+        problem = StencilProblem(big, BENCHMARKS["2ds25pt"], 100)
+        for tier in ("host_loop", "device_loop"):
+            perks.clear_graphs()
+            run = lambda: execute(problem, Plan(tier=tier))
+            line[f"2ds25pt_8192_x100_{tier}_ms"] = cuda_ms(run, 3)
+        print(json.dumps(line), flush=True)
+        del xs, out, got, big, dst, problem
+    print(card_name())
+    if bad:
+        print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
@@ -956,7 +1059,7 @@ def main() -> int:
                                           "resident_profile", "perks_stream",
                                           "perks_profile", "krylov",
                                           "krylov_profile", "ssm",
-                                          "ssm_profile"),
+                                          "ssm_profile", "step_specs"),
                     default="stencil")
     ap.add_argument("--digests", default=None,
                     help="--kernels krylov: keep and compare the outputs' "
@@ -989,21 +1092,17 @@ def main() -> int:
         return ssm(src, args.rounds)
     if args.kernels == "ssm_profile":
         return ssm_profile(src, args.rounds)
+    if args.kernels == "step_specs":
+        return step_specs(src, args.rounds)
     from repro_torch import Plan, StencilProblem, execute
     from repro_torch.exec import plan_candidates
-    from repro_torch.core import perks
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.common import get_spec
 
-    names = args.variants.split(",")
     stencil_libs = ("stencil_step", "stencil_perks")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(lambda n: _build.build_all(stencil_libs,
-                                                 extra=VARIANTS[n]), names))
-    for n in names:
-        log = "\n".join(_build.build_log(s, VARIANTS[n]).read_text()
-                        for s in stencil_libs)
-        print(json.dumps({"variant": n, "flags": VARIANTS[n], **spills(log)}))
+    _build.build_all(stencil_libs)
+    log = "\n".join(_build.build_log(s).read_text() for s in stencil_libs)
+    print(json.dumps({"src": src, **spills(log)}))
 
     spec = get_spec("2d5pt")
     rng = np.random.default_rng(0)
@@ -1026,20 +1125,15 @@ def main() -> int:
     }
     bad = []
     for rnd in range(args.rounds):
-        for n in names:
-            _build.EXTRA_FLAGS = VARIANTS[n]
-            perks.clear_graphs()   # a kept graph holds the last variant's kernel
-            line = {"variant": n, "round": rnd, "src": src,
-                    "perks_cached_rows": rows}
-            for k, fn in runs.items():
-                if rnd == 0:
-                    err = (fn() - want[k]).abs().max().item()
-                    line[f"{k}_max_abs_err"] = err
-                    if not err <= ATOL:
-                        bad.append(f"{n} {k}: {err}")
-                line[f"{k}_ms"] = cuda_ms(fn, 20 if k == "step" else 5)
-            print(json.dumps(line), flush=True)
-    _build.EXTRA_FLAGS = ()
+        line = {"round": rnd, "src": src, "perks_cached_rows": rows}
+        for k, fn in runs.items():
+            if rnd == 0:
+                err = (fn() - want[k]).abs().max().item()
+                line[f"{k}_max_abs_err"] = err
+                if not err <= ATOL:
+                    bad.append(f"{k}: {err}")
+            line[f"{k}_ms"] = cuda_ms(fn, 20 if k == "step" else 5)
+        print(json.dumps(line), flush=True)
     print(card_name())
     if bad:
         print("kernel_variants FAILED: " + "; ".join(bad), file=sys.stderr)

@@ -179,14 +179,25 @@ class BatchedProblem(Problem):
     def on_sync(self) -> Optional[Callable[[Any, int], bool]]:
         """Batched convergence check: stop only when EVERY instance's own
         check passes (the batch shares one dispatch, so the slowest
-        instance owns the step count). One stacked reduction and ONE host
-        transfer a sync point, whatever B is. None if any instance never
-        stops."""
+        instance owns the step count). None if any instance never stops.
+
+        Instances with a :meth:`Problem.convergence` contract are checked
+        by one stacked reduction and ONE host transfer a sync point,
+        whatever B is. Otherwise each lane's own ``on_sync`` is called on
+        that lane's slice of the stacked state (B transfers a sync
+        point)."""
         conv = self.convergence()
-        if conv is None:
+        if conv is not None:
+            pred, params = conv
+            return lambda state, k: bool(torch.all(pred(state, params)))
+        cbs = [p.on_sync() for p in self.instances]
+        if any(cb is None for cb in cbs):
             return None
-        pred, params = conv
-        return lambda state, k: bool(torch.all(pred(state, params)))
+
+        def all_done(state, k) -> bool:
+            return all(cb(_lane(state, i), k) for i, cb in enumerate(cbs))
+
+        return all_done
 
     def cacheable_arrays(self, *, fuse_steps: int = 1) -> Sequence[CacheableArray]:
         """Per-instance regions scale by B; shared operands (the CG matrix,

@@ -54,9 +54,9 @@ NVCC_FLAGS = (
 #: ``-D`` flags that ``load`` builds with: the profiles of the deep
 #: schedule's waits (``DEEP_PROFILE``), of ``stencil_resident``'s step
 #: phases (``RES_PROFILE``) and of the fused Krylov kernels' rounds
-#: (``KRY_PROFILE``), and ``stencil_step.cu``'s ``STEP_STREAM_ROWS``,
-#: for variant builds as ``scripts/kernel_variants.py`` makes them; empty
-#: for the shipped kernels. Every other tuning value is a plain constant.
+#: (``KRY_PROFILE``), for variant builds as ``scripts/kernel_variants.py``
+#: makes them; empty for the shipped kernels. Every tuning value is a plain
+#: constant.
 EXTRA_FLAGS: tuple[str, ...] = ()
 
 MAX_POINTS = 32
@@ -76,6 +76,14 @@ class StencilArgs(ctypes.Structure):
         ("d2", ctypes.c_int * MAX_POINTS),
         ("w", ctypes.c_float * MAX_POINTS),
     ]
+
+
+class StepArgs(ctypes.Structure):
+    """Mirror of ``struct StepArgs`` in ``csrc/stencil_step.cu``."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "lanes", "rows", "ra", "span", "slot", "slots", "seg", "tiles_x",
+        "aligned")]
 
 
 class TbArgs(ctypes.Structure):
@@ -123,7 +131,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures: library -> {function: (restype, argtypes)}
 _SIGNATURES = {
     "stencil_step": {
-        "stencil_step_launch": (_I, [_P, _P, StencilArgs, _I, _I, _P]),
+        "stencil_step_launch": (_I, [_P, _P, StencilArgs, StepArgs, _I, _I,
+                                     _I, _I, _I, _P, _IP]),
+        "stencil_step_per_sm": (_I, [StencilArgs, _I, _I, _I, _IP]),
     },
     "stencil_perks": {
         "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, PerksArgs,

@@ -106,26 +106,6 @@ struct FastDiv {
     __device__ int mod(int n) const { return n - div(n) * q; }
 };
 
-// Update of the cell at flat index idx, all neighbours read from src.
-// NPTS > 0 is the point count known at compile time (the loop unrolls and
-// the loads issue together); NPTS == 0 reads it from npts. With in = false
-// every term reads the cell itself, so a frozen border cell's loads stay in
-// bounds and the caller can issue them unconditionally (the sum is then
-// unused).
-template <int NPTS, typename T>
-__device__ __forceinline__ T sum_flat(const T* __restrict__ src, int idx,
-                                      const SpecShared& s, int npts, bool in) {
-    const int n = NPTS > 0 ? NPTS : npts;
-    const int m = in ? -1 : 0;
-    T acc = term(src[idx + (s.lin[0] & m)], s.w[0]);
-#pragma unroll
-    for (int k = 1; k < (NPTS > 0 ? NPTS : STENCIL_MAX_POINTS); ++k) {
-        if (NPTS == 0 && k >= n) break;
-        acc = plus(acc, term(src[idx + (s.lin[k] & m)], s.w[k]));
-    }
-    return acc;
-}
-
 // Update of the cell at index idx of a buffer whose neighbours lie at the
 // offsets lin[] (the buffer's own strides).
 template <int NPTS, typename T>
@@ -194,39 +174,6 @@ __device__ __forceinline__ bool row_interior(int i, const StencilArgs& a) {
 __device__ __forceinline__ bool cell_interior(int i, int y, int x, const StencilArgs& a) {
     return row_interior(i, a) && x >= a.r && x < a.D2 - a.r &&
            (a.ndim != 3 || (y >= a.r && y < a.D1 - a.r));
-}
-
-// One step of rows i = first, first + stride, ... < H, cells of each row
-// spread over threads (c0, c0 + cstride, ...): src -> dst, frozen cells
-// copied through. Neighbouring threads take neighbouring cells, so loads
-// and stores coalesce. A thread takes U rows at a time and issues all their
-// loads before it stores any result, so it keeps U rows' device-memory
-// reads in flight; a row past H reads row H - 1 (frozen, in bounds) and is
-// not stored.
-template <int NPTS, int U, typename T>
-__device__ __forceinline__ void step_rows(const T* __restrict__ src,
-                                          T* __restrict__ dst,
-                                          const StencilArgs& a, const SpecShared& s,
-                                          int first, int stride, int c0, int cstride) {
-    for (int i0 = first; i0 < a.H; i0 += U * stride) {
-        for (int c = c0; c < a.P; c += cstride) {
-            const bool col_in = col_interior(c, a);
-            T v[U];
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const int i = min(i0 + u * stride, a.H - 1);
-                const int idx = i * a.P + c;
-                const bool in = col_in && row_interior(i, a);
-                const T acc = sum_flat<NPTS>(src, idx, s, a.npts, in);
-                v[u] = in ? acc : src[idx];
-            }
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const int i = i0 + u * stride;
-                if (i < a.H) dst[i * a.P + c] = v[u];
-            }
-        }
-    }
 }
 
 // The element type of a launch: 0 float32, 1 bfloat16 (the wrappers' code).

@@ -33,7 +33,9 @@ from repro_torch.kernels.common import StencilSpec
 #: ``decode_attention`` counts all its launches, and its tensor-core and
 #: CUDA-core kernels' apart; ``stencil_baseline_step``, ``spmv_ell`` and
 #: ``cg_fused`` count their batched launches (B instances a launch) apart
-#: too, as ``<name>_batched``
+#: too, as ``<name>_batched``; ``stencil_baseline_step`` also its launches
+#: on rows not on 16-byte boundaries and of specs it has no compiled shape
+#: for
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
     "stencil_perks_window": (_s2d.stencil_perks, "window_launches"),
@@ -46,6 +48,10 @@ KERNELS = {
     "stencil_baseline_step": (_s2d.stencil_baseline_step, "launches"),
     "stencil_baseline_step_batched": (_s2d.stencil_baseline_step,
                                       "batched_launches"),
+    "stencil_baseline_step_unaligned": (_s2d.stencil_baseline_step,
+                                        "unaligned_launches"),
+    "stencil_baseline_step_runtime": (_s2d.stencil_baseline_step,
+                                      "runtime_launches"),
     "spmv_ell": (_spmv.spmv_ell, "launches"),
     "spmv_ell_batched": (_spmv.spmv_ell, "batched_launches"),
     "spmv_sell": (_sell.spmv_sell, "launches"),

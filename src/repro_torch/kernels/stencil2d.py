@@ -32,7 +32,10 @@ float32 and bfloat16 cells:
     fit the co-resident CTAs' shared memory.
 ``stencil_baseline_step``
     One non-persistent, out-of-place step (``csrc/stencil_step.cu``): the
-    loop tiers' step on the card.
+    loop tiers' step on the card. Each CTA walks a tile of the in-row cells
+    down a segment of the leading axis through a ring of rows in shared
+    memory fed by ``cp.async``, a thread taking 16 bytes of cells
+    (``step_layout``).
 
 Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
@@ -43,7 +46,10 @@ bulk copies in ``window_launches``, its ``fuse_steps>1`` launches apart, in
 ``cp.async`` in ``fused_async_launches``; ``stencil_perks_deep`` counts
 those that loaded level 0 by TMA in ``tma_launches``, and
 ``stencil_resident`` those whose halo rows were copied by ``cp.async`` in
-``async_launches``. ``perks_layout``, ``tb_layout`` and ``resident_layout``
+``async_launches``, ``stencil_baseline_step`` its launches on rows not on
+16-byte boundaries in ``unaligned_launches`` and those of specs that are
+none of its compiled shapes in ``runtime_launches``. ``step_layout``,
+``perks_layout``, ``tb_layout`` and ``resident_layout``
 are the kernels' shared memory layouts, which the wrappers and the planner
 share, so the planner offers no plan a kernel refuses.
 
@@ -131,6 +137,23 @@ DEEP_UNIT_TICKS = 16
 #: The deep schedule's rows: its ring arithmetic (a multiply-high in place
 #: of a division) is exact below this.
 DEEP_MAX_ROWS = 2**23
+#: The one-step kernel of the loop tiers (``csrc/stencil_step.cu``): threads
+#: a CTA at most, rows (planes) in flight ahead of the 2r + 1 in use, and
+#: 16-byte chunks of a ring slot a thread copies at most (the C source's
+#: constants); threads across a tile row in 2D and in 3D; the shared memory
+#: a 3D tile's ring may take before its tile gets fewer rows; the CTAs an
+#: SM holds where the card is not asked (the wrapper asks it, and cuts the
+#: leading axis into segments so that one wave of CTAs covers the
+#: domain), and the fewest leading-axis rows a CTA walks. Set by hand, not
+#: fitted.
+STEP_THREADS = 256
+STEP_PREFETCH = 3
+STEP_FILL = 4
+STEP_LANES_2D = 128
+STEP_LANES_3D = 16
+STEP_SMEM = 96 * 1024
+STEP_CTAS_PER_SM = 8
+STEP_MIN_SEG = 16
 #: dtype -> the kernels' element-type code (STENCIL_F32, STENCIL_BF16)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -800,6 +823,140 @@ def tb_cached_rows(shape: tuple[int, ...], radius: int, t: int,
     return rows
 
 
+@dataclasses.dataclass(frozen=True)
+class StepLayout:
+    """The launch of ``csrc/stencil_step.cu`` for one (spec, shape, dtype,
+    B): a CTA owns a tile of ``rows`` plane rows (1 in 2D) by ``lanes *
+    vec`` cells and walks ``seg`` leading-axis rows of it, with a ring of
+    ``slots`` slots of ``slot`` cells in shared memory (each slot the tile's
+    rows and their r-row halo in 3D, rows ``span`` cells wide: the tile's
+    cells and ``ra`` halo cells each side). The grid is ``tiles_x *
+    tiles_y`` tiles by ``segs`` segments by ``batch`` instances.
+    ``row_aligned``: every row starts on a 16-byte boundary (the kernel
+    then copies and stores 16-byte chunks)."""
+
+    vec: int
+    lanes: int
+    rows: int
+    ra: int
+    span: int
+    slot: int
+    slots: int
+    seg: int
+    segs: int
+    tiles_x: int
+    tiles_y: int
+    batch: int
+    dtype_bytes: int
+    row_aligned: bool
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.rows
+
+    @property
+    def smem(self) -> int:
+        return self.slots * self.slot * self.dtype_bytes
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.tiles_x * self.tiles_y, self.segs, self.batch)
+
+    @functools.cached_property
+    def c_args(self) -> tuple[_build.StepArgs, _build.StepArgs]:
+        """The C struct, for unaligned (0) and aligned (1) tensors."""
+        out = []
+        for aligned in (0, 1):
+            g = _build.StepArgs()
+            g.lanes, g.rows, g.ra, g.span = (self.lanes, self.rows, self.ra,
+                                             self.span)
+            g.slot, g.slots, g.seg, g.tiles_x = (self.slot, self.slots,
+                                                 self.seg, self.tiles_x)
+            g.aligned = aligned
+            out.append(g)
+        return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def step_layout(spec: StencilSpec, shape: tuple[int, ...], dtype_bytes: int,
+                batch: int = 1, sms: int = 132,
+                limit: int = 232448 - PERKS_STATIC_SMEM,
+                per_sm: int = STEP_CTAS_PER_SM) -> StepLayout:
+    """The launch geometry of one step of ``spec`` on B = ``batch`` domains
+    of ``shape`` with ``dtype_bytes``-byte cells, on a card of ``sms`` SMs
+    whose CTA may take ``limit`` bytes of shared memory and of which each
+    holds ``per_sm`` of its CTAs: as many segments of the leading axis as
+    one wave of CTAs takes (the tile, its threads and its shared memory do
+    not depend on ``per_sm``). Raises ``ValueError`` naming the spec and
+    shape when no tile fits."""
+    r, nd = spec.radius, spec.ndim
+    H, D2 = shape[0], shape[-1]
+    D1 = shape[1] if nd == 3 else 1
+    vec = 16 // dtype_bytes
+    ra = -(-r // vec) * vec
+    ry = r if nd == 3 else 0
+    cols = -(-D2 // vec)
+    slots = 2 * r + 1 + STEP_PREFETCH
+
+    def sizes(lanes, rows):
+        span = lanes * vec + 2 * ra
+        return span, (rows + 2 * ry) * span
+
+    def fits(lanes, rows):
+        return ((rows + 2 * ry) * (lanes + 2 * ra // vec)
+                <= STEP_FILL * lanes * rows
+                and lanes * rows <= STEP_THREADS)
+
+    if nd == 2:
+        lanes, rows = min(STEP_LANES_2D, -(-cols // 32) * 32), 1
+    else:
+        lanes = min(STEP_LANES_3D, max(4, cols))
+        rows = min(STEP_THREADS // lanes, D1)
+        while not fits(lanes, rows) and 2 * lanes * rows <= STEP_THREADS:
+            rows *= 2
+        while (rows > 1 and slots * sizes(lanes, rows)[1] * dtype_bytes
+               > STEP_SMEM and fits(lanes, rows // 2)):
+            rows //= 2
+    span, slot = sizes(lanes, rows)
+    if not fits(lanes, rows) or slots * slot * dtype_bytes > limit:
+        raise ValueError(
+            f"{spec.name} on {tuple(shape)}: no tile of the step kernel fits "
+            f"(radius {r}, {lanes} x {rows} threads, a ring of {slots} "
+            f"slots of {slot * dtype_bytes} B against {limit} B of shared "
+            f"memory)")
+    tiles_x, tiles_y = -(-D2 // (lanes * vec)), -(-D1 // rows)
+    segs = max(1, min(per_sm * sms // (tiles_x * tiles_y * batch),
+                      H // STEP_MIN_SEG))
+    seg = -(-H // segs)
+    segs = -(-H // seg)
+    if tiles_x * tiles_y >= 2**31 or segs > 65535 or batch > 65535:
+        raise ValueError(f"{spec.name} on {tuple(shape)} x {batch}: the "
+                         f"step kernel's grid is too large")
+    return StepLayout(vec, lanes, rows, ra, span, slot, slots, seg, segs,
+                      tiles_x, tiles_y, batch, dtype_bytes,
+                      D2 * dtype_bytes % 16 == 0)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _step_per_sm(spec: StencilSpec, shape: tuple[int, ...], dtype: int,
+                 threads: int, smem: int, index: int) -> int:
+    """CTAs of the step kernel for ``spec`` one SM of card ``index`` holds
+    (``stencil_step_per_sm``: its registers and shared memory)."""
+    n = ctypes.c_int()
+    _build.check(_build.load("stencil_step").stencil_step_per_sm(
+        stencil_args(spec, shape), dtype, threads, smem, ctypes.byref(n)),
+        "stencil_step_per_sm")
+    if n.value < 1:
+        raise ValueError(f"{spec.name} on {shape}: no CTA of the step kernel "
+                         f"({threads} threads, {smem} B) fits an SM")
+    return n.value
+
+
 # -- argument checks -----------------------------------------------------------
 
 def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
@@ -1213,18 +1370,37 @@ def stencil_baseline_step(
         raise ValueError("out must be a contiguous tensor like x, apart "
                          "from x")
     lib = _build.load("stencil_step")
+    batch = x.shape[0] if batched else 1
     with _build.on_device(x):
+        shape, sms = tuple(dom.shape), _sm_count(x.device.index)
+        lay = step_layout(spec, shape, x.element_size(), batch, sms)
+        lay = step_layout(spec, shape, x.element_size(), batch, sms,
+                          per_sm=_step_per_sm(spec, shape, DTYPES[x.dtype],
+                                              lay.threads, lay.smem,
+                                              x.device.index))
+        aligned = (lay.row_aligned and x.data_ptr() % 16 == 0
+                   and out.data_ptr() % 16 == 0)
+        gx, gy, _ = lay.grid
+        matched = ctypes.c_int()
         err = lib.stencil_step_launch(x.data_ptr(), out.data_ptr(),
-                                      stencil_args(spec, tuple(dom.shape)),
-                                      DTYPES[x.dtype],
-                                      x.shape[0] if batched else 1,
-                                      _build.stream())
+                                      stencil_args(spec, shape),
+                                      lay.c_args[aligned], DTYPES[x.dtype],
+                                      batch, gx, gy, lay.smem,
+                                      _build.stream(), ctypes.byref(matched))
     _build.check(err, "stencil_step_launch")
     stencil_baseline_step.launches += 1
     stencil_baseline_step.batched_launches += batched
+    stencil_baseline_step.unaligned_launches += not aligned
+    stencil_baseline_step.runtime_launches += matched.value < 0
     return out
 
 
 stencil_baseline_step.launches = 0
 #: the launches that stepped a batch ([B, ...]) of domains
 stencil_baseline_step.batched_launches = 0
+#: the launches whose rows (or tensors) are not on 16-byte boundaries: the
+#: kernel copies and stores them cell by cell
+stencil_baseline_step.unaligned_launches = 0
+#: the launches of a spec that is none of the kernel's compiled shapes (the
+#: Table-III specs): offsets read at run time
+stencil_baseline_step.runtime_launches = 0

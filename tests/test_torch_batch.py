@@ -24,6 +24,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.exec import CGProblem as JaxCGProblem
+from repro.exec import BatchedProblem as JaxBatchedProblem
+from repro.exec import Problem as JaxProblem
+from repro.exec import execute as jax_execute
 from repro.exec import Plan as JaxPlan
 from repro.exec import StencilProblem as JaxStencilProblem
 from repro.exec import execute_sequential as jax_execute_sequential
@@ -32,7 +35,7 @@ from repro_torch import obs
 from repro_torch.core import perks
 from repro_torch.core.hardware import H100
 from repro_torch.exec import (BatchedProblem, BiCGStabProblem, CGProblem,
-                              LaneRunner, Plan, StencilProblem,
+                              LaneRunner, Plan, Problem, StencilProblem,
                               autotune_batch_sweep, execute,
                               execute_sequential, per_instance_chip, plan,
                               plan_candidates)
@@ -270,6 +273,116 @@ def test_batched_on_sync_is_one_stacked_reduction(monkeypatch):
     x, rr = execute(bp, Plan(tier="device_loop", sync_every=25, batch=B))
     for i, v in enumerate(bs):
         assert float(rr[i]) < 1e-10 * float(np.dot(v, v)) * 10
+
+
+class _Counter(Problem):
+    """A callback-only instance: its state counts the steps taken, and it
+    declares no ``convergence()``, only an ``on_sync`` that stops once the
+    count reaches ``stop_at`` (its lane's own threshold)."""
+
+    kind = name = "counter"
+
+    def __init__(self, stop_at, n_steps=40, callback=True):
+        self.stop_at, self.n_steps, self.callback = stop_at, n_steps, callback
+
+    def initial_state(self):
+        return torch.zeros(1)
+
+    def step_fn(self):
+        return lambda s, out: torch.add(s, 1.0, out=out)
+
+    batched_step_fn = step_fn
+
+    def batched_tiers(self):
+        return ("host_loop", "device_loop")
+
+    def cacheable_arrays(self, *, fuse_steps=1):
+        return []
+
+    def oracle(self):
+        return torch.full((1,), float(self.n_steps))
+
+    def with_payload(self, payload):
+        return self
+
+    def on_sync(self):
+        if not self.callback:
+            return None
+        return lambda state, k: float(state[0]) >= self.stop_at
+
+
+class _JaxCounter(JaxProblem):
+    """``_Counter`` in the reference's package."""
+
+    kind = name = "counter"
+
+    def __init__(self, stop_at, n_steps=40):
+        self.stop_at, self.n_steps = stop_at, n_steps
+
+    def initial_state(self):
+        return jnp.zeros(1, jnp.float32)
+
+    def step_fn(self):
+        return lambda s: s + 1.0
+
+    def cacheable_arrays(self, *, fuse_steps=1):
+        return []
+
+    def oracle(self):
+        return jnp.full((1,), float(self.n_steps))
+
+    def with_payload(self, payload):
+        return self
+
+    def on_sync(self):
+        return lambda state, k: float(state[0]) >= self.stop_at
+
+
+def _stops(seed=80):
+    return [int(v) for v in np.random.default_rng(seed).integers(3, 30, B)]
+
+
+@pytest.mark.parametrize("plan_", [Plan(tier="host_loop", batch=B),
+                                   Plan(tier="device_loop", sync_every=1,
+                                        batch=B)],
+                         ids=["host_loop", "device_loop"])
+def test_batched_on_sync_falls_back_to_each_lane_callback(plan_):
+    """No instance declares ``convergence()``: the batch checks each lane's
+    own callback on that lane's slice and stops at its slowest lane."""
+    stops = _stops()
+    bp = BatchedProblem.from_instances([_Counter(s) for s in stops])
+    assert bp.convergence() is None
+    check = bp.on_sync()
+    assert check is not None
+    state = torch.tensor([[float(s)] for s in stops])
+    assert check(state, 0) is True
+    state[int(np.argmax(stops)), 0] -= 1
+    assert check(state, 0) is False
+    out = execute(bp, plan_)
+    assert out.shape == (B, 1)
+    assert torch.equal(out, torch.full((B, 1), float(max(stops))))
+
+
+def test_batched_on_sync_is_none_when_one_lane_has_no_callback():
+    stops = _stops()
+    insts = [_Counter(s) for s in stops[:-1]]
+    insts.append(_Counter(stops[-1], callback=False))
+    bp = BatchedProblem.from_instances(insts)
+    assert bp.on_sync() is None
+    out = execute(bp, Plan(tier="host_loop", batch=B))
+    assert torch.equal(out, torch.full((B, 1), 40.0))
+
+
+def test_batched_on_sync_fallback_step_count_matches_the_reference():
+    """The same numpy-made thresholds through the reference's
+    ``BatchedProblem`` and the port's stop at the same step."""
+    stops = _stops(seed=81)
+    ours = execute(BatchedProblem.from_instances([_Counter(s) for s in stops]),
+                   Plan(tier="host_loop", batch=B))
+    jbp = JaxBatchedProblem.from_instances([_JaxCounter(s) for s in stops])
+    theirs = jax_execute(jbp, JaxPlan(tier="host_loop", batch=B))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    assert float(ours[0, 0]) == max(stops)
 
 
 def test_batched_cg_over_a_matvec_raises_naming_the_kernel():

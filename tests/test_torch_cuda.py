@@ -414,6 +414,90 @@ def test_cuda_plans_the_card_cannot_hold_run_fitted(cuda):
         assert torch.equal(got, ref.stencil_run(x, spec, 9)), name
 
 
+#: csrc/stencil_step.cu's ragged cases: P not a multiple of a 16-byte
+#: chunk's cells, H < a tile's rows + 2r, 3D planes not multiples of the
+#: tile, and rows not on 16-byte boundaries (odd widths)
+STEP_SHAPES = {2: [(19, 130), (64, 1030), (17, 263), (13, 27)],
+               3: [(9, 33, 66), (20, 17, 40), (13, 21, 35), (7, 9, 11)]}
+
+
+def _step_once(x, spec):
+    """One step and the counters it moved (each case: exactly one launch)."""
+    before = ops.launch_counts()
+    got = ops.stencil_baseline_step(x, spec=spec)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in ops.launch_counts().items()
+             if v != before[k]}
+    assert delta.get("stencil_baseline_step") == 1, delta
+    return got, delta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_step_kernel_is_bit_equal_at_ragged_shapes(name, dtype, cuda):
+    """The redesigned step on every Table-III spec (its compiled shapes)
+    at ragged and unaligned shapes, bit for bit against ref.stencil_step;
+    an unaligned row width takes the cell-by-cell copies, counted apart."""
+    spec = get_spec(name)
+    rng = np.random.default_rng(21)
+    for shape in STEP_SHAPES[spec.ndim]:
+        if min(shape) <= 2 * spec.radius:
+            continue
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda, dtype)
+        got, delta = _step_once(x, spec)
+        assert torch.equal(got, ref.stencil_step(x, spec)), (name, shape)
+        aligned = shape[-1] * x.element_size() % 16 == 0
+        assert delta.get("stencil_baseline_step_unaligned", 0) == (
+            not aligned), (shape, delta)
+        assert "stencil_baseline_step_runtime" not in delta, delta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_step_kernel_runtime_path_and_offset_tensor(dtype, cuda):
+    """A spec that is none of the compiled shapes (radius 8, other weights)
+    takes the runtime path; a tensor that starts off a 16-byte boundary is
+    copied cell by cell; both bit for bit."""
+    from repro_torch.kernels.common import StencilSpec, _box, _star
+    rng = np.random.default_rng(22)
+    for spec in (StencilSpec("star2d8", 2, tuple(_star(2, 8)[:25]),
+                             tuple(0.5 / (k + 2) for k in range(25))),
+                 StencilSpec("box3d2", 3, tuple(_box(3, 2)[:30]),
+                             tuple(0.3 / (k + 1) for k in range(30)))):
+        shape = (40, 70) if spec.ndim == 2 else (20, 17, 40)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda, dtype)
+        got, delta = _step_once(x, spec)
+        assert delta.get("stencil_baseline_step_runtime") == 1, delta
+        assert torch.equal(got, ref.stencil_step(x, spec)), spec.name
+    spec = get_spec("2d5pt")
+    flat = torch.from_numpy(rng.standard_normal(1 + 64 * 128).astype(
+        np.float32)).to(cuda, dtype)
+    x = flat[1:].view(64, 128)          # 2 or 4 bytes past a boundary
+    got, delta = _step_once(x, spec)
+    assert delta.get("stencil_baseline_step_unaligned") == 1, delta
+    assert torch.equal(got, ref.stencil_step(x, spec))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_batched_step_lanes_at_ragged_shapes(name, dtype, cuda):
+    """B = 3 domains of a ragged shape in one launch: each lane bit-equal to
+    its own launch and to the plain version."""
+    spec = get_spec(name)
+    shape = STEP_SHAPES[spec.ndim][0] if spec.radius <= 4 else (
+        (19, 130) if spec.ndim == 2 else (20, 17, 40))
+    rng = np.random.default_rng(23)
+    xs = torch.from_numpy(rng.standard_normal((3,) + shape).astype(
+        np.float32)).to(cuda, dtype)
+    got, delta = _step_once(xs, spec)
+    assert delta.get("stencil_baseline_step_batched") == 1, delta
+    for i in range(3):
+        one, _ = _step_once(xs[i], spec)
+        assert torch.equal(got[i], one), (name, i)
+    assert torch.equal(got, ref.stencil_step(xs, spec))
+
+
 def test_cuda_device_loop_keeps_its_graph(cuda):
     spec = get_spec("2d5pt")
     p = StencilProblem(_domain(spec, seed=10), spec, STEPS, device=cuda)
