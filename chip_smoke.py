@@ -109,10 +109,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 14. [batch kernels] the batched launches, B instances in one launch: the
    batched ``stencil_step`` on every Table-III spec in f32 and bf16 at
    B = 3, ``spmv_ell`` at B = 1, 2, 4, 8 on poisson2d(1024), ``vdot`` on
-   eight lanes, and ``cg_fused`` at B = 1, 2, 4 on poisson2d(512) (100
-   iterations, A on chip), each bit for bit against B single launches and
-   (``cg_fused``: x and rr held to a float64 run) its plain version, and
-   timed at full size, in a graph too, beside one library call;
+   eight lanes, and ``cg_fused`` at B = 1, 2, 3, 4 on poisson2d(512),
+   B = 16 on poisson2d(256) and B = 32 on poisson2d(128) (100 iterations,
+   A on chip), each bit for bit against B single launches and
+   (``cg_fused``: x and rr of every lane held to a float64 run) its plain
+   version, and timed at full size, in a graph too, beside one library
+   call (``cg_fused``: at every B, beside one lane's single launch);
 15. [batch path] counted: ``BatchedProblem`` -> ``plan_candidates`` ->
    ``execute`` on every offered tier against ``execute_sequential`` (bit
    for bit, per-instance ms) for stencil-batch (2d5pt, B = 8 domains of
@@ -1713,7 +1715,10 @@ BATCH_CELLS = [
 ]
 BATCH_B = 3                          # [batch kernels] stencil instances
 SPMV_LANES = (1, 2, 4, 8)
-CG_LANES = (1, 2, 4)
+# [batch kernels] cg_fused: (poisson2d side, lane counts), A on chip; the
+# kernels line's entry is the cg-batch-small cell's launch
+CG_LANES = ((512, (1, 2, 3, 4)), (256, (16,)), (128, (32,)))
+CG_LANES_MAIN = (512, 4)
 SERVICE_STENCILS, SERVICE_CGS = 16, 8
 SERVICE_SHAPE, SERVICE_STEPS = (1024, 1024), 100
 AUTOTUNE = [("2d5pt", (8192, 8192), 100), ("2ds25pt", (8192, 8192), 100),
@@ -1980,44 +1985,53 @@ def batch_phases(rng):
         library_ms=cuda_ms(lambda: torch.linalg.vecdot(a, c), 20))
     print(f"  vdot B=8 n={n}: {json.dumps(timing['vdot'])}")
 
-    csr_s = poisson2d(512)
-    ell_s = csr_s.to_ell()
-    ds = torch.from_numpy(ell_s.data).cuda()
-    cs = torch.from_numpy(ell_s.cols).cuda()
-    ns = ds.shape[0]
-    print(f"[batch kernels] {card}: cg_fused on poisson2d(512) (n={ns}), "
-          f"MIX with A on chip, {CG_ITERS} iterations, B in {CG_LANES}: x "
-          f"and rr against B single-instance launches (bit for bit) and "
-          f"a float64 plain run")
-    for b in CG_LANES:
-        bs = vecs(b, ns)
-        x, rr = ops.cg(ds, cs, bs, iters=CG_ITERS)
-        for i in range(b):
-            x1, rr1 = ops.cg(ds, cs, bs[i].contiguous(), iters=CG_ITERS)
-            same(f"cg_fused B={b} lane {i} vs single", (x[i], rr[i]),
-                 (x1, rr1[0]))
-            x32, rr32 = ref.cg_run(ds, cs, bs[i], CG_ITERS)
-            x64, rr64 = ref.cg_run(ds.double(), cs, bs[i].double(), CG_ITERS)
-            keep("cg_fused_batched", check_x64(
-                f"cg_fused B={b} lane {i} x", x[i], x32, x64))
-            check_rr(f"cg_fused B={b} lane {i} rr", rr[i], [rr32], rr64,
-                     float(torch.dot(bs[i].double(), bs[i].double())))
-        if b == max(CG_LANES):
+    for side, lanes in CG_LANES:
+        csr_s = poisson2d(side)
+        ell_s = csr_s.to_ell()
+        ds = torch.from_numpy(ell_s.data).cuda()
+        cs = torch.from_numpy(ell_s.cols).cuda()
+        ns = ds.shape[0]
+        print(f"[batch kernels] {card}: cg_fused on poisson2d({side}) "
+              f"(n={ns}), MIX with A on chip, {CG_ITERS} iterations, B in "
+              f"{lanes}: x and rr against B single-instance launches (bit "
+              f"for bit) and a float64 plain run")
+        single = lambda: ops.cg(ds, cs, bs[0], iters=CG_ITERS)
+        single_ms = single_graph_ms = None
+        for b in lanes:
+            bs = vecs(b, ns)
+            x, rr = ops.cg(ds, cs, bs, iters=CG_ITERS)
+            n_same = 0
+            for i in range(b):
+                x1, rr1 = ops.cg(ds, cs, bs[i].contiguous(), iters=CG_ITERS)
+                n_same += same(f"cg_fused B={b} lane {i} vs single",
+                               (x[i], rr[i]), (x1, rr1[0]))
+                x32, rr32 = ref.cg_run(ds, cs, bs[i], CG_ITERS)
+                x64, rr64 = ref.cg_run(ds.double(), cs, bs[i].double(),
+                                       CG_ITERS)
+                keep("cg_fused_batched", check_x64(
+                    f"cg_fused B={b} lane {i} x", x[i], x32, x64))
+                check_rr(f"cg_fused B={b} lane {i} rr", rr[i], [rr32], rr64,
+                         float(torch.dot(bs[i].double(), bs[i].double())))
+            print(f"  cg_fused B={b}: {n_same} of {b} lanes bit-equal to "
+                  f"their single launches")
             run = lambda: ops.cg(ds, cs, bs, iters=CG_ITERS)
+            if single_ms is None:      # one lane of this operator, once
+                single_ms = cuda_ms(single, 3)
+                single_graph_ms = graph_ms(single, 3)
             moved = (ell_s.data.size * 8 + b * (ns * 4 * 2 + 4))
             ops_ = CG_ITERS * b * (2 * ell_s.data.size + 10 * ns)
             t_b, t_o = moved / HBM_BW, ops_ / FP32_FLOPS
-            timing["cg_fused_batched"] = dict(
-                B=b, ms=cuda_ms(run, 3), graph_ms=graph_ms(run, 3),
-                single_ms=cuda_ms(lambda: ops.cg(ds, cs, bs[0],
-                                                 iters=CG_ITERS), 3),
+            t = dict(
+                B=b, side=side, ms=cuda_ms(run, 3), graph_ms=graph_ms(run, 3),
+                single_ms=single_ms, single_graph_ms=single_graph_ms,
                 plain_ms=cuda_ms(lambda: [ref.cg_run(ds, cs, bs[i], CG_ITERS)
                                           for i in range(b)], 1),
                 bound=(1e3 * max(t_b, t_o),
                        "bytes" if t_b >= t_o else "operations"),
                 library_ms=None)
-            print(f"  cg_fused B={b}: "
-                  f"{json.dumps(timing['cg_fused_batched'])}")
+            if (side, b) == CG_LANES_MAIN:
+                timing["cg_fused_batched"] = t
+            print(f"  cg_fused B={b}: {json.dumps(t)}")
 
     # -- 15. the batched path, counted ----------------------------------------------
     print(f"[batch path] {card}: counters set to 0; every tier the planner "

@@ -10,6 +10,8 @@
     python3 scripts/kernel_variants.py --kernels perks_profile
     python3 scripts/kernel_variants.py --kernels krylov [--src SRC]
                                        [--digests FILE]
+    python3 scripts/kernel_variants.py --kernels krylov_lanes [--src SRC]
+                                       [--digests FILE]
     python3 scripts/kernel_variants.py --kernels krylov_profile
     python3 scripts/kernel_variants.py --kernels ssm [--src SRC]
     python3 scripts/kernel_variants.py --kernels ssm_profile
@@ -124,7 +126,20 @@ cycles by phase (the work between rounds outside the SpMVs and
 projections; a round's first barrier, the release of its tagged word, the
 polling, its sum and last barrier; the SpMVs; GMRES's projections), read
 back through ``<kernel>_profile``: cycles an iteration (a GMRES cycle) a
-CTA, the GMRES cycle also eager and in a graph.
+CTA, the GMRES cycle and the batched cells also eager and in a graph.
+
+Both Krylov modes also run the batched ``cg_fused`` cells
+(``KRYLOV_LANE_CELLS``: poisson2d(512) at B = 1, 2, 3, 4, poisson2d(256)
+at B = 1, 16 and poisson2d(128) at B = 1, 32, MIX with all of A on
+chip, 100 iterations; right-hand sides from seed 1), each in a graph
+too and with its digest, so the A/B holds every lane's bits across
+trees; a tree whose ``cg_fused`` takes no batch (before batched launches)
+runs their B = 1 cells only. ``--kernels krylov_lanes`` runs those cells
+alone (``cg_fused`` built alone, its ``ptxas`` registers and spills by
+kernel instance printed), and cg-batch-small through ``execute`` (the
+planner's batched resident MIX plan, median of 20 runs, and the same
+instances one by one, median of 5; ms per instance), for the A/B of the
+batched kernel and of arms of it (copies of the tree, ``--src``).
 
 ``--kernels ssm`` times ``ssd_scan`` at mamba2-780m's SSD widths (B = 1,
 T = 8192, H = 48, P = 64, N = 128; streams from seed 0 as
@@ -206,6 +221,22 @@ def spills(log: str) -> dict:
             stores = max(stores, int(ln.split("bytes spill stores")[0]
                                      .split(",")[-1].strip()))
     return {"max_registers": regs, "max_spill_store_bytes": stores}
+
+
+def instance_spills(log: str) -> dict:
+    """Registers and spill-store bytes of each kernel a library's ``ptxas``
+    log names (by mangled name)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            out[name]["spill_store_bytes"] = int(
+                ln.split("bytes spill stores")[0].split(",")[-1].strip())
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def graph_ms(fn, calls: int = 50) -> float:
@@ -600,6 +631,11 @@ KRYLOV_AB_CELLS = [("cg-small", "cg", 512), ("cg-large", "cg", 1024),
                    ("bicgstab-small", "bicgstab", 512),
                    ("bicgstab-large", "bicgstab", 768),
                    ("gmres-small", "gmres", 448)]
+#: (cell, grid side, lane counts): the batched ``cg_fused`` cells, MIX with
+#: all of A on chip, 100 iterations; B = 1 is the single-instance launch
+#: (a 1-D b) on the same operator, which every tree takes
+KRYLOV_LANE_CELLS = [("cg-small", 512, (1, 2, 3, 4)), ("cg-256", 256, (1, 16)),
+                     ("cg-128", 128, (1, 32))]
 
 
 def _digest(*tensors) -> str:
@@ -609,12 +645,14 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _krylov_runs(rng):
+def _krylov_runs(rng, lanes_only: bool = False):
     """The krylov modes' runs: {key: (fn, iterations, streamed A bytes a
     run, plain version or None)} over KRYLOV_AB_CELLS (VEC and the
     planner's MIX; one GMRES cycle, with ``ref.gmres_cycle_update`` on the
-    same inputs), then each fused kernel on a 16x16 grid at 0 and 2000
-    iterations."""
+    same inputs), the batched ``cg_fused`` cells (KRYLOV_LANE_CELLS, their
+    right-hand sides from a generator of their own, seed 1), then each
+    fused kernel on a 16x16 grid at 0 and 2000 iterations; ``lanes_only``:
+    the batched cells alone."""
     import functools
 
     from repro_torch import BiCGStabProblem, CGProblem, GMRESProblem, plan
@@ -622,7 +660,7 @@ def _krylov_runs(rng):
     from repro_torch.sparse.generate import convdiff2d, poisson2d
 
     runs = {}
-    for cell, kind, side in KRYLOV_AB_CELLS:
+    for cell, kind, side in () if lanes_only else KRYLOV_AB_CELLS:
         csr = poisson2d(side) if kind == "cg" else convdiff2d(side)
         ell = csr.to_ell()
         n = csr.shape[0]
@@ -649,6 +687,27 @@ def _krylov_runs(rng):
                                                iters=100, matrix_rows=r,
                                                resident_matrix=r > 0),
                 100, spmvs * ell.data.size * 8 * (n - rows) / n, None)
+    # a tree before batched launches (its cg_fused has no MAX_LANES) takes
+    # only the B = 1 cells
+    from repro_torch.kernels import cg_fused as kcg
+    most = getattr(kcg, "MAX_LANES", 1)
+    lane_rng = np.random.default_rng(1)
+    for cell, side, lanes in KRYLOV_LANE_CELLS:
+        ell = poisson2d(side).to_ell()
+        d, c = torch.from_numpy(ell.data).cuda(), torch.from_numpy(
+            ell.cols).cuda()
+        n = ell.data.shape[0]
+        for b in lanes:
+            bs = torch.from_numpy(lane_rng.standard_normal((b, n)).astype(
+                np.float32)).cuda()
+            if b > most:
+                continue
+            bs = bs[0] if b == 1 else bs
+            runs[f"{cell} MIX B={b}"] = (
+                lambda d=d, c=c, bs=bs: ops.cg(d, c, bs, iters=100), 100,
+                0.0, None)
+    if lanes_only:
+        return runs
     for name, f, m in (("cg_fused", ops.cg, poisson2d(16)),
                        ("bicgstab_fused", ops.bicgstab, convdiff2d(16))):
         ell = m.to_ell()
@@ -663,6 +722,38 @@ def _krylov_runs(rng):
     return runs
 
 
+def _batch_path():
+    """cg-batch-small through ``execute``: poisson2d(512), B = 4, 100
+    iterations, the planner's batched resident MIX plan and the same
+    instances one by one (``execute_sequential``), built as
+    ``chip_smoke.py``'s [batch path] builds them; (batched, sequential)
+    thunks, or None for a tree without batched execution."""
+    import dataclasses
+
+    try:
+        from repro_torch.exec import (BatchedProblem, CGProblem,
+                                      execute, execute_sequential,
+                                      plan_candidates)
+    except ImportError:
+        return None
+    from repro_torch.sparse.generate import poisson2d
+
+    csr = poisson2d(512)
+    ell = csr.to_ell()
+    rng = np.random.default_rng(2)
+    rhs = [rng.standard_normal(csr.shape[0]).astype(np.float32)
+           for _ in range(4)]
+    first = CGProblem.from_ell(ell.data, ell.cols, rhs[0], 100, matrix=csr)
+    insts = [first] + [first.with_payload(torch.from_numpy(v).cuda())
+                       for v in rhs[1:]]
+    bp = BatchedProblem.from_instances(insts)
+    plan = next(c for c in plan_candidates(bp)
+                if c.tier == "resident" and c.policy == "MIX")
+    single = dataclasses.replace(plan, batch=1, problem="")
+    return (lambda: execute(bp, plan),
+            lambda: execute_sequential(insts, single))
+
+
 def _plain_gap(out, plain) -> tuple[list[float], bool]:
     """The largest absolute difference of each of a GMRES cycle's outputs
     (V, H, beta, x_new) from its plain version's, and whether every output
@@ -673,16 +764,24 @@ def _plain_gap(out, plain) -> tuple[list[float], bool]:
                 for a, b in zip(out, want)))
 
 
-def krylov(src: str, rounds: int, digests: str | None) -> int:
-    """``--kernels krylov``: one JSON line per round."""
+def krylov(src: str, rounds: int, digests: str | None,
+           lanes_only: bool = False) -> int:
+    """``--kernels krylov`` (``krylov_lanes``: the batched cells alone):
+    one JSON line per round."""
     from repro_torch.kernels import _build
 
-    libs = ("cg_fused", "bicgstab_fused", "gmres_cycle_fused")
+    libs = (("cg_fused",) if lanes_only else
+            ("cg_fused", "bicgstab_fused", "gmres_cycle_fused"))
     secs = _build.build_all(libs)
     for n in libs:
+        log = _build.build_log(n).read_text()
         print(json.dumps({"src": src, "library": n, "build_s": secs.get(n),
-                          **spills(_build.build_log(n).read_text())}))
-    runs = _krylov_runs(np.random.default_rng(0))
+                          **spills(log)}))
+        if n == "cg_fused":
+            print(json.dumps({"src": src, "cg_fused instances":
+                              instance_spills(log)}))
+    runs = _krylov_runs(np.random.default_rng(0), lanes_only)
+    path = _batch_path() if lanes_only else None
     kept = {}
     if digests and os.path.exists(digests):
         with open(digests) as f:
@@ -705,14 +804,20 @@ def krylov(src: str, rounds: int, digests: str | None) -> int:
                     bad.append(f"{key}: outputs {d} differ from {kept[key]}")
             ms = cuda_ms(fn, 20 if key.startswith("gmres") else 5)
             line[f"{key} ms"] = ms
-            if key.startswith("gmres"):
+            if key.startswith("gmres") or " B=" in key:
                 line[f"{key} graph_ms"] = graph_ms(fn, 20)
             if streamed:
                 line[f"{key} streamed_GBps"] = streamed / ms / 1e6
-        for name in ("cg_fused", "bicgstab_fused"):
+        for name in () if lanes_only else ("cg_fused", "bicgstab_fused"):
             line[f"{name} tiny us_per_iter"] = 1e3 * (
                 line.pop(f"{name} tiny iters=2000 ms")
                 - line.pop(f"{name} tiny iters=0 ms")) / 2000
+        if path is not None:
+            batched, sequential = path
+            line["cg-batch-small resident per_instance_ms"] = cuda_ms(
+                batched, 20) / 4
+            line["cg-batch-small sequential per_instance_ms"] = cuda_ms(
+                sequential, 5) / 4
         print(json.dumps(line), flush=True)
     if digests:
         with open(digests, "w") as f:
@@ -775,7 +880,7 @@ def krylov_profile(src: str, rounds: int) -> int:
                         bad.append(f"{n} {key} differs from the shipped "
                                    f"build")
                 line["ms"] = cuda_ms(fn, 3)
-                if key.startswith("gmres"):
+                if key.startswith("gmres") or " B=" in key:
                     line["graph_ms"] = graph_ms(fn, 20)
                 if "-DKRY_PROFILE" in flags:
                     prof = getattr(lib, f"{name}_profile")
@@ -1058,7 +1163,8 @@ def main() -> int:
                                           "shallow_resident",
                                           "resident_profile", "perks_stream",
                                           "perks_profile", "krylov",
-                                          "krylov_profile", "ssm",
+                                          "krylov_lanes", "krylov_profile",
+                                          "ssm",
                                           "ssm_profile", "step_specs"),
                     default="stencil")
     ap.add_argument("--digests", default=None,
@@ -1084,8 +1190,9 @@ def main() -> int:
         return shallow_resident(src, args.rounds, PS_CELLS)
     if args.kernels == "perks_profile":
         return perks_profile(src, args.rounds)
-    if args.kernels == "krylov":
-        return krylov(src, args.rounds, args.digests)
+    if args.kernels in ("krylov", "krylov_lanes"):
+        return krylov(src, args.rounds, args.digests,
+                      lanes_only=args.kernels == "krylov_lanes")
     if args.kernels == "krylov_profile":
         return krylov_profile(src, args.rounds)
     if args.kernels == "ssm":

@@ -426,19 +426,19 @@ def cg_policy_from_arrays(arrays, budget_bytes: int) -> dict:
             "_plan": cplan}
 
 
-def _cg_lanes_fit(problem, chip: Chip, batch: int) -> bool:
-    """Whether ``csrc/cg_fused.cu`` holds x, r, p and Ap of ``batch``
-    right-hand sides of ``problem`` in one CTA an SM of ``chip`` (16 B a
-    row a lane and 128 B a lane of warp partials, 1 KB left for the
-    kernel's static shared memory; at most ``cg_fused.MAX_LANES`` lanes).
-    The share of A beside them is the B-scaled cache plan's, which the
-    kernel's wrapper checks again at launch."""
+def _cg_lanes_fit(problem, chip: Chip, batch: int, matrix_rows: int) -> bool:
+    """Whether ``csrc/cg_fused.cu`` holds ``batch`` right-hand sides of
+    ``problem`` with ``matrix_rows`` rows of its A on chip, one CTA an SM of
+    ``chip``: the wrapper's own layout (``cg_fused.smem_layout``, the lanes
+    padded to the kernel's width) within a CTA's shared memory less the
+    kernel's static shared memory, and at most ``cg_fused.MAX_LANES``
+    lanes."""
     from repro_torch.kernels import cg_fused as kcg
     if batch > kcg.MAX_LANES:
         return False
-    stride = -(-problem.b.shape[0] // chip.sms)
-    need = (kcg.VECTOR_BYTES_PER_ROW * stride + kcg.WARP_PART_BYTES) * batch
-    return need <= chip.smem_per_block - 1024
+    n, k = problem.data.shape
+    smem = kcg.smem_layout(n, k, chip.sms, matrix_rows, batch)[2]
+    return smem <= chip.smem_per_block - kcg.STATIC_SMEM_BYTES
 
 
 def _cg_candidates(problem, chip: Chip, *,
@@ -451,7 +451,7 @@ def _cg_candidates(problem, chip: Chip, *,
     batched SpMV streams A once an iteration for the whole batch. Launches
     are paid once a step for the batch; ``graph_kept`` prices the device
     loop as the replay of its kept graph."""
-    from repro_torch.exec.adapters import fused_block_rows
+    from repro_torch.exec.adapters import fused_block_rows, plan_matrix_rows
 
     runs = problem if runs is None else runs
     arrays = [
@@ -495,11 +495,15 @@ def _cg_candidates(problem, chip: Chip, *,
     ]
     kind = problem.kind
     rounds_s = n * krylov_round_s(problem)
-    # a batch runs resident only where cg_fused's lanes hold it (whether
-    # the family has a batched resident launch at all is its
-    # batched_tiers(), the gate of plan_candidates)
-    if problem.data is not None and pol["vector_fraction"] >= 1.0 and (
-            batch == 1 or _cg_lanes_fit(problem, chip, batch)):
+    # a batch runs resident only where cg_fused's lanes hold it, with the
+    # plan's rows of A (whether the family has a batched resident launch at
+    # all is its batched_tiers(), the gate of plan_candidates)
+    def lanes_fit(plan: Plan) -> bool:
+        return batch == 1 or _cg_lanes_fit(
+            problem, chip, batch,
+            plan_matrix_rows(plan, problem.b.shape[0]))
+
+    if problem.data is not None and pol["vector_fraction"] >= 1.0:
         bm = fused_block_rows(problem.b.shape[0])
         # cached bytes still move through on-chip memory every iteration
         # (Eq. 7)
@@ -513,6 +517,8 @@ def _cg_candidates(problem, chip: Chip, *,
                 predicted_s=max(n * (total_bytes - vec_traffic)
                                 / chip.hbm_bw, t_sm_vec / chip.onchip_bw)
                 + rounds_s + DISPATCH_OVERHEAD_S, **common))
+            if not lanes_fit(cands[-1]):
+                cands.pop()
         # the GMRES cycle kernel holds the whole of A beside the basis
         # (no streamed-A variant), so a partial-A MIX plan has no kernel
         if pol["matrix_fraction"] > 0.0 and (
@@ -525,6 +531,8 @@ def _cg_candidates(problem, chip: Chip, *,
                 predicted_s=max(n * max(0.0, total_bytes - saved)
                                 / chip.hbm_bw, t_sm_all / chip.onchip_bw)
                 + rounds_s + DISPATCH_OVERHEAD_S, **common))
+            if not lanes_fit(cands[-1]):
+                cands.pop()
     return cands
 
 

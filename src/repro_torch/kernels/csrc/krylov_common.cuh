@@ -45,6 +45,41 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// Sums over a warp of LB values a thread (v, LB a power of two <= 32), by
+// recursive halving: at xor partner o = 16, 8, ... a thread keeps the half
+// of its values that bit o of its lane selects and adds its partner's copy
+// of that half; once one value is left, butterfly steps finish it. Every
+// value's sum is warp_sum's bit for bit: each step adds the same two
+// partial sums as the butterfly does (in the other order, and a + b is
+// b + a). Returns the sum of value lane / (32 / LB), which lanes
+// (32 / LB) l ... (32 / LB)(l + 1) - 1 all hold. v is left clobbered.
+template <int M>
+__device__ __forceinline__ void halve_values(float* v, int o) {
+    const bool upper = (threadIdx.x & o) != 0;
+#pragma unroll
+    for (int j = 0; j < M / 2; ++j) {
+        const float keep = upper ? v[M / 2 + j] : v[j];
+        const float give = upper ? v[j] : v[M / 2 + j];
+        v[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, give, o));
+    }
+}
+
+template <int LB>
+__device__ __forceinline__ float warp_sums(float (&v)[LB]) {
+    static_assert(LB >= 1 && LB <= 32 && (LB & (LB - 1)) == 0,
+                  "LB: a power of two up to 32");
+    if constexpr (LB >= 2) halve_values<LB>(v, 16);
+    if constexpr (LB >= 4) halve_values<LB / 2>(v, 8);
+    if constexpr (LB >= 8) halve_values<LB / 4>(v, 4);
+    if constexpr (LB >= 16) halve_values<LB / 8>(v, 2);
+    if constexpr (LB >= 32) halve_values<LB / 16>(v, 1);
+    float s = v[0];
+#pragma unroll
+    for (int o = 16 / LB; o > 0; o >>= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    return s;
+}
+
 // One thread's term of value `slot`: summed over the warp, kept per warp in
 // warp_part[slot * KRY_WARPS + warp]. Every thread of the block calls it.
 __device__ __forceinline__ void warp_partial(float v, int slot,

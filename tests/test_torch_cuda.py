@@ -24,7 +24,7 @@ from repro_torch.kernels import ops, ref, stencil2d
 from repro_torch.kernels.common import BENCHMARKS, get_spec
 from repro_torch.solvers.cg import SellOperator
 from repro_torch.sparse import generate, nonsymmetric_names, symmetric_names
-from repro_torch.sparse.generate import poisson2d
+from repro_torch.sparse.generate import poisson2d, poisson3d
 
 NAMES = sorted(BENCHMARKS)
 STEPS = 5
@@ -1365,27 +1365,53 @@ def test_cuda_vdot_float64_keeps_what_cancels_in_float32(n, cuda):
     assert abs(got32.item() - want) <= abs(np.spacing(want))
 
 
-@pytest.mark.parametrize("policy_rows", [0, None])
-def test_cuda_batched_cg_fused_is_bit_equal_to_single_launches(policy_rows,
-                                                              cuda):
-    ell = poisson2d(48).to_ell()
+# Every lane width the kernel is built for, padded widths (3, 5, 31) and
+# full ones; an n that is a multiple of neither the grid (132 CTAs) nor
+# any width; K = 5 and, through the general-K row path, K = 7.
+BATCH_CG_LANES = [1, 2, 3, 4, 5, 8, 16, 31, 32]
+BATCH_CG_OPERATORS = {"poisson2d(47)": lambda: poisson2d(47),
+                      "poisson3d(13)": lambda: poisson3d(13)}
+
+
+@pytest.mark.parametrize("operator, iters", [
+    ("poisson2d(47)", 40), ("poisson3d(13)", 30), ("poisson2d(47)", 0),
+    ("poisson2d(47)", 1)])
+@pytest.mark.parametrize("policy", ["VEC", "partial MIX", "MIX"])
+@pytest.mark.parametrize("b", BATCH_CG_LANES)
+def test_cuda_batched_cg_fused_is_bit_equal_to_single_launches(
+        b, policy, operator, iters, cuda):
+    ell = BATCH_CG_OPERATORS[operator]().to_ell()
     data = torch.from_numpy(ell.data).to(cuda)
     cols = torch.from_numpy(ell.cols).to(cuda)
     n = data.shape[0]
-    rng = np.random.default_rng(7)
-    for b in (1, 2, 4):
-        bs = torch.from_numpy(rng.standard_normal((b, n)).astype(
-            np.float32)).to(cuda)
-        x, rr = ops.cg(data, cols, bs, iters=40, matrix_rows=policy_rows,
-                       resident_matrix=policy_rows is None)
-        assert x.shape == (b, n) and rr.shape == (b,)
-        for i in range(b):
-            x1, rr1 = ops.cg(data, cols, bs[i].clone(), iters=40,
-                             matrix_rows=policy_rows,
-                             resident_matrix=policy_rows is None)
-            assert torch.equal(x[i], x1) and torch.equal(rr[i], rr1[0])
-            xw, rrw = ref.cg_run(data, cols, bs[i], 40)
-            torch.testing.assert_close(x[i], xw, **CG_TOL)
+    rows = {"VEC": 0, "partial MIX": n // 3, "MIX": n}[policy]
+    kw = dict(iters=iters, matrix_rows=rows, resident_matrix=rows > 0)
+    rng = np.random.default_rng(7 + b)
+    bs = torch.from_numpy(rng.standard_normal((b, n)).astype(
+        np.float32)).to(cuda)
+    x, rr = ops.cg(data, cols, bs, **kw)
+    assert x.shape == (b, n) and rr.shape == (b,)
+    for i in range(b):
+        x1, rr1 = ops.cg(data, cols, bs[i].clone(), **kw)
+        assert torch.equal(x[i], x1) and torch.equal(rr[i], rr1[0]), i
+        xw, rrw = ref.cg_run(data, cols, bs[i], iters)
+        torch.testing.assert_close(x[i], xw, **CG_TOL)
+        torch.testing.assert_close(rr[i], rrw, **CG_TOL)
+
+
+def test_cuda_cg_fused_static_smem_is_the_planners(cuda):
+    """The planner fits batched resident plans to the H100's per-block
+    shared memory less ``cg_fused.STATIC_SMEM_BYTES``; the card and the
+    built kernel must give that limit."""
+    import ctypes
+    from repro_torch.core.hardware import H100
+    from repro_torch.kernels import _build, cg_fused as kcg
+    lib = _build.load("cg_fused")
+    optin, static = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.cg_fused_smem(ctypes.byref(optin), ctypes.byref(static)),
+                 "cg_fused_smem")
+    assert optin.value == H100.smem_per_block
+    assert static.value == kcg.STATIC_SMEM_BYTES
 
 
 def test_cuda_batched_cg_step_launches_what_one_step_launches(cuda):
