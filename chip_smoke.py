@@ -119,12 +119,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``execute`` on every offered tier against ``execute_sequential`` (bit
    for bit, per-instance ms) for stencil-batch (2d5pt, B = 8 domains of
    2048x2048, 100 steps), cg-batch-small (poisson2d(512), B = 4, 100
-   iterations) and cg-batch-large (poisson2d(1024), B = 8), and the
-   launches of one batched step against one single step (1 and 19);
+   iterations), cg-batch-large (poisson2d(1024), B = 8), bicgstab-batch
+   (convdiff2d(512), B = 8, 100 iterations) and gmres-batch
+   (convdiff2d(448), B = 4, 4 GMRES(16) cycles), and the launches of one
+   batched step against one single step (1, 19, 40 and 677);
 16. [service] a ``SolverService(max_batch=8)`` fed 16 stencil and 8 CG
    requests, interleaved: its stats, its plans, the graph captures per key
    (one for the stencil key), every result bit for bit against its own
    ``execute``, and the ``service_*``/``executor_*`` Prometheus lines;
+   then [async service], with every launch counter set to 0 just before
+   and read just after: ``AsyncSolverService(AsyncConfig(max_batch=8))
+   .serve(trace)`` of a seeded Poisson arrival trace of the same 16
+   stencil and 8 CG requests plus 8 BiCGStab (convdiff2d(512), 100
+   iterations) and 4 GMRES(16) (convdiff2d(448), 4 cycles) requests: its
+   stats (p50/p99 queued and latency, instances/s), admissions mid-solve,
+   barriers and graph captures a key (one each), every result bit for bit
+   against its request alone under the engine's cadence, the synchronous
+   ``SolverService``'s p50/p99 on the same trace beside them, and a
+   barrier's cost: the kept in-place chunk graph against a chunk through
+   ``LaneRunner.advance`` (copied in and out of the device loop's graph);
 17. [obs] traced ``execute`` bit-equal to untraced on four plans, and the
    Chrome trace's event count;
 18. [autotune] ``autotune(top_k=4)`` with a drift ledger file on 2d5pt and
@@ -1712,6 +1725,8 @@ BATCH_CELLS = [
     ("stencil-batch", "2d5pt", (2048, 2048), 8, 100),
     ("cg-batch-small", "poisson2d", 512, 4, 100),
     ("cg-batch-large", "poisson2d", 1024, 8, 100),
+    ("bicgstab-batch", "convdiff2d", 512, 8, 100),
+    ("gmres-batch", "convdiff2d", 448, 4, 4),     # GMRES(KRYLOV_M) cycles
 ]
 BATCH_B = 3                          # [batch kernels] stencil instances
 SPMV_LANES = (1, 2, 4, 8)
@@ -1721,6 +1736,11 @@ CG_LANES = ((512, (1, 2, 3, 4)), (256, (16,)), (128, (32,)))
 CG_LANES_MAIN = (512, 4)
 SERVICE_STENCILS, SERVICE_CGS = 16, 8
 SERVICE_SHAPE, SERVICE_STEPS = (1024, 1024), 100
+# [async service]: the [service] requests plus BiCGStab and GMRES ones,
+# (count, convdiff2d side, iterations or cycles), arriving as a seeded
+# Poisson process with this mean gap
+ASYNC_BICGSTABS, ASYNC_GMRES = (8, 512, 100), (4, 448, 4)
+ASYNC_MEAN_GAP_S = 0.001
 AUTOTUNE = [("2d5pt", (8192, 8192), 100), ("2ds25pt", (8192, 8192), 100),
             ("3d7pt", (256, 256, 256), 100)]
 
@@ -1863,15 +1883,15 @@ def batch_phases(rng):
 
     from repro_torch import obs
     from repro_torch.core import perks
-    from repro_torch.exec import (BatchedProblem, CGProblem, Plan,
-                                  StencilProblem, autotune, execute,
-                                  execute_sequential, plan_candidates)
-    from repro_torch.exec.adapters import CG_STEP_LAUNCHES
+    from repro_torch.exec import (BatchedProblem, BiCGStabProblem, CGProblem,
+                                  GMRESProblem, Plan, StencilProblem,
+                                  autotune, execute, execute_sequential,
+                                  plan_candidates)
     from repro_torch.kernels import ops, ref, vdot as kvdot
     from repro_torch.kernels.common import BENCHMARKS, get_spec
     from repro_torch.runtime.solver_service import (ServiceConfig,
                                                     SolverService)
-    from repro_torch.sparse.generate import poisson2d
+    from repro_torch.sparse.generate import convdiff2d, poisson2d
 
     card = card_line()
     errs = {k: 0.0 for k in BATCH_KERNELS}
@@ -2047,13 +2067,21 @@ def batch_phases(rng):
             insts = [first] + [first.with_payload(
                 vecs(1, math.prod(size)).view(size)) for _ in range(B - 1)]
         else:
-            csr = poisson2d(size)
+            csr = (poisson2d if what == "poisson2d" else convdiff2d)(size)
             ell = csr.to_ell()
             seed_rng = np.random.default_rng(SEED)
             rhs = [seed_rng.standard_normal(csr.shape[0]).astype(np.float32)
                    for _ in range(B)]
-            first = CGProblem.from_ell(ell.data, ell.cols, rhs[0], steps,
-                                       matrix=csr)
+            kind = cell.split("-")[0]
+            if kind == "cg":
+                first = CGProblem.from_ell(ell.data, ell.cols, rhs[0], steps,
+                                           matrix=csr)
+            elif kind == "bicgstab":
+                first = BiCGStabProblem.from_ell(ell.data, ell.cols, rhs[0],
+                                                 steps, matrix=csr)
+            else:
+                first = GMRESProblem.from_ell(ell.data, ell.cols, rhs[0],
+                                              steps, m=KRYLOV_M, matrix=csr)
             insts = [first] + [first.with_payload(
                 torch.from_numpy(v).cuda()) for v in rhs[1:]]
         bp = BatchedProblem.from_instances(insts)
@@ -2070,7 +2098,8 @@ def batch_phases(rng):
             ours = {k: v - before[k] for k, v in ops.launch_counts().items()
                     if v != before[k] and not k.endswith("_batched")}
             n_launch[what_] = (lc.n + sum(ours.values()), ours)
-        want_n = 1 if cell == "stencil-batch" else CG_STEP_LAUNCHES
+        want_n = (1 if cell == "stencil-batch" else
+                  insts[0].step_launches())
         ok = n_launch["batched"][0] == n_launch["single"][0] == want_n
         print(f"  {cell}: launches of one step: batched B={B} "
               f"{n_launch['batched'][0]} (the port's kernels "
@@ -2204,6 +2233,236 @@ def batch_phases(rng):
         print(f"  drift report (ratio beyond 4x): "
               f"{json.dumps([(r['plan_signature'], r['prediction_ratio']) for r in drift])}")
     return errs, timing, launches
+
+
+def async_phase(rng):
+    """[async service]: the continuous-batching engine serving a seeded
+    Poisson arrival trace of stencil, CG, BiCGStab and GMRES requests, the
+    synchronous service on the same trace, and a barrier's cost either way
+    (the kept in-place chunk graph against ``LaneRunner.advance``)."""
+    from repro_torch import obs
+    from repro_torch.core import perks
+    from repro_torch.exec import (BiCGStabProblem, CGProblem, GMRESProblem,
+                                  LaneRunner, Plan, StencilProblem, execute)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import get_spec
+    from repro_torch.runtime.solver_service import (AsyncConfig,
+                                                    AsyncSolverService,
+                                                    ServiceConfig,
+                                                    SolverService)
+    from repro_torch.sparse.generate import convdiff2d, poisson2d
+
+    card = card_line()
+    n_bi, bi_side, bi_iters = ASYNC_BICGSTABS
+    n_gm, gm_side, gm_cycles = ASYNC_GMRES
+    print(f"[async service] {card}: AsyncSolverService(AsyncConfig("
+          f"max_batch=8)).serve(trace): {SERVICE_STENCILS} stencil "
+          f"(2d5pt {SERVICE_SHAPE} x {SERVICE_STEPS}), {SERVICE_CGS} CG "
+          f"(poisson2d(512) x {CG_ITERS}, tol 1e-8), {n_bi} BiCGStab "
+          f"(convdiff2d({bi_side}) x {bi_iters}, tol 1e-8) and {n_gm} "
+          f"GMRES({KRYLOV_M}) (convdiff2d({gm_side}) x {gm_cycles} cycles, "
+          f"tol 1e-8) requests, Poisson arrivals with a mean gap of "
+          f"{ASYNC_MEAN_GAP_S * 1e3} ms")
+
+    def vec(n):
+        return torch.from_numpy(
+            rng.standard_normal(n).astype(np.float32)).cuda()
+
+    def operator(csr):
+        ell = csr.to_ell()
+        return (csr, torch.from_numpy(ell.data).cuda(),
+                torch.from_numpy(ell.cols).cuda())
+
+    spec = get_spec("2d5pt")
+    cg_op, bi_op, gm_op = (operator(poisson2d(512)),
+                           operator(convdiff2d(bi_side)),
+                           operator(convdiff2d(gm_side)))
+    problems = (
+        [StencilProblem(vec(math.prod(SERVICE_SHAPE)).view(SERVICE_SHAPE),
+                        spec, SERVICE_STEPS)
+         for _ in range(SERVICE_STENCILS)]
+        + [CGProblem.from_ell(cg_op[1], cg_op[2], vec(cg_op[0].shape[0]),
+                              CG_ITERS, matrix=cg_op[0], tol=1e-8)
+           for _ in range(SERVICE_CGS)]
+        + [BiCGStabProblem.from_ell(bi_op[1], bi_op[2],
+                                    vec(bi_op[0].shape[0]), bi_iters,
+                                    matrix=bi_op[0], tol=1e-8)
+           for _ in range(n_bi)]
+        + [GMRESProblem.from_ell(gm_op[1], gm_op[2], vec(gm_op[0].shape[0]),
+                                 gm_cycles, m=KRYLOV_M, matrix=gm_op[0],
+                                 tol=1e-8)
+           for _ in range(n_gm)])
+    order = np.random.default_rng(SEED).permutation(len(problems))
+    offsets = np.cumsum(np.random.default_rng(SEED + 1).exponential(
+        ASYNC_MEAN_GAP_S, size=len(problems))).tolist()
+    trace = [(t, problems[i]) for t, i in zip(offsets, order)]
+
+    def pcts(rrs, busy_s):
+        """p50/p99 of a pass's queued, latency and exec seconds (the
+        registry's nearest-rank rule) and its instances a busy second."""
+        out = {}
+        for name in ("queued", "latency", "exec"):
+            h = obs.Histogram()
+            for rr in rrs:
+                h.observe(getattr(rr, f"{name}_s"))
+            out[f"p50_{name}_s"] = h.percentile(0.50)
+            out[f"p99_{name}_s"] = h.percentile(0.99)
+        out["instances_per_s"] = len(rrs) / busy_s
+        return out
+
+    def drives(tr):
+        """Each key's drives (host ms, the card waited for): the first,
+        which captures the key's chunk graph, and the sum of the rest."""
+        by_key = {}
+        for e in tr.events:
+            if e.ph == "X" and e.name.startswith("drive:"):
+                by_key.setdefault(e.name[6:], []).append(e.dur_us / 1e3)
+        return {k: dict(first_ms=v[0], later_ms=sum(v[1:]), drives=len(v))
+                for k, v in by_key.items()}
+
+    perks.clear_graphs()
+    ops.reset_launch_counts()
+    reg = obs.MetricsRegistry()
+    tr = obs.Tracer()
+    eng = AsyncSolverService(AsyncConfig(max_batch=8), metrics=reg,
+                             tracer=tr)
+    with obs.use_metrics(reg):
+        results = eng.serve(trace)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    for k in ("stencil_baseline_step_batched", "spmv_ell_batched", "vdot"):
+        if launches[k] == 0:
+            FAILS.append(f"{k} was not launched on the async service path")
+    stats = eng.stats()
+    print(f"  stats {json.dumps(stats)}")
+    caps = eng.graph_captures()
+    print(f"  admitted mid-solve {stats['admitted_mid_solve']!r}, barriers "
+          f"{stats['barriers']!r}, groups {stats['groups']!r}, retired "
+          f"early {stats['retired_early']!r}; graph captures a key "
+          f"{json.dumps(caps)}; busy ms a barrier "
+          f"{1e3 * stats['busy_s'] / max(1, stats['barriers'])!r}")
+    for key, p in eng.chosen_plans().items():
+        print(f"  key {key[0]}: plan {p.to_json(indent=None)}")
+    if len(caps) != 4 or set(caps.values()) != {1}:
+        FAILS.append(f"async service graph captures a key {caps}, not one")
+    if stats["admitted_mid_solve"] < 1:
+        FAILS.append("async service admitted no lane mid-solve")
+    if len(results) != len(problems):
+        FAILS.append(f"async service served {len(results)} of "
+                     f"{len(problems)} requests")
+    n_same = 0
+    for rid, (_, p) in enumerate(trace):
+        rr = results.get(rid)
+        if rr is None:
+            continue
+        alone = execute(p, Plan(tier="device_loop",
+                                sync_every=rr.plan.sync_every))
+        got = rr.result if isinstance(rr.result, tuple) else (rr.result,)
+        want = alone if isinstance(alone, tuple) else (alone,)
+        if all(torch.equal(g, w) for g, w in zip(got, want)):
+            n_same += 1
+        else:
+            print(f"  async request {rid} ({p.kind}): not bit-equal to its "
+                  f"run alone FAIL")
+            FAILS.append(f"async request {rid} is not bit-equal")
+    print(f"  {n_same} of {len(problems)} results bit-equal to their run "
+          f"alone (device_loop at the engine's cadence)")
+    for ln in reg.prometheus_text().splitlines():
+        if ln.startswith("async_") and "_bucket" not in ln:
+            print(f"  prom {ln}")
+    perks.clear_graphs()
+
+    # the same trace again on the warm engine: its programs and graphs are
+    # kept, so it captures nothing, and every result is the first pass's
+    busy = stats["busy_s"]
+    again = eng.serve(trace)
+    torch.cuda.synchronize()
+    warm = eng.stats()
+    if eng.graph_captures() != caps:
+        FAILS.append(f"the warm async pass captured: {eng.graph_captures()}")
+    first = sorted(results)
+    for rid, rid0 in zip(sorted(again), first):
+        got, want = again[rid].result, results[rid0].result
+        if not all(torch.equal(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))):
+            FAILS.append(f"warm async request {rid} differs from its first "
+                         f"pass")
+    async_warm = pcts(list(again.values()), warm["busy_s"] - busy)
+    print(f"  drives by key (host ms; the first is the cold activation, the "
+          f"later ones include the warm pass): {json.dumps(drives(tr))}")
+    perks.clear_graphs()
+
+    # the synchronous service on the same trace, twice: a batch whenever
+    # requests wait, arrivals submitted as they come due
+    svc_tr = obs.Tracer()
+    svc = SolverService(ServiceConfig(max_batch=8), tracer=svc_tr)
+
+    def replay_sync():
+        t0, i, out = time.perf_counter(), 0, {}
+        while i < len(trace) or svc.pending():
+            now = time.perf_counter() - t0
+            while i < len(trace) and trace[i][0] <= now:
+                svc.submit(trace[i][1])
+                i += 1
+            if svc.pending():
+                out.update(svc.run_batch())
+            elif i < len(trace):
+                time.sleep(min(trace[i][0] - now, 0.001))
+        return out
+
+    sync_out = replay_sync()
+    sync = svc.stats()
+    sync_again = replay_sync()
+    sync_warm = pcts(list(sync_again.values()),
+                     svc.stats()["exec_s_total"] - sync["exec_s_total"])
+    batches = {}
+    for e in svc_tr.events:
+        if e.ph == "X" and e.name.startswith("serve_batch:"):
+            batches.setdefault(e.name[12:], []).append(round(
+                e.dur_us / 1e3, 3))
+    print(f"  SolverService batches by key (host ms, both passes): "
+          f"{json.dumps(batches)}")
+    print(f"  SolverService plans: " + json.dumps(
+        {k[2][0]: (p.tier, p.sync_every) for k, p in
+         svc.chosen_plans().items()}))
+    keys = ("p50_queued_s", "p99_queued_s", "p50_latency_s",
+            "p99_latency_s", "p50_exec_s", "p99_exec_s", "instances_per_s")
+    print("  " + json.dumps(dict(
+        engine="AsyncSolverService", passes="first",
+        **{k: stats[k] for k in keys})))
+    print("  " + json.dumps(dict(
+        engine="SolverService", passes="first", batches=sync["batches"],
+        **{k: sync[k] for k in keys})))
+    print("  " + json.dumps(dict(engine="AsyncSolverService",
+                                 passes="second (warm)", **async_warm)))
+    print("  " + json.dumps(dict(engine="SolverService",
+                                 passes="second (warm)", **sync_warm)))
+    perks.clear_graphs()
+
+    # a barrier's cost: one chunk of each key's full lane group through the
+    # kept in-place graph, and through LaneRunner.advance (the device
+    # loop's kept graph, the state copied in, cloned out and copied back)
+    for p in (problems[0], problems[SERVICE_STENCILS],
+              problems[SERVICE_STENCILS + SERVICE_CGS], problems[-1]):
+        chunk = eng.chosen_plans()[p.batch_key()].sync_every
+        runner = LaneRunner(p, 8)
+        lanes = runner.fresh()
+        for lane in range(8):
+            runner.admit(lanes, lane, p)
+        carry = runner.carry(lanes)
+        state_mb = sum(t.numel() * t.element_size() for t in carry) / 1e6
+        kept = perks.InPlaceChunk(runner.step_fn(), chunk)
+        in_place = cuda_ms(lambda: kept(carry), 10)
+        copied = cuda_ms(lambda: runner.advance(lanes, chunk), 10)
+        print("  " + json.dumps(dict(
+            barrier=p.kind, chunk_steps=chunk, lane_state_mb=state_mb,
+            in_place_ms=in_place, advance_ms=copied,
+            copies_ms=copied - in_place,
+            three_passes_bound_ms=3 * 2 * state_mb / 3.35e6 * 1e3)))
+        kept.release()
+        perks.clear_graphs()
 
 
 def main() -> int:
@@ -2652,6 +2911,9 @@ def main() -> int:
 
     # -- 14-18. batched launches and path, the service, tracing, autotune -------------
     b_errs, b_timing, b_launches = batch_phases(rng)
+
+    # -- 16b. the continuous-batching service -------------------------------------------
+    async_phase(rng)
 
     # -- 19. the step kernel on every spec ---------------------------------------------
     s_errs, s_timing, s_launches = step_spec_phase(rng)

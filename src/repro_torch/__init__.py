@@ -46,7 +46,8 @@ The ML serving path::
 
 Batching, serving and observability::
 
-    from repro_torch import BatchedProblem, ServiceConfig, SolverService
+    from repro_torch import (AsyncConfig, AsyncSolverService, BatchedProblem,
+                             ServiceConfig, SolverService)
     from repro_torch import obs
 
     batch = BatchedProblem.from_instances([p1, p2, p3])   # same batch_key
@@ -54,6 +55,8 @@ Batching, serving and observability::
     svc = SolverService(ServiceConfig(max_batch=8))
     rid = svc.submit(problem)
     results = svc.drain()                   # {request_id: RequestResult}
+    eng = AsyncSolverService(AsyncConfig(max_batch=8))  # continuous batching
+    results = eng.serve([(0.0, p1), (0.002, p2)])   # lanes admitted mid-solve
     with obs.use_tracer(obs.Tracer()) as tr:
         execute(problem, plan(problem))     # spans, events
     best = autotune(problem, top_k=4, ledger=obs.DriftLedger("l.json")).best
@@ -67,10 +70,15 @@ from repro_torch.exec import (BatchedProblem, BiCGStabProblem, CGProblem,
                               execute, execute_sequential, plan)
 from repro_torch.models.lm import Model
 from repro_torch.runtime.server import Engine, start_metrics_server
-from repro_torch.runtime.solver_service import ServiceConfig, SolverService
+from repro_torch.runtime.solver_service import (AsyncConfig, AsyncSolverService,
+                                                ServiceConfig,
+                                                ServiceOverloaded,
+                                                SolverService)
 
-__all__ = ["BatchedProblem", "BiCGStabProblem", "CGProblem",
+__all__ = ["AsyncConfig", "AsyncSolverService", "BatchedProblem",
+           "BiCGStabProblem", "CGProblem",
            "DecodeAttentionProblem", "Engine", "GMRESProblem", "Model",
-           "Plan", "SSMScanProblem", "ServiceConfig", "SolverService",
+           "Plan", "SSMScanProblem", "ServiceConfig", "ServiceOverloaded",
+           "SolverService",
            "StencilProblem", "autotune", "execute", "execute_sequential",
            "plan", "start_metrics_server"]

@@ -249,20 +249,115 @@ def device_loop(step_fn: StepFn, n_steps: int, *, keep: bool = True) -> Runner:
     return run
 
 
+class InPlaceChunk:
+    """``steps`` applications of ``step_fn`` that advance a state in place:
+    the first step reads the state's tensors, the last writes into them
+    (with ``steps`` = 1 the one step writes a buffer that is copied back),
+    and an element the last step returns as a new tensor is copied into
+    its place. On a CUDA state the chunk is captured into a CUDA graph on
+    the first call and the graph is kept by this object: every later call
+    on the same tensors (the same addresses, shapes and dtypes) replays it,
+    so the state crosses no copy between chunks. A call on other tensors
+    captures anew (``captures`` counts them, as ``capture.count`` does);
+    ``release`` drops the graph. On a CPU state it runs the steps."""
+
+    def __init__(self, step_fn: StepFn, steps: int):
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        self.step_fn = step_fn
+        self.steps = steps
+        self.captures = 0
+        self._key = None
+        self._graph = None
+        self._bufs = None
+
+    def _advance(self, x: State, bufs: list[State]) -> None:
+        cur = x
+        for k in range(self.steps):
+            cur = self.step_fn(cur, x if 0 < k == self.steps - 1
+                               else bufs[k % 2])
+        for dst, src in zip(_tensors(x), _tensors(cur)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def __call__(self, x: State) -> State:
+        dev = _device(x)
+        if dev.type != "cuda":
+            self._advance(x, _buffers(x))
+            return x
+        key = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                    for t in _tensors(x))
+        if key != self._key:
+            self.release()
+            bufs = _buffers(x)
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):     # warm-up; its result is
+                self.step_fn(x, bufs[0])      # discarded
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._advance(x, bufs)
+            capture.count += 1
+            self.captures += 1
+            self._key, self._graph, self._bufs = key, graph, bufs
+        self._graph.replay()
+        return x
+
+    def release(self) -> None:
+        """Drop the kept graph and its buffers, once no replay still
+        runs."""
+        if self._graph is not None:
+            torch.cuda.synchronize()
+        self._key = self._graph = self._bufs = None
+
+
 def chunked_loop(
     step_fn: StepFn,
-    n_steps: int,
+    n_steps: Optional[int],
     *,
     sync_every: int,
     on_sync: Optional[Callable[[State, int], bool]] = None,
+    on_barrier: Optional[Callable[[State, int], tuple[State, bool]]] = None,
 ) -> Runner:
     """PERKS with periodic host synchronisation: ``sync_every`` steps per
-    dispatch (a ``device_loop`` whose graph is not kept: each chunk starts
-    from a new tensor), ``on_sync(state, k)`` between dispatches; returning
-    True stops early. A non-dividing tail runs as one shorter chunk, so the
-    total is exactly ``n_steps``."""
+    dispatch, ``on_sync(state, k)`` between dispatches; returning True
+    stops early. A non-dividing tail runs as one shorter chunk, so the
+    total is exactly ``n_steps``. Each chunk is a ``device_loop`` whose
+    graph is not kept (each chunk starts from a new tensor).
+
+    ``on_barrier(state, k) -> (state, stop)`` is the scheduler hook:
+    unlike ``on_sync`` it may replace the state at the barrier (the
+    continuous-batching engine admits and retires lanes there), and it runs
+    before ``on_sync``. With ``n_steps=None`` the loop is open-ended, and
+    ``on_barrier`` is required: one chunk of ``sync_every`` steps a barrier
+    until it says stop. The open-ended loop advances the tensors it is
+    given in place through one :class:`InPlaceChunk`, which the runner
+    keeps (``run.chunk``): on the card the chunk's graph is captured once
+    and replayed at every barrier, for as long as ``on_barrier`` hands back
+    the same tensors (the engine writes admissions into them), and across
+    calls of the runner on them."""
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+
+    if n_steps is None:
+        if on_barrier is None:
+            raise ValueError(
+                "open-ended chunked_loop (n_steps=None) needs an on_barrier "
+                "scheduler callback to terminate it")
+        chunk = InPlaceChunk(step_fn, sync_every)
+
+        def run_open(x):
+            done = 0
+            while True:
+                x = chunk(x)
+                done += sync_every
+                x, stop = on_barrier(x, done)
+                if stop or (on_sync is not None and on_sync(x, done)):
+                    return x
+
+        run_open.chunk = chunk
+        return run_open
 
     def run(x):
         if n_steps == 0:
@@ -272,6 +367,10 @@ def chunked_loop(
             chunk = min(sync_every, n_steps - done)
             cur = device_loop(step_fn, chunk, keep=False)(cur)
             done += chunk
+            if on_barrier is not None:
+                cur, stop = on_barrier(cur, done)
+                if stop:
+                    break
             if on_sync is not None and on_sync(cur, done):
                 break
         return cur

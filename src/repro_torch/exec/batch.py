@@ -17,21 +17,28 @@ instances (equal :meth:`Problem.batch_key`) and is itself a
 * loop tiers: where the reference's step is ``jax.vmap(step)``, the port's
   is the family's batched step on ``[B, ...]`` tensors
   (``Problem.batched_step_fn``): one ``stencil_step`` launch a step for B
-  domains; for B right-hand sides of CG one ``spmv_ell`` launch (A read
-  once) and one ``vdot`` launch an SpMV and a dot, so a batched CG step
-  makes the single step's ``CG_STEP_LAUNCHES`` launches. The device loop
-  keeps one CUDA graph for the batch's shapes;
+  domains; for B right-hand sides of CG, BiCGStab or GMRES(m) on ELL
+  planes one ``spmv_ell`` launch (A read once) an SpMV and one ``vdot``
+  launch a dot or a projection on the basis, so a batched step makes the
+  single step's launches (``CG_STEP_LAUNCHES``, ``BICGSTAB_STEP_LAUNCHES``,
+  ``GMRES_CYCLE_LAUNCHES(m)``). The device loop keeps one CUDA graph for
+  the batch's shapes. The ML problems (``SSMScanProblem``,
+  ``DecodeAttentionProblem``) and Krylov problems over a matvec callable
+  have no batched step yet;
 * resident tier: one launch of the family's batched resident kernel
   (``Problem.run_resident_batched``: ``cg_fused`` with B lanes). The
-  resident stencil kernels have no batched launch yet, so a batch of
-  stencils does not support the tier and the planner offers none;
+  resident stencil kernels, ``bicgstab_fused`` and ``gmres_cycle_fused``
+  have no batched launch yet, so a batch of those families does not
+  support the tier and the planner offers none;
 * the distributed tier is not ported.
 
 Each lane computes exactly what its instance computes alone on the same
 tier: bit for bit against ``execute_sequential`` (asserted over all 13
-stencil specs and the sparse registry in ``tests/test_torch_batch.py``).
-The queueing layer that feeds requests into these batches is
-``repro_torch.runtime.solver_service``.
+stencil specs and the sparse registry in ``tests/test_torch_batch.py``,
+BiCGStab and GMRES in ``tests/test_torch_krylov_batch.py``). The queueing
+layers that feed requests into these batches, and into a
+:class:`LaneRunner`'s lanes, are ``repro_torch.runtime.solver_service``'s
+``SolverService`` and ``AsyncSolverService``.
 """
 from __future__ import annotations
 

@@ -14,14 +14,18 @@ Both take the operator as ELL planes (needed by the fused kernels) and/or
 an opaque ``matvec``, like ``CGProblem``, and run host_loop, device_loop (a
 kept CUDA graph) and resident through ``plan`` -> ``execute``.
 
+Both batch as CG does: B right-hand sides against one operator given as
+ELL planes run on the loop tiers as (B, n) lanes (``batched_step_fn``), one
+``spmv_ell`` and one ``vdot`` launch for every lane at each SpMV and dot,
+so a batched step makes the single step's launches, and each lane is bit
+for bit its instance solved alone. A batch runs no resident tier:
+``csrc/bicgstab_fused.cu`` and ``csrc/gmres_cycle_fused.cu`` take one
+right-hand side a launch.
+
 Not ported here: the distributed tier (``bicgstab_distributed``,
 ``gmres_distributed``, s-step CG: ``sstep_block``, ``cg_sstep_run``,
 ``cg_sstep_distributed``) comes with the multi-device slice, so
-``run_distributed`` is the ``Problem`` default, which raises; the batching
-surface (``payload``, ``with_payload``, ``array_scales_with_batch``, a
-batched step) comes with the next slice, and until then a
-``BatchedProblem`` of them raises ``NotImplementedError`` naming the
-family.
+``run_distributed`` is the ``Problem`` default, which raises.
 """
 from __future__ import annotations
 
@@ -64,15 +68,64 @@ BICGSTAB_STEP_LAUNCHES = 40
 
 def GMRES_CYCLE_LAUNCHES(m: int) -> int:
     """Launches of one GMRES(m) cycle on the card (``kernels.ref.
-    gmres_cycle_matvec``), each SpMV counted as one, views and in-place
-    reshapes not counted. 38 per Arnoldi step: 18 for the step (the SpMV,
-    two projections of three operations, the norm, two writes to H, the
-    zero-guarded reciprocal of six and the scaled basis vector), 12 for
-    its Givens rotation and 8 for its back-substitution row; and 22 per
-    cycle (the starting residual and its norm, V, H, the first basis
-    vector, the least-squares set-up, x += y V[:m] and the final
-    residual). Counted by ``tests/test_torch_krylov.py`` for several m."""
-    return 38 * m + 22
+    gmres_cycle_matvec``), each SpMV and each lane dot counted as one,
+    views and in-place reshapes not counted; the same for B lanes as for
+    one. 41 per Arnoldi step: 20 for the step (the SpMV, two projections
+    of four operations: the lane dot, the products, their sum over the
+    basis and the difference; the norm, two writes to H, the zero-guarded
+    reciprocal of six and the scaled basis vector), 14 for its Givens
+    rotation (the radius and its test, cos and sin of three operations
+    each, the two rows' four products, their sum and difference) and 7 for its
+    back-substitution column; and 21 per cycle (the starting residual and
+    its norm, V, H, the first basis vector, the least-squares set-up, the
+    first column's missing update, y, x += y V[:m] and the final residual).
+    Counted by ``tests/test_torch_krylov.py`` for several m, and with
+    lanes by ``tests/test_torch_krylov_batch.py``."""
+    return 41 * m + 21
+
+
+class _KrylovLanes:
+    """The batching surface BiCGStab and GMRES share: the payload is b, A
+    is shared by every lane, and a batch over ELL planes steps (B, n) lanes
+    on the loop tiers with the single step function (``spmv_ell`` and
+    ``vdot`` take every lane in one launch). A class using it names its
+    fused kernel in ``_fused_source``."""
+
+    _fused_source = ""
+
+    def payload(self):
+        return self.b
+
+    def with_payload(self, payload):
+        return self.with_rhs(payload)
+
+    def array_scales_with_batch(self, name: str) -> bool:
+        # the matrix is shared by every instance of a batch; the Krylov
+        # vectors (and GMRES's basis) are per-instance
+        return name != "A"
+
+    def batched_tiers(self) -> tuple[str, ...]:
+        if self.matvec is not None:
+            return ()
+        return ("host_loop", "device_loop")
+
+    def batched_step_fn(self):
+        """The loop tiers' step over (B, n) lanes, making the single step's
+        launches (``step_launches``) whatever B is."""
+        if self.matvec is not None:
+            raise NotImplementedError(
+                f"batched {type(self).__name__} (family {self.kind!r}) over "
+                f"a matvec callable (a SELL-C-sigma operator through "
+                f"csrc/spmv_sell.cu, or any opaque matvec) has no batched "
+                f"launch yet (ROADMAP, Queue 1: the batched spmv_sell); "
+                f"batch it given as ELL planes")
+        return self._step
+
+    @property
+    def batched_resident_missing(self) -> str:
+        return (f"{self._fused_source} takes one right-hand side a launch "
+                f"(ROADMAP, Queue 1: the batched resident Krylov launches); "
+                f"such a batch runs on the loop tiers")
 
 
 # =============================================================================
@@ -80,7 +133,7 @@ def GMRES_CYCLE_LAUNCHES(m: int) -> int:
 # =============================================================================
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class BiCGStabProblem(SharedSteps, Problem):
+class BiCGStabProblem(_KrylovLanes, SharedSteps, Problem):
     """BiCGStab on a (possibly nonsymmetric) operator.
 
     The operator forms of ``CGProblem``: ELL planes (``data``/``cols``,
@@ -103,6 +156,7 @@ class BiCGStabProblem(SharedSteps, Problem):
     device: Optional[_device.DeviceLike] = None
 
     kind = "bicgstab"
+    _fused_source = "csrc/bicgstab_fused.cu"
 
     def __post_init__(self):
         b = place_operands(self)
@@ -203,7 +257,7 @@ class BiCGStabProblem(SharedSteps, Problem):
 # =============================================================================
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class GMRESProblem(SharedSteps, Problem):
+class GMRESProblem(_KrylovLanes, SharedSteps, Problem):
     """Restarted GMRES(m); one executor step is one restart cycle.
 
     ``n_steps`` counts cycles of m inner Arnoldi steps. The right-hand side
@@ -225,6 +279,7 @@ class GMRESProblem(SharedSteps, Problem):
     device: Optional[_device.DeviceLike] = None
 
     kind = "gmres"
+    _fused_source = "csrc/gmres_cycle_fused.cu"
 
     def __post_init__(self):
         if self.m < 1:
@@ -269,7 +324,7 @@ class GMRESProblem(SharedSteps, Problem):
         def cycle(state, out):
             x, rr, b = state
             x, rr = kref.gmres_cycle_matvec((x, rr), mv, b, m, dot=dot,
-                                            out=out[0])
+                                            out=out[0], proj=kops.vdot)
             return (x, rr, b)
 
         return cycle

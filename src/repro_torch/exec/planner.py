@@ -153,8 +153,8 @@ KRYLOV_ROUNDS = {"cg": 2, "bicgstab": 3}
 GMRES_ROUND_SHARE_S = 4.3e-6
 #: A launch replayed from a kept CUDA graph of a Krylov device loop, over
 #: and above its bytes: the loop's many small launches (19 an iteration of
-#: CG, 40 of BiCGStab, 630 a GMRES(16) cycle) run back to back, each
-#: paying its launch and tail. The median over cg-small, bicgstab-small
+#: CG, 40 of BiCGStab, 677 a GMRES(16) cycle, 630 when this was fitted)
+#: run back to back, each paying its launch and tail. The median over cg-small, bicgstab-small
 #: and gmres-small of (kept device loop - its priced bytes) / launches
 #: (1.82, 2.00 and 2.19 us; 4.18, 9.33 and 5.58 ms measured), from the
 #: ``[cg tiers]`` and ``[krylov tiers]`` lines of ``chip_smoke.py`` on an

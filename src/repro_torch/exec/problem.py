@@ -191,8 +191,11 @@ class Problem(abc.ABC):
         signature). Raises for a family without one."""
         raise NotImplementedError(
             f"{type(self).__name__} (family {self.kind!r}) has no batched "
-            f"execution in the port yet: its batching surface comes with "
-            f"the next slice (ROADMAP, Queue 1)")
+            f"execution in the port: a family batches by defining "
+            f"batched_tiers() and batched_step_fn(), as the stencil, CG, "
+            f"BiCGStab and GMRES problems do; SSMScanProblem and "
+            f"DecodeAttentionProblem have no batching surface yet "
+            f"(ROADMAP, Queue 1)")
 
     #: Why a batch of this family runs no resident tier (the message of a
     #: batched resident plan's ``NotImplementedError``, raised by

@@ -195,7 +195,7 @@ _SIGNATURES = {
         "ssm_scan_config": (_I, [_I, _I, _I, _I, _I, _I, _I, _IP]),
     },
     "vdot": {
-        "vdot_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "vdot_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "vdot_blocks_for": (_I, [_I]),
     },
     "decode_attn": {

@@ -22,7 +22,10 @@
 // flight at once must not share counters: the wrapper keeps a set a
 // stream, and gives a launch captured into a CUDA graph a set of its own.
 // Which block is last does not change the order. The lanes are the grid's
-// y index and never meet.
+// y index and never meet. With `b_lanes` < B one operand is shared: lane l
+// reads b's row l % b_lanes (GMRES's projections of one vector a lane on
+// the rows of its basis), which changes which row a lane reads and
+// nothing of the order of its sum.
 //
 // Bound on the H100: device memory, 2 * B * n * sizeof(T) bytes read once.
 #include <cuda_runtime.h>
@@ -62,13 +65,13 @@ __device__ __forceinline__ T block_sum(T v, T* warp_part) {
 template <typename T>
 __global__ void __launch_bounds__(VDOT_THREADS)
 vdot_kernel(const T* __restrict__ a, const T* __restrict__ b,
-            T* __restrict__ out, T* partial, unsigned* count, int n) {
+            T* __restrict__ out, T* partial, unsigned* count, int n,
+            int b_lanes) {
     __shared__ T warp_part[VDOT_THREADS / 32];
     __shared__ bool last;
     const int G = gridDim.x, g = blockIdx.x, lane = blockIdx.y;
-    const size_t off = (size_t)lane * n;
-    a += off;
-    b += off;
+    a += (size_t)lane * n;
+    b += (size_t)(lane % b_lanes) * n;
     const int stride = G * VDOT_THREADS;
     int i = g * VDOT_THREADS + threadIdx.x;
     T acc = 0;
@@ -115,23 +118,25 @@ static int vdot_blocks(int n) {
 extern "C" int vdot_blocks_for(int n) { return vdot_blocks(n); }
 
 // Launches on `stream` the dots of `lanes` pairs of n-element vectors of
-// type `dtype` (0 float32, 1 float64), a and b [lanes, n] contiguous, into
-// out[lanes]; `partial` holds lanes * vdot_blocks_for(n) elements and
-// `count` lanes zeroed words (the kernel leaves them zero). Returns the
-// cudaError_t of the launch (0 = success).
+// type `dtype` (0 float32, 1 float64), a [lanes, n] and b [b_lanes, n]
+// contiguous (lane l pairs a's row l with b's row l % b_lanes; b_lanes
+// divides lanes), into out[lanes]; `partial` holds lanes *
+// vdot_blocks_for(n) elements and `count` lanes zeroed words (the kernel
+// leaves them zero). Returns the cudaError_t of the launch (0 = success).
 extern "C" int vdot_launch(const void* a, const void* b, void* out,
                            void* partial, unsigned* count, int n, int lanes,
-                           int dtype, cudaStream_t stream) {
-    if (lanes < 1 || lanes > VDOT_MAX_LANES || n < 0 || lanes > 65535)
+                           int b_lanes, int dtype, cudaStream_t stream) {
+    if (lanes < 1 || lanes > VDOT_MAX_LANES || n < 0 || lanes > 65535 ||
+        b_lanes < 1 || lanes % b_lanes != 0)
         return (int)cudaErrorInvalidValue;
     const dim3 grid(vdot_blocks(n), lanes);
     if (dtype == 1)
         vdot_kernel<double><<<grid, VDOT_THREADS, 0, stream>>>(
             (const double*)a, (const double*)b, (double*)out,
-            (double*)partial, count, n);
+            (double*)partial, count, n, b_lanes);
     else
         vdot_kernel<float><<<grid, VDOT_THREADS, 0, stream>>>(
             (const float*)a, (const float*)b, (float*)out, (float*)partial,
-            count, n);
+            count, n, b_lanes);
     return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ time, which is the CUDA kernels' order; the CG iteration follows the
 reference's order of operations, ``_safe_div`` included; so do the
 BiCGStab iteration and the GMRES(m) cycle, whose small least-squares solve
 is a Givens QR in torch ops (``hessenberg_lstsq``) where the reference
-calls ``jnp.linalg.lstsq``.
+calls ``jnp.linalg.lstsq``. The Krylov steps also take B lanes at once,
+each lane computing the bits of its instance alone.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels.common import StencilSpec
+from repro_torch.kernels.vdot import plain_vdot
 
 
 def stencil_step(x: torch.Tensor, spec: StencilSpec,
@@ -163,32 +165,36 @@ def bicgstab_iteration_matvec(state: BiCGStabState,
     Every quotient goes through ``_safe_div``, so a converged state (r
     exactly 0) is a fixed point. With ``out`` (buffers like ``state``, not
     aliasing it) x, r and p are written there; rhat is returned as it came
-    (it never changes), v and the scalars are new tensors."""
+    (it never changes), v and the scalars are new tensors. A batched state
+    (vectors (B, n), scalars (B,); the matvec and the dot taking such
+    stacks) steps every lane as it would step alone, as
+    ``cg_iteration_matvec`` does."""
     x, r, rhat, p, v, rho, alpha, omega, _ = state
     rho_new = dot(rhat, r)
     beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
-    d = beta * (p - omega * v)
+    d = _lanes(beta) * (p - _lanes(omega) * v)
     p = r + d if out is None else torch.add(r, d, out=out[3])
     v = matvec(p)
     alpha = _safe_div(rho_new, dot(rhat, v))
-    s = r - alpha * v
+    s = r - _lanes(alpha) * v
     t = matvec(s)
     omega = _safe_div(dot(t, s), dot(t, t))
-    x = x + alpha * p
+    x = x + _lanes(alpha) * p
     if out is None:
-        x = x + omega * s
-        r = s - omega * t
+        x = x + _lanes(omega) * s
+        r = s - _lanes(omega) * t
     else:
-        x = torch.add(x, omega * s, out=out[0])
-        r = torch.sub(s, omega * t, out=out[1])
+        x = torch.add(x, _lanes(omega) * s, out=out[0])
+        r = torch.sub(s, _lanes(omega) * t, out=out[1])
     return (x, r, rhat, p, v, rho_new, alpha, omega, dot(r, r))
 
 
 def bicgstab_initial_state(b: torch.Tensor,
                            dot: Callable = torch.dot) -> BiCGStabState:
     """x = 0: r = rhat = b, p = v = 0, and rho = alpha = omega = 1, so the
-    first iteration reduces to p = r."""
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    first iteration reduces to p = r. ``b`` of (B, n) gives every lane its
+    own (B,) scalars."""
+    one = torch.ones(b.shape[:-1], dtype=b.dtype, device=b.device)
     zero = torch.zeros_like(b)
     return (zero, b, b, zero, zero, one, one, one, dot(b, b))
 
@@ -206,94 +212,158 @@ def bicgstab_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
 
 # -- restarted GMRES(m) (gmres_cycle_update is the cycle kernel's plain
 # -- version) -----------------------------------------------------------------
+#
+# One code path runs B lanes, a single instance being B = 1, and every sum
+# a lane makes has an order that does not depend on B: the projections on
+# the basis are ``proj`` lane dots (``kernels.vdot``: the lane pairs each
+# row of its basis with its own vector), their combinations are products
+# summed over the basis axis (the rows in one fixed order whatever the
+# other axes hold), and the Givens rotations and the back substitution are
+# elementwise. So a lane of a batch computes the bits of its instance
+# alone. Inside, the basis is V (m+1, B, n), so that a row of every lane,
+# V[j], is one contiguous (B, n) block, and H and R keep the lane axis
+# last; the functions below take and give the lane axis first.
 
-def gmres_arnoldi(x: torch.Tensor, b: torch.Tensor,
-                  matvec: Callable[[torch.Tensor], torch.Tensor], m: int,
-                  dot: Callable = torch.dot
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Arnoldi half of one GMRES(m) cycle from iterate ``x``, with CGS2
-    (two classical Gram-Schmidt passes): returns the basis V (m+1, n), the
-    Hessenberg matrix H (m+1, m) and beta = ||b - A x|| of shape (1,), as
-    ``gmres_cycle_fused`` returns them beside the new iterate.
+def _single(matvec, dot):
+    """A vector-at-a-time SpMV and dot as the lane path calls them, on
+    (1, n) stacks."""
+    return (lambda v: matvec(v[0]).unsqueeze(0),
+            lambda a, b: dot(a[0], b[0]).unsqueeze(0))
 
-    Step j projects on the j+1 rows of V built so far; the reference
-    projects on all m+1 rows, whose others are still 0, so the two differ
-    only in the order of the matrix products' sums."""
-    n = b.shape[0]
+
+def _arnoldi_lanes(x: torch.Tensor, b: torch.Tensor, matvec, m: int, dot,
+                   proj) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CGS2 Arnoldi of B lanes from x, b (B, n): V (m+1, B, n), H
+    (m+1, m, B) and beta (B,)."""
+    lanes, n = b.shape
     r = b - matvec(x)
     beta = torch.sqrt(dot(r, r))
-    V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
-    H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
-    torch.mul(r, _safe_div(1.0, beta), out=V[0])
+    V = torch.zeros((m + 1, lanes, n), dtype=b.dtype, device=b.device)
+    H = torch.zeros((m + 1, m, lanes), dtype=b.dtype, device=b.device)
+    torch.mul(r, _lanes(_safe_div(1.0, beta)), out=V[0])
     for j in range(m):
         basis = V[:j + 1]
         w = matvec(V[j])
-        h1 = basis @ w
-        w = w - h1 @ basis
-        h2 = basis @ w
-        w = w - h2 @ basis
+        h1 = proj(basis, w)
+        w = w - (h1.unsqueeze(-1) * basis).sum(0)
+        h2 = proj(basis, w)
+        w = w - (h2.unsqueeze(-1) * basis).sum(0)
         hn = torch.sqrt(dot(w, w))
         torch.add(h1, h2, out=H[:j + 1, j])
         H[j + 1, j] = hn
-        torch.mul(w, _safe_div(1.0, hn), out=V[j + 1])
-    return V, H, beta.reshape(1)
+        torch.mul(w, _lanes(_safe_div(1.0, hn)), out=V[j + 1])
+    return V, H, beta
 
 
-def hessenberg_lstsq(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """y minimising ||H y - beta e1|| for the (m+1, m) upper Hessenberg H
-    of one GMRES cycle, by Givens rotations and back substitution in torch
-    ops: nothing is read on the host, so a CUDA graph can hold it (the
-    reference's ``jnp.linalg.lstsq`` is an SVD; on the card
-    ``torch.linalg.lstsq`` offers only a full-rank QR solve).
-
-    After an Arnoldi breakdown (h_{j+1,j} = 0) the later columns of H are
-    0: a rotation of a zero pair is the identity, and the back
-    substitution's ``_safe_div`` gives those coordinates 0, which is the
-    minimum-norm answer the SVD gives."""
-    m = H.shape[1]
-    g = torch.zeros(m + 1, dtype=H.dtype, device=H.device)
-    g[0] = beta.reshape(())
-    R = torch.cat([H, g[:, None]], dim=1)        # [H | beta e1]
+def _lstsq_lanes(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """``hessenberg_lstsq`` of B lanes: H (m+1, m, B), beta (B,) -> y
+    (m, B)."""
+    m, lanes = H.shape[1], H.shape[2]
+    g = torch.zeros((m + 1, 1, lanes), dtype=H.dtype, device=H.device)
+    g[0, 0] = beta
+    R = torch.cat([H, g], dim=1)                 # [H | beta e1]
     for j in range(m):
         a, c = R[j, j], R[j + 1, j]
         rad = torch.hypot(a, c)
         live = rad > 0
         cos = torch.where(live, a / rad, 1.0)
         sin = torch.where(live, c / rad, 0.0)
-        rot = torch.stack([cos, sin, -sin, cos]).view(2, 2)
-        R[j:j + 2, j:] = rot @ R[j:j + 2, j:]
-    y = torch.zeros(m, dtype=H.dtype, device=H.device)
+        top, bot = R[j, j:], R[j + 1, j:]
+        ct, sb, cb, st = cos * top, sin * bot, cos * bot, sin * top
+        torch.add(ct, sb, out=top)
+        torch.sub(cb, st, out=bot)
+    # back substitution by columns: y_i, then its share taken from the
+    # right-hand sides of the rows above
+    rhs = R[:, m]
+    ys = []
     for i in reversed(range(m)):
-        acc = R[i, m] - R[i, i + 1:m] @ y[i + 1:]
-        y[i] = _safe_div(acc, R[i, i])
-    return y
+        ys.append(_safe_div(rhs[i], R[i, i]))
+        if i:
+            torch.sub(rhs[:i], ys[-1] * R[:i, i], out=rhs[:i])
+    return torch.stack(ys[::-1])
+
+
+def gmres_arnoldi(x: torch.Tensor, b: torch.Tensor,
+                  matvec: Callable[[torch.Tensor], torch.Tensor], m: int,
+                  dot: Callable = torch.dot, proj: Callable = plain_vdot
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Arnoldi half of one GMRES(m) cycle from iterate ``x``, with CGS2
+    (two classical Gram-Schmidt passes): returns the basis V (m+1, n), the
+    Hessenberg matrix H (m+1, m) and beta = ||b - A x|| of shape (1,), as
+    ``gmres_cycle_fused`` returns them beside the new iterate; for lanes x,
+    b (B, n) (the matvec and the dot taking such stacks), V (B, m+1, n), H
+    (B, m+1, m) and beta (B, 1).
+
+    Step j projects on the j+1 rows of V built so far with the lane dot
+    ``proj`` (a plain ``torch.dot`` a pair by default, ``kernels.vdot`` on
+    the loop tiers); the reference projects on all m+1 rows, whose others
+    are still 0, by matrix products, so the two differ only in the order of
+    the sums."""
+    if x.dim() == 1:
+        mv, dt = _single(matvec, dot)
+        V, H, beta = _arnoldi_lanes(x.unsqueeze(0), b.unsqueeze(0), mv, m,
+                                    dt, proj)
+        return V[:, 0], H[..., 0], beta
+    V, H, beta = _arnoldi_lanes(x, b, matvec, m, dot, proj)
+    return V.transpose(0, 1), H.permute(2, 0, 1), beta.unsqueeze(-1)
+
+
+def hessenberg_lstsq(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """y minimising ||H y - beta e1|| for the (m+1, m) upper Hessenberg H
+    of one GMRES cycle (beta of shape (1,)), or each lane's for H (B, m+1,
+    m) and beta (B, 1) (y (B, m)), by Givens rotations written out
+    elementwise and a back substitution by columns, in torch ops: nothing
+    is read on the host, so a CUDA graph can hold it (the reference's
+    ``jnp.linalg.lstsq`` is an SVD; on the card ``torch.linalg.lstsq``
+    offers only a full-rank QR solve).
+
+    After an Arnoldi breakdown (h_{j+1,j} = 0) the later columns of H are
+    0: a rotation of a zero pair is the identity, and the back
+    substitution's ``_safe_div`` gives those coordinates 0, which is the
+    minimum-norm answer the SVD gives."""
+    if H.dim() == 2:
+        return _lstsq_lanes(H.unsqueeze(-1), beta.reshape(1))[:, 0]
+    return _lstsq_lanes(H.permute(1, 2, 0), beta.reshape(-1)).t()
 
 
 def gmres_cycle_update(x: torch.Tensor, b: torch.Tensor,
                        matvec: Callable[[torch.Tensor], torch.Tensor], m: int,
                        dot: Callable = torch.dot,
-                       out: Optional[torch.Tensor] = None
+                       out: Optional[torch.Tensor] = None,
+                       proj: Callable = plain_vdot
                        ) -> tuple[torch.Tensor, ...]:
     """One GMRES(m) cycle up to the new iterate (the plain version of
     ``gmres_cycle_fused``): the Arnoldi basis (``gmres_arnoldi``), the
     least-squares solve (``hessenberg_lstsq``) and x + y V[:m]; returns
-    (V, H, beta, x_new). With ``out`` (a buffer like x, not aliasing it)
-    x_new is written there."""
-    V, H, beta = gmres_arnoldi(x, b, matvec, m, dot=dot)
-    y = hessenberg_lstsq(H, beta)
-    return V, H, beta, torch.add(x, y @ V[:m], out=out)
+    (V, H, beta, x_new), each with a leading lane axis for lanes x, b
+    (B, n). With ``out`` (a buffer like x, not aliasing it) x_new is
+    written there."""
+    single = x.dim() == 1
+    if single:
+        matvec, dot = _single(matvec, dot)
+        x, b = x.unsqueeze(0), b.unsqueeze(0)
+    V, H, beta = _arnoldi_lanes(x, b, matvec, m, dot, proj)
+    y = _lstsq_lanes(H, beta)
+    x_new = torch.add(x, (y.unsqueeze(-1) * V[:m]).sum(0),
+                      out=None if out is None else out.view(x.shape))
+    if single:
+        return (V[:, 0], H[..., 0], beta,
+                x_new[0] if out is None else out)
+    return V.transpose(0, 1), H.permute(2, 0, 1), beta.unsqueeze(-1), x_new
 
 
 def gmres_cycle_matvec(state: tuple[torch.Tensor, torch.Tensor],
                        matvec: Callable[[torch.Tensor], torch.Tensor],
                        b: torch.Tensor, m: int, dot: Callable = torch.dot,
-                       out: Optional[torch.Tensor] = None
+                       out: Optional[torch.Tensor] = None,
+                       proj: Callable = plain_vdot
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """One GMRES(m) restart cycle: ``gmres_cycle_update``, then the
-    residual recomputed with one more SpMV; state = (x, rr). With ``out``
-    (a buffer like x, not aliasing it) x is written there."""
+    residual recomputed with one more SpMV; state = (x, rr), x (n,) or
+    lanes (B, n). With ``out`` (a buffer like x, not aliasing it) x is
+    written there."""
     x, _ = state
-    x = gmres_cycle_update(x, b, matvec, m, dot=dot, out=out)[3]
+    x = gmres_cycle_update(x, b, matvec, m, dot=dot, out=out, proj=proj)[3]
     r = b - matvec(x)
     return (x, dot(r, r))
 

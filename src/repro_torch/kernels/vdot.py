@@ -3,7 +3,10 @@ tiers' reduction on Hopper.
 
 ``vdot(a, b)`` takes two vectors of n elements (a 0-dim result) or two
 ``[B, n]`` stacks (a ``[B]`` result: lane l is ``a[l] . b[l]``), float32 or
-float64. On a CUDA tensor it launches ``csrc/vdot.cu`` (one launch for
+float64; with one more leading axis on ``a`` than on ``b`` (``a`` of
+``[k, *b.shape]``) ``b`` is shared along it: the result is ``[k, ...]``,
+``a[i] . b`` lane by lane (GMRES's projections of each lane's vector on
+the rows of its basis). On a CUDA tensor it launches ``csrc/vdot.cu`` (one launch for
 every lane) or raises; on a CPU tensor it runs the plain version, one
 ``torch.dot`` a lane. The CUDA kernel's order of additions depends on n
 only, so a lane of a batch gets the bits of the same pair alone, B = 1
@@ -14,6 +17,7 @@ wrapper counts its launches in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -29,9 +33,12 @@ _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def plain_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version: ``torch.dot`` of each lane."""
+    """The plain version: ``torch.dot`` of each lane (``b`` shared along
+    ``a``'s extra leading axis, if it has one)."""
     if a.dim() == 1:
         return torch.dot(a, b)
+    if a.dim() > b.dim():
+        return torch.stack([plain_vdot(a[i], b) for i in range(a.shape[0])])
     return torch.stack([torch.dot(a[i], b[i]) for i in range(a.shape[0])])
 
 
@@ -51,10 +58,14 @@ def _counters(device: torch.device, stream: int, lanes: int) -> torch.Tensor:
 
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a . b`` for vectors (0-dim), or each lane's for ``[B, n]`` stacks
-    (``[B]``), in the order of ``csrc/vdot.cu`` on the card."""
-    if a.shape != b.shape or a.dim() not in (1, 2):
-        raise ValueError(f"vdot: a and b must be alike, [n] or [B, n]; got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (``[B]``), in the order of ``csrc/vdot.cu`` on the card; ``a`` of
+    ``[k, *b.shape]`` pairs each ``a[i]`` with the shared ``b``."""
+    shared = a.dim() == b.dim() + 1
+    if (a.shape[shared:] != b.shape or b.dim() not in (1, 2)
+            or a.dim() > 3):
+        raise ValueError(f"vdot: a and b must be alike, [n] or [B, n], or a "
+                         f"[k, *b.shape] against b; got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
     if _build.is_cpu(a, "vdot"):
         return plain_vdot(a, b)
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
@@ -63,11 +74,11 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()) or a.device != b.device:
         raise ValueError("vdot: the CUDA kernel takes contiguous tensors on "
                          "one device")
-    lanes = a.shape[0] if a.dim() == 2 else 1
+    n = a.shape[-1]
+    lanes, b_lanes = math.prod(a.shape[:-1]), math.prod(b.shape[:-1])
     if lanes > MAX_LANES:
         raise ValueError(f"vdot: at most {MAX_LANES} lanes a launch, got "
                          f"{lanes}")
-    n = a.shape[-1]
     lib = _build.load("vdot")
     out = torch.empty(lanes, dtype=a.dtype, device=a.device)
     partial = torch.empty(lanes * lib.vdot_blocks_for(n), dtype=a.dtype,
@@ -78,10 +89,11 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         err = lib.vdot_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                               partial.data_ptr(),
                               ctypes.c_void_p(count.data_ptr()), n, lanes,
-                              _DTYPES[a.dtype], ctypes.c_void_p(stream))
+                              b_lanes, _DTYPES[a.dtype],
+                              ctypes.c_void_p(stream))
     _build.check(err, "vdot_launch")
     vdot.launches += 1
-    return out if a.dim() == 2 else out[0]
+    return out.view(a.shape[:-1])
 
 
 vdot.launches = 0

@@ -24,7 +24,7 @@ from repro_torch.kernels import ops, ref, stencil2d
 from repro_torch.kernels.common import BENCHMARKS, get_spec
 from repro_torch.solvers.cg import SellOperator
 from repro_torch.sparse import generate, nonsymmetric_names, symmetric_names
-from repro_torch.sparse.generate import poisson2d, poisson3d
+from repro_torch.sparse.generate import convdiff2d, poisson2d, poisson3d
 
 NAMES = sorted(BENCHMARKS)
 STEPS = 5
@@ -1477,4 +1477,118 @@ def test_cuda_service_captures_a_keys_graph_once(cuda):
         alone = execute(StencilProblem(_domain(spec, seed=s), spec, 5,
                                        device=cuda), Plan(tier=chosen.tier))
         assert torch.equal(results[rid].result, alone)
+    perks.clear_graphs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_vdot_shared_operand_keeps_each_pairs_bits(dtype, cuda):
+    """GMRES's projections: ``vdot(V[:k], w)`` pairs every row of the
+    (k, B, n) basis with its lane's vector in one launch, each lane with
+    the bits of that pair alone."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((5, 3, 20000))).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((3, 20000))).to(cuda, dtype)
+    before = ops.launch_counts()["vdot"]
+    got = ops.vdot(a, w)
+    assert ops.launch_counts()["vdot"] - before == 1
+    assert got.shape == (5, 3)
+    for i in range(5):
+        for j in range(3):
+            assert torch.equal(got[i, j], ops.vdot(a[i, j].clone(),
+                                                   w[j].clone()))
+    assert torch.equal(ops.vdot(a[:, :1].contiguous(), w[:1]), got[:, :1])
+
+
+def _krylov_lanes(kind, b, cuda, steps=4, m=8, tol=None):
+    from repro_torch.exec import BiCGStabProblem, GMRESProblem
+    csr = convdiff2d(48)
+    ell = csr.to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)     # one operator, shared
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    rng = np.random.default_rng(11)
+    rhs = [rng.standard_normal(ell.data.shape[0]).astype(np.float32)
+           for _ in range(b)]
+    if kind == "bicgstab":
+        first = BiCGStabProblem.from_ell(data, cols, rhs[0], steps,
+                                         matrix=csr, tol=tol, device=cuda)
+    else:
+        first = GMRESProblem.from_ell(data, cols, rhs[0], steps, m=m,
+                                      matrix=csr, tol=tol, device=cuda)
+    return [first] + [first.with_payload(torch.from_numpy(v).to(cuda))
+                      for v in rhs[1:]]
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["bicgstab", "gmres"])
+def test_cuda_krylov_lanes_are_bit_equal_to_their_instances(kind, b, cuda):
+    """BiCGStab and GMRES(m) lanes on the card: every lane bit for bit its
+    instance alone on both loop tiers, and a batched step launches
+    ``spmv_ell`` and ``vdot`` as often as one instance's step."""
+    from repro_torch.exec import BatchedProblem, execute_sequential
+    insts = _krylov_lanes(kind, b, cuda)
+    bp = BatchedProblem.from_instances(insts)
+    for tier in ("host_loop", "device_loop"):
+        ops.reset_launch_counts()
+        out = execute(bp, Plan(tier=tier, batch=b))
+        batched = ops.launch_counts()
+        ops.reset_launch_counts()
+        seq = execute_sequential(insts, Plan(tier=tier))
+        single = ops.launch_counts()
+        for i, ((x, rr), (xs, rrs)) in enumerate(zip(bp.split(out), seq)):
+            assert torch.equal(x, xs) and torch.equal(rr, rrs), (tier, i)
+        if tier == "host_loop":
+            for k in ("spmv_ell", "vdot"):
+                assert batched[k] * b == single[k], k
+    with pytest.raises(NotImplementedError, match="fused"):
+        execute(bp, Plan(tier="resident", batch=b))
+    perks.clear_graphs()
+
+
+def test_cuda_async_service_captures_one_chunk_graph_a_key(cuda):
+    """The AsyncSolverService on the card: stencil, CG, BiCGStab and GMRES
+    keys with admissions mid-solve; each key's chunk graph is captured
+    once over the whole run (a later activation of a key replays it), and
+    every served result is bit for bit its request alone under the
+    engine's cadence."""
+    from repro_torch.exec import BiCGStabProblem, GMRESProblem
+    from repro_torch.runtime.solver_service import (AsyncConfig,
+                                                    AsyncSolverService)
+    spec = get_spec("2d5pt")
+    ell = poisson2d(32).to_ell()
+    data = torch.from_numpy(ell.data).to(cuda)
+    cols = torch.from_numpy(ell.cols).to(cuda)
+    rng = np.random.default_rng(12)
+
+    def cg():
+        return CGProblem.from_ell(data, cols, rng.standard_normal(
+            ell.data.shape[0]).astype(np.float32), 200, tol=1e-8,
+            device=cuda)
+
+    stencils = [StencilProblem(_domain(spec, seed=s), spec, 12, device=cuda)
+                for s in range(5)]
+    bicg = _krylov_lanes("bicgstab", 4, cuda, steps=40, tol=1e-8)
+    gm = _krylov_lanes("gmres", 3, cuda, steps=4, tol=1e-10)
+    eng = AsyncSolverService(AsyncConfig(max_batch=2, chunk_steps=3))
+    probs = {}
+    for p in stencils[:3] + [cg(), cg()] + bicg[:2] + gm[:2]:
+        probs[eng.submit(p)] = p
+    results = dict(eng.step())
+    for p in (stencils[3], cg(), bicg[2], gm[2]):
+        probs[eng.submit(p)] = p
+    results.update(eng.run_until_idle())
+    for p in (stencils[4], cg(), bicg[3]):   # second activations
+        probs[eng.submit(p)] = p
+    results.update(eng.run_until_idle())
+    assert set(results) == set(probs)
+    caps = eng.graph_captures()
+    assert len(caps) == 4 and set(caps.values()) == {1}, caps
+    assert eng.stats()["admitted_mid_solve"] >= 1
+    for rid, p in probs.items():
+        chunk = eng.chosen_plans()[p.batch_key()].sync_every
+        alone = execute(p, Plan(tier="device_loop", sync_every=chunk))
+        got = results[rid].result
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        alone if isinstance(alone, tuple) else (alone,)):
+            assert torch.equal(g, w), rid
+    assert eng.evict_programs() == 4
     perks.clear_graphs()

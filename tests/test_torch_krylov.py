@@ -51,6 +51,7 @@ from repro_torch.exec.krylov import (BICGSTAB_STEP_LAUNCHES,
                                      GMRES_CYCLE_LAUNCHES)
 from repro_torch.exec.precision import dot_for
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.vdot import plain_vdot
 from repro_torch.sparse import PROXY_ONCHIP_BYTES, generate
 from repro_torch.sparse.generate import banded_spd, convdiff2d
 
@@ -252,20 +253,34 @@ def test_bicgstab_converged_state_is_a_fixed_point():
 
 class _Count(TorchDispatchMode):
     """The operators a call dispatches, views and in-place reshapes not
-    counted (they launch nothing on the card)."""
+    counted (they launch nothing on the card); a call wrapped by
+    ``kernel`` counts as one launch whatever it dispatches (GMRES's lane
+    dot, one ``vdot`` launch on the card)."""
 
     def __init__(self):
         super().__init__()
         self.ops = []
+        self._inside = 0
 
     def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        self.ops.append(func)
+        if not self._inside:
+            self.ops.append(func)
         return func(*args, **(kwargs or {}))
+
+    def kernel(self, fn):
+        def call(*args):
+            self.ops.append("kernel")
+            self._inside += 1
+            try:
+                return fn(*args)
+            finally:
+                self._inside -= 1
+        return call
 
     @property
     def launches(self):
-        return [f for f in self.ops
-                if not f.is_view and "squeeze" not in str(f)]
+        return [f for f in self.ops if f == "kernel" or (
+            not f.is_view and "squeeze" not in str(f))]
 
 
 def test_krylov_steps_dispatch_what_the_planner_charges():
@@ -282,7 +297,8 @@ def test_krylov_steps_dispatch_what_the_planner_charges():
     state, out = (torch.zeros(n), torch.dot(b, b)), torch.empty(n)
     for m in (1, 3, 8, 16):
         with _Count() as counted:   # m + 2 SpMVs, one mv each
-            ref.gmres_cycle_matvec(state, lambda q: a @ q, b, m, out=out)
+            ref.gmres_cycle_matvec(state, lambda q: a @ q, b, m, out=out,
+                                   proj=counted.kernel(plain_vdot))
         assert len(counted.launches) == GMRES_CYCLE_LAUNCHES(m), m
         # nothing is read on the host, so a CUDA graph can hold the cycle
         assert not any("_local_scalar_dense" in str(f) or "item" in str(f)
@@ -382,7 +398,7 @@ def test_planner_charges_the_gmres_cycles_rounds(monkeypatch):
     plan carries 1 + 3m = 49 tagged rounds a cycle at GMRES_ROUND_SHARE_S,
     and is still the pick, also once the device loop's graph is kept
     (measured 0.97 ms against 5.6 ms for the kept device loop, PERF.md):
-    the kept loop pays its 630 launches a cycle at GRAPH_LAUNCH_S. The
+    the kept loop pays its 677 launches a cycle at GRAPH_LAUNCH_S. The
     loop tiers carry no round, and BiCGStab's three an iteration stay at
     KRYLOV_ROUND_S."""
     from repro_torch.core import perks
@@ -400,8 +416,8 @@ def test_planner_charges_the_gmres_cycles_rounds(monkeypatch):
     kept = plan_candidates(p)
     assert (kept[0].tier, kept[0].policy) == ("resident", "MIX")
     loop = next(c for c in kept if c.tier == "device_loop")
-    assert GMRES_CYCLE_LAUNCHES(16) == 630
-    assert loop.predicted_s >= 4 * 630 * planner.GRAPH_LAUNCH_S
+    assert GMRES_CYCLE_LAUNCHES(16) == 677
+    assert loop.predicted_s >= 4 * 677 * planner.GRAPH_LAUNCH_S
     monkeypatch.setattr(perks, "graph_cached", lambda *a: False)
     monkeypatch.setattr(planner, "GMRES_ROUND_SHARE_S", 0.0)
     free = {(c.tier, c.policy): c.predicted_s for c in plan_candidates(p)}
