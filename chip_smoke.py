@@ -114,18 +114,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    A on chip), each bit for bit against B single launches and
    (``cg_fused``: x and rr of every lane held to a float64 run) its plain
    version, and timed at full size, in a graph too, beside one library
-   call (``cg_fused``: at every B, beside one lane's single launch);
+   call (``cg_fused``: at every B, beside one lane's single launch); then
+   the resident stencil kernels with B domains in one cooperative launch
+   (a lane on SMs // B CTAs, a different seeded domain a lane): the
+   one-step kernel, the shallow tiles (t = 4) and the deep pipelines
+   (t = 8) on 2d5pt 2048^2 x 100 at B = 3 and 8, the one-step kernel on
+   3d7pt 256^3 x 100 at B = 3, ``stencil_resident`` (the whole domain) on
+   2d5pt 1024^2 at B = 3 and 4 and 512^2 at B = 8, and a bf16 set; every
+   lane bit for bit against its single launch on the whole card and the
+   plain version, with the lane's CTAs and cached rows, timed eager and
+   in a graph beside its bound;
 15. [batch path] counted: ``BatchedProblem`` -> ``plan_candidates`` ->
-   ``execute`` on every offered tier against ``execute_sequential`` (bit
-   for bit, per-instance ms) for stencil-batch (2d5pt, B = 8 domains of
-   2048x2048, 100 steps), cg-batch-small (poisson2d(512), B = 4, 100
+   ``execute`` on every offered tier, the resident candidates included,
+   against ``execute_sequential`` of the same plan (bit for bit,
+   per-instance ms) for stencil-batch (2d5pt, B = 8 domains of
+   2048x2048, 100 steps), stencil-batch-small (2d5pt, B = 4 x 1024^2,
+   whose lanes hold their whole domains), cg-batch-small (poisson2d(512), B = 4, 100
    iterations), cg-batch-large (poisson2d(1024), B = 8), bicgstab-batch
    (convdiff2d(512), B = 8, 100 iterations) and gmres-batch
    (convdiff2d(448), B = 4, 4 GMRES(16) cycles), and the launches of one
    batched step against one single step (1, 19, 40 and 677);
 16. [service] a ``SolverService(max_batch=8)`` fed 16 stencil and 8 CG
-   requests, interleaved: its stats, its plans, the graph captures per key
-   (one for the stencil key), every result bit for bit against its own
+   requests, interleaved: its stats, its plans, the tier of each stencil
+   batch, the graph captures per key (one for the stencil key on the
+   device loop, none on the resident tier), every result bit for bit
+   against its own
    ``execute``, and the ``service_*``/``executor_*`` Prometheus lines;
    then [async service], with every launch counter set to 0 just before
    and read just after: ``AsyncSolverService(AsyncConfig(max_batch=8))
@@ -153,10 +166,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    then, counted, ``StencilProblem`` -> ``execute`` on the host and device
    loop tiers (4 steps), bit for bit against the plain run, every launch
    on a compiled shape and on 16-byte rows;
-20. one ``{"kernels": [...]}`` line with all twelve kernels, the three
-   batched launches, ``vdot`` and the step kernel per spec and type, the
-   card's name and power limit, and ``{"ok": true, "device": {...}}`` as
-   the last line.
+20. one ``{"kernels": [...]}`` line with all twelve kernels, the seven
+   batched launches (the step kernel, ``spmv_ell``, ``cg_fused`` and the
+   four resident stencil kernels), ``vdot`` and the step kernel per spec
+   and type, the card's name and power limit, and ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Without a CUDA device it prints no result and exits non-zero.
 """
@@ -1703,7 +1717,36 @@ BATCH_KERNELS = {
                          "src/repro/kernels/cg_fused.py:104"),
     "vdot": ("src/repro_torch/kernels/csrc/vdot.cu",
              "src/repro/kernels/ref.py:70"),
+    "stencil_perks_batched": ("src/repro_torch/kernels/csrc/stencil_perks.cu",
+                              "src/repro/kernels/stencil2d.py:203"),
+    "stencil_shallow_batched": (
+        "src/repro_torch/kernels/csrc/stencil_shallow.cu",
+        "src/repro/kernels/stencil2d.py:203"),
+    "stencil_resident_batched": (
+        "src/repro_torch/kernels/csrc/stencil_resident.cu",
+        "src/repro/kernels/stencil2d.py:540"),
+    "stencil_tb_batched": ("src/repro_torch/kernels/csrc/stencil_tb.cu",
+                           "src/repro/kernels/stencil2d.py:468"),
 }
+# [batch kernels] the batched resident stencil launches: (kernel, spec,
+# shape, steps, t, lanes, type); the kernels line times the first case of
+# each kernel in f32 at the largest B (its bf16 and 3D cases beside it)
+LANE_CASES = [
+    ("stencil_perks_batched", "2d5pt", (2048, 2048), 100, 1, 8, "f32"),
+    ("stencil_perks_batched", "2d5pt", (2048, 2048), 100, 1, 3, "f32"),
+    ("stencil_perks_batched", "3d7pt", (256, 256, 256), 100, 1, 3, "f32"),
+    ("stencil_perks_batched", "2d5pt", (2048, 2048), 100, 1, 8, "bf16"),
+    ("stencil_shallow_batched", "2d5pt", (2048, 2048), 100, 4, 8, "f32"),
+    ("stencil_shallow_batched", "2d5pt", (2048, 2048), 100, 4, 3, "f32"),
+    ("stencil_shallow_batched", "2d5pt", (2048, 2048), 100, 4, 3, "bf16"),
+    ("stencil_tb_batched", "2d5pt", (2048, 2048), 100, 8, 8, "f32"),
+    ("stencil_tb_batched", "2d5pt", (2048, 2048), 100, 8, 3, "f32"),
+    ("stencil_tb_batched", "2d5pt", (2048, 2048), 100, 8, 3, "bf16"),
+    ("stencil_resident_batched", "2d5pt", (1024, 1024), 100, 1, 4, "f32"),
+    ("stencil_resident_batched", "2d5pt", (1024, 1024), 100, 1, 3, "f32"),
+    ("stencil_resident_batched", "2d5pt", (512, 512), 100, 1, 8, "f32"),
+    ("stencil_resident_batched", "2d5pt", (1024, 1024), 100, 1, 4, "bf16"),
+]
 # [step specs]: the loop tiers' step on every Table-III spec at the loop
 # tiers' full shapes, and the steps of its counted path on each tier
 STEP_SPEC_SHAPES = {2: (8192, 8192), 3: (256, 256, 256)}
@@ -1720,9 +1763,11 @@ def step_spec_kernels() -> dict:
             for name in BENCHMARKS for t in STEP_SPEC_TYPES}
 
 
-# The batched path's cells: (cell, what, size, B, steps)
+# The batched path's cells: (cell, what, size, B, steps); a lane of
+# stencil-batch-small holds its whole domain (stencil_resident)
 BATCH_CELLS = [
     ("stencil-batch", "2d5pt", (2048, 2048), 8, 100),
+    ("stencil-batch-small", "2d5pt", (1024, 1024), 4, 100),
     ("cg-batch-small", "poisson2d", 512, 4, 100),
     ("cg-batch-large", "poisson2d", 1024, 8, 100),
     ("bicgstab-batch", "convdiff2d", 512, 8, 100),
@@ -1873,6 +1918,93 @@ def step_spec_phase(rng):
     return errs, timing, launches
 
 
+def lane_phase(rng, card: str, errs: dict, timing: dict) -> None:
+    """[batch kernels], the batched resident stencil launches: each case of
+    LANE_CASES (a different seeded domain a lane) in one launch, every lane
+    bit for bit against its single launch on the whole card and against
+    the plain version; the lane's CTAs and cached rows (the planner's for
+    one lane, ``per_instance_chip``); timed eager and in a graph beside its
+    bound (B lanes' bytes at the lane's cached rows, or their operations)
+    and the plain version."""
+    from repro_torch.core.cache_policy import gm_bytes_deep, gm_bytes_fused
+    from repro_torch.core.hardware import device_chip
+    from repro_torch.exec import per_instance_chip
+    from repro_torch.kernels import ops, ref, stencil2d
+    from repro_torch.kernels.common import get_spec
+    from repro_torch.kernels.stencil3d import plan_resident_planes
+
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    chip = device_chip()
+    limit = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    print(f"[batch kernels] {card}: the resident stencil kernels, B domains "
+          f"(a different seeded domain a lane) in one cooperative launch, "
+          f"each lane bit for bit against its single launch and the plain "
+          f"version; lane CTAs = {chip.sms} SMs // B")
+    for kname, sname, shape, n, t, b, tag in LANE_CASES:
+        spec = get_spec(sname)
+        dt = types[tag]
+        xs = torch.from_numpy(rng.standard_normal((b,) + shape).astype(
+            np.float32)).cuda().to(dt)
+        eb = xs.element_size()
+        lane = per_instance_chip(chip, b)
+        if kname == "stencil_resident_batched":
+            R = shape[0]
+            fn = lambda x: ops.stencil_resident(x, spec=spec, steps=n)
+        elif kname == "stencil_perks_batched":
+            R = plan_resident_planes(shape, eb, spec, chip=lane)
+            fn = lambda x: ops.stencil_perks(x, spec=spec, steps=n,
+                                             cached_rows=R)
+        else:
+            deep = kname == "stencil_tb_batched"
+            R = stencil2d.tb_cached_rows(shape, spec.radius, t, eb, deep=deep,
+                                         ctas=lane.sms, limit=limit)
+            run_ = ops.stencil_perks_deep if deep else ops.stencil_perks
+            fn = lambda x: run_(x, spec=spec, steps=n, cached_rows=R,
+                                sub_rows=max(128, spec.radius * t),
+                                fuse_steps=t)
+        what = f"{kname} {sname} {shape} {tag} B={b} t={t} cached_rows={R}"
+        if R is None or (kname == "stencil_perks_batched"
+                         and not 0 < R < shape[0]):
+            print(f"  {what}: the lane's plan is not this kernel's FAIL")
+            FAILS.append(f"{what}: no lane plan for the kernel")
+            continue
+        before = ops.launch_counts()[kname]
+        got = fn(xs)
+        if ops.launch_counts()[kname] != before + 1:
+            FAILS.append(f"{what}: not one {kname} launch")
+        want = ref.stencil_run(xs, spec, n)
+        ok = torch.equal(got, want)
+        errs[kname] = max(errs[kname], (got.double() - want.double())
+                          .abs().max().item())
+        n_same = sum(torch.equal(got[i], fn(xs[i])) for i in range(b))
+        ok &= n_same == b
+        if not ok:
+            print(f"  {what}: {n_same} of {b} lanes bit-equal to their "
+                  f"single launch, plain version "
+                  f"{'bit-equal' if torch.equal(got, want) else 'differs'} "
+                  f"FAIL")
+            FAILS.append(f"{what} is not bit-equal lane by lane")
+        dom = math.prod(shape) * eb
+        row = dom // shape[0]
+        if kname == "stencil_tb_batched":
+            least = gm_bytes_deep(n, dom, R * row, fuse_steps=t)
+        else:
+            least = gm_bytes_fused(n, dom, R * row, row_bytes=row,
+                                   radius=spec.radius, fuse_steps=t)
+        run = lambda: fn(xs)
+        t_ = dict(
+            spec=sname, shape=shape, type=tag, B=b, t=t, steps=n,
+            lane_ctas=lane.sms, cached_rows=R, ms=cuda_ms(run, 3),
+            graph_ms=graph_ms(run, 3),
+            plain_ms=cuda_ms(lambda: ref.stencil_run(xs, spec, n), 1),
+            bound=bound(spec, shape, n * b, b * least), library_ms=None,
+            lanes_bit_equal=n_same)
+        if kname not in timing:
+            timing[kname] = t_
+        print(f"  {json.dumps(t_)} {'ok' if ok else 'FAIL'}")
+        del xs, got, want
+
+
 def batch_phases(rng):
     """Phases 14-18: the batched launches against B single launches and
     their plain versions, the batched path counted against
@@ -1954,6 +2086,7 @@ def batch_phases(rng):
         library_ms=cuda_ms(conv, 20))
     print(f"  stencil_step {sname} B={B} x {shape} f32: "
           f"{json.dumps(timing['stencil_baseline_step_batched'])}")
+    lane_phase(rng, card, errs, timing)
 
     csr = poisson2d(1024)
     ell = csr.to_ell()
@@ -2061,7 +2194,7 @@ def batch_phases(rng):
     for cell, what, size, B, steps in BATCH_CELLS:
         # the instances share their step function (with_payload), so the
         # sequential device loop replays one kept graph, as the batch does
-        if cell == "stencil-batch":
+        if cell.startswith("stencil"):
             first = StencilProblem(vecs(1, math.prod(size)).view(size),
                                    get_spec(what), steps)
             insts = [first] + [first.with_payload(
@@ -2098,7 +2231,7 @@ def batch_phases(rng):
             ours = {k: v - before[k] for k, v in ops.launch_counts().items()
                     if v != before[k] and not k.endswith("_batched")}
             n_launch[what_] = (lc.n + sum(ours.values()), ours)
-        want_n = (1 if cell == "stencil-batch" else
+        want_n = (1 if cell.startswith("stencil") else
                   insts[0].step_launches())
         ok = n_launch["batched"][0] == n_launch["single"][0] == want_n
         print(f"  {cell}: launches of one step: batched B={B} "
@@ -2118,7 +2251,9 @@ def batch_phases(rng):
             seq_ms = cuda_ms(lambda: execute_sequential(insts, single), 1)
             print("  " + json.dumps(dict(
                 cell=cell, B=B, tier=p.tier, policy=p.policy,
-                bit_equal=good, batched_ms=ms, per_instance_ms=ms / B,
+                schedule=p.schedule, fuse_steps=p.fuse_steps,
+                cached_rows=p.cached_rows, bit_equal=good, batched_ms=ms,
+                per_instance_ms=ms / B,
                 sequential_per_instance_ms=seq_ms / B,
                 predicted_ms=1e3 * p.predicted_s)))
         perks.clear_graphs()
@@ -2161,9 +2296,20 @@ def batch_phases(rng):
     caps = {k: v for k, v in snap.items()
             if k.startswith("service_graph_captures_total")}
     print(f"  graph captures per key: {json.dumps(caps)}")
+    # the stencil key's batches: one kept graph for the key on the device
+    # loop, none on the host loop or the resident tier (one launch a batch)
+    stencil_plans = {(rr.plan.tier, rr.plan.schedule, rr.plan.fuse_steps,
+                      rr.plan.cached_rows, rr.batch_size)
+                     for rid, rr in results.items()
+                     if reqs[rid].kind == "stencil"}
+    print(f"  stencil batches (tier, schedule, t, cached rows, requests): "
+          f"{json.dumps(sorted(stencil_plans))}")
     for k, v in caps.items():
-        if "stencil" in k and v != 1:
-            FAILS.append(f"service key {k} captured {v} graphs, not one")
+        tiers = {t for t, *_ in stencil_plans}
+        want = int(tiers == {"device_loop"})
+        if "stencil" in k and v != want:
+            FAILS.append(f"service key {k} on {tiers} captured {v} graphs, "
+                         f"not {want}")
     n_same = 0
     for rid, p in reqs.items():
         rr = results[rid]

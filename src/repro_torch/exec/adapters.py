@@ -1,10 +1,11 @@
 """Problem adapters: the stencil and conjugate gradient described for the
 executor — the single-device part of ``repro/exec/adapters.py``, with
 their batching surface (``exec/batch.py``): a batch of stencils steps in
-one ``stencil_step`` launch a step, a batch of CG right-hand sides on one
-ELL operator in one ``spmv_ell`` and one ``vdot`` launch for each SpMV and
-dot, and its resident tier is one ``cg_fused`` launch. BiCGStab and
-GMRES(m) are in ``krylov.py``.
+one ``stencil_step`` launch a step, and its resident tier is one launch of
+the kernel its plan names with a lane of CTAs a domain; a batch of CG
+right-hand sides on one ELL operator steps in one ``spmv_ell`` and one
+``vdot`` launch for each SpMV and dot, and its resident tier is one
+``cg_fused`` launch. BiCGStab and GMRES(m) are in ``krylov.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core.cache_policy import (
     stencil_shard_arrays,
 )
 from repro_torch.core.hardware import Chip, device_chip
+from repro_torch.exec.batch import per_instance_chip
 from repro_torch.exec.plan import PRECISIONS, Plan
 from repro_torch.exec.precision import dot_for
 from repro_torch.exec.problem import HaloSpec, Problem, operand_fingerprint
@@ -234,22 +236,40 @@ class StencilProblem(Problem):
                 str(self.device))
 
     def batched_tiers(self) -> tuple[str, ...]:
-        return ("host_loop", "device_loop")
+        return ("host_loop", "device_loop", "resident")
 
     def batched_step_fn(self):
         # stencil_baseline_step takes [B, ...] as B domains in one launch
         return self._step
 
-    batched_resident_missing = (
-        "batched resident stencil plans have no batched launch yet: "
-        "csrc/stencil_resident.cu, stencil_perks.cu, stencil_shallow.cu "
-        "and stencil_tb.cu take one domain a launch (ROADMAP, Queue 1: the "
-        "batched launches of the resident stencil kernels); a batched "
-        "stencil runs on the loop tiers")
-
     # -- tiers ----------------------------------------------------------------
 
     def run_resident(self, plan):
+        return self._resident(self.x, plan, device_chip())
+
+    def run_resident_batched(self, payload, plan):
+        """The B domains ``payload`` ``[B, ...]`` in one launch of the
+        kernel ``plan`` names, each lane on its share of the card
+        (``batch.per_instance_chip``: ``sms // B`` CTAs of the full
+        per-block shared memory), the plan fitted to that share as a single
+        run's is to the card. Raises ``ValueError`` where the lanes outnumber
+        the SMs (the reference vmaps any B; waves of lanes are not
+        ported)."""
+        chip = device_chip()
+        lanes = payload.shape[0]
+        lane = per_instance_chip(chip, lanes)
+        if lane.sms < 1:
+            raise ValueError(
+                f"a batched resident stencil plan runs every lane at once, "
+                f"on at least one CTA each: {lanes} lanes outnumber the "
+                f"{chip.sms} SMs of {chip.name}; run this batch on a loop "
+                f"tier or in batches of at most {chip.sms}")
+        return self._resident(payload, plan, lane)
+
+    def _resident(self, x, plan, chip: Chip):
+        """The resident tier on ``x`` (this problem's domain, or a batch of
+        like domains) with ``plan`` fitted to ``chip`` (one domain's share
+        of the card)."""
         plan.validate(radius=self.spec.radius, domain_rows=self.x.shape[0])
         if plan.cached_rows is None:
             raise ValueError("resident stencil plan must set cached_rows "
@@ -257,22 +277,22 @@ class StencilProblem(Problem):
         # a plan the card's kernels cannot hold runs at the layout they do
         plan, why = fit_stencil_plan(tuple(self.x.shape),
                                      self.x.element_size(), self.spec, plan,
-                                     device_chip(), n_steps=self.n_steps)
+                                     chip, n_steps=self.n_steps)
         if why is not None:
-            warnings.warn(why, RuntimeWarning, stacklevel=3)
+            warnings.warn(why, RuntimeWarning, stacklevel=4)
+        H = self.x.shape[0]
         cached_rows = plan.cached_rows
-        if cached_rows >= self.x.shape[0]:
+        if cached_rows >= H:
             # stencil_resident where it holds the domain, else the one-step
             # kernel's boxes take every plane
-            return kops.stencil_perks(self.x, spec=self.spec,
-                                      steps=self.n_steps,
-                                      cached_rows=self.x.shape[0])
+            return kops.stencil_perks(x, spec=self.spec, steps=self.n_steps,
+                                      cached_rows=H)
         if plan.schedule == "deep":
             return kops.stencil_perks_deep(
-                self.x, spec=self.spec, steps=self.n_steps,
+                x, spec=self.spec, steps=self.n_steps,
                 cached_rows=cached_rows, sub_rows=plan.sub_rows,
                 fuse_steps=plan.fuse_steps)
-        return kops.stencil_perks(self.x, spec=self.spec, steps=self.n_steps,
+        return kops.stencil_perks(x, spec=self.spec, steps=self.n_steps,
                                   cached_rows=cached_rows,
                                   sub_rows=plan.sub_rows,
                                   fuse_steps=plan.fuse_steps)

@@ -26,10 +26,15 @@ instances (equal :meth:`Problem.batch_key`) and is itself a
   ``DecodeAttentionProblem``) and Krylov problems over a matvec callable
   have no batched step yet;
 * resident tier: one launch of the family's batched resident kernel
-  (``Problem.run_resident_batched``: ``cg_fused`` with B lanes). The
-  resident stencil kernels, ``bicgstab_fused`` and ``gmres_cycle_fused``
-  have no batched launch yet, so a batch of those families does not
-  support the tier and the planner offers none;
+  (``Problem.run_resident_batched``): ``cg_fused`` with B lanes; for
+  stencils the kernel the plan names (``stencil_perks``,
+  ``stencil_resident``, the shallow tiles or the deep pipelines) with the
+  B domains on the grid's y, lane b on ``sms // B`` CTAs laid out as one
+  domain on that many (``per_instance_chip``), so at most one lane an SM
+  (the reference vmaps any B; waves of lanes are not ported).
+  ``bicgstab_fused`` and ``gmres_cycle_fused`` have no batched launch
+  yet, so a batch of those families does not support the tier and the
+  planner offers none;
 * the distributed tier is not ported.
 
 Each lane computes exactly what its instance computes alone on the same
@@ -93,14 +98,22 @@ def stack_payloads(problems: Sequence[Problem]):
 def per_instance_chip(chip, batch: int):
     """The on-chip budget ONE instance of a B-wide batch may plan against.
 
-    A batched resident launch keeps every lane's vectors on chip at once,
-    so residency and scratch share the card's shared memory. Scaling
-    ``onchip_bytes`` by 1/B is how the planner makes a batched problem
-    demote residency first, rather than emit plans whose combined working
-    set oversubscribes the card."""
+    A batched resident launch keeps every lane's working set on chip at
+    once, so residency and scratch share the card's shared memory. A lane
+    of a batched stencil launch runs on ``sms // B`` CTAs of the full
+    per-block shared memory, one an SM: that is the lane's ``sms`` and,
+    at most, its ``onchip_bytes`` (``(sms // B) * smem_per_block``; never
+    more than ``onchip_bytes / B``, the budget every family shares, which
+    makes a batched problem demote residency first rather than emit plans
+    whose combined working set oversubscribes the card)."""
     if batch <= 1:
         return chip
-    return dataclasses.replace(chip, onchip_bytes=chip.onchip_bytes / batch)
+    lane = dataclasses.replace(chip, onchip_bytes=chip.onchip_bytes / batch)
+    if chip.sms:
+        sms = chip.sms // batch
+        lane = dataclasses.replace(lane, sms=sms, onchip_bytes=min(
+            lane.onchip_bytes, sms * chip.smem_per_block))
+    return lane
 
 
 class BatchedProblem(Problem):

@@ -200,7 +200,17 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
     batch of ``batch`` of them in one dispatch (``runs``, the problem that
     runs: the ``BatchedProblem`` itself, whose kept graph the device loop
     looks for; ``graph_kept`` prices the device loop as a replay all the
-    same). A batch's memory traffic scales by B, its launches do not."""
+    same). A batch's memory traffic scales by B, its launches do not.
+
+    A batch's resident candidates are one launch with a lane of ``sms //
+    B`` CTAs a domain (``batch.per_instance_chip``): each laid out and
+    fitted as one domain on the lane's CTAs, priced as the lane's pass
+    with the card's bandwidths shared by B lanes, plus one launch. Where B
+    exceeds the SMs no resident candidate is offered: the lanes of one
+    cooperative launch are co-resident (the reference vmaps any B; waves
+    of lanes are not ported)."""
+    from repro_torch.exec.batch import per_instance_chip
+
     runs = problem if runs is None else runs
     B = batch
     shape = tuple(problem.x.shape)
@@ -223,13 +233,19 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
              predicted_bound=base.bound, **common),
     ]
     smem = chip.smem_per_block - stencil2d.PERKS_STATIC_SMEM
+    lane = per_instance_chip(chip, B)
+    if lane.sms < 1:
+        return cands
+    # a lane's pass, its bytes and on-chip traffic at 1/B of the card's rates
+    price = lane if B == 1 else dataclasses.replace(
+        lane, hbm_bw=chip.hbm_bw / B, onchip_bw=chip.onchip_bw / B)
 
     def resident(t: int, schedule: str, rows: int, sub: int) -> Plan:
         p = Plan(tier="resident", schedule=schedule, fuse_steps=t,
                  cached_rows=rows, sub_rows=sub,
                  cache=(CacheDecision("domain_rows", rows * row_bytes,
                                       domain_bytes),), **common)
-        s, bound_by = stencil_model_s(problem, p, chip=chip)
+        s, bound_by = stencil_model_s(problem, p, chip=price)
         return dataclasses.replace(p, predicted_s=s + DISPATCH_OVERHEAD_S,
                                    predicted_bound=bound_by)
 
@@ -237,12 +253,12 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
     t = 1
     while t <= max(1, min(max_fuse, n)):
         if t == 1:
-            rows = plan_resident_planes(shape, db, problem.spec, chip=chip)
+            rows = plan_resident_planes(shape, db, problem.spec, chip=lane)
         else:
             if sub_rows < r * t:     # Plan.validate would refuse it
                 break
             rows = stencil2d.tb_cached_rows(shape, r, t, db, deep=False,
-                                            ctas=chip.sms, limit=smem)
+                                            ctas=lane.sms, limit=smem)
             if rows is None:
                 break
         cands.append(resident(t, "shallow", rows, sub_rows))
@@ -254,7 +270,7 @@ def _stencil_candidates(problem, chip: Chip, *, sub_rows: int,
     t = 2
     while t <= max(1, min(max(max_fuse, DEEP_MAX_FUSE), n)):
         got = stencil2d.tb_cached_rows(shape, r, t, db, deep=True,
-                                       ctas=chip.sms, limit=smem)
+                                       ctas=lane.sms, limit=smem)
         if got is None:
             break
         cands.append(resident(t, "deep", got, deep_sub))
@@ -612,8 +628,9 @@ def plan_candidates(problem: Problem, *, chip: Union[str, Chip] = "h100",
     (``repro_torch.exec.batch``): per-step traffic and per-instance
     on-chip budgets scale with B, launches and barriers do not. A
     :class:`~repro_torch.exec.batch.BatchedProblem` gives its own B. A
-    batch is offered the tiers of the family's ``batched_tiers()`` only
-    (not the resident stencil kernels, which have no batched launch yet).
+    batch is offered the tiers of the family's ``batched_tiers()`` only;
+    a stencil batch's resident candidates are laid out for one lane's
+    ``sms // B`` CTAs, and offered only where B is at most the SMs.
 
     ``ledger`` (default: the ambient ``repro_torch.obs.get_ledger()``)
     re-ranks with measured evidence: candidates the drift ledger has timed

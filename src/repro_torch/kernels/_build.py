@@ -128,7 +128,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 
-#: C signatures: library -> {function: (restype, argtypes)}
+#: C signatures: library -> {function: (restype, argtypes)}; the persistent
+#: stencil kernels' launches take (..., dtype, CTAs a lane, lanes, dynamic
+#: shared memory, stream, flag)
 _SIGNATURES = {
     "stencil_step": {
         "stencil_step_launch": (_I, [_P, _P, StencilArgs, StepArgs, _I, _I,
@@ -137,28 +139,28 @@ _SIGNATURES = {
     },
     "stencil_perks": {
         "stencil_perks_launch": (_I, [_P, _P, _P, StencilArgs, PerksArgs,
-                                      _I, _I, _I, _P, _IP]),
+                                      _I, _I, _I, _I, _P, _IP]),
         "stencil_perks_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_perks_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_perks_shape": (_I, [_IP, _IP, _IP, _IP]),
     },
     "stencil_resident": {
         "stencil_resident_launch": (_I, [_P, _P, _P, StencilArgs, ResArgs,
-                                         _I, _I, _I, _P, _IP]),
+                                         _I, _I, _I, _I, _P, _IP]),
         "stencil_resident_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_resident_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_resident_shape": (_I, [_IP, _IP]),
     },
     "stencil_shallow": {
         "stencil_shallow_launch": (_I, [_P, _P, _P, StencilArgs, ShallowArgs,
-                                        _I, _I, _I, _P, _IP]),
+                                        _I, _I, _I, _I, _P, _IP]),
         "stencil_shallow_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_shallow_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_shallow_shape": (_I, [_IP, _IP, _IP]),
     },
     "stencil_tb": {
         "stencil_tb_launch": (_I, [_P, _P, _P, StencilArgs, TbArgs, _I, _I,
-                                   _I, _P, _IP]),
+                                   _I, _I, _P, _IP]),
         "stencil_tb_max_ctas": (_I, [_I, _I, _I, _IP]),
         "stencil_tb_smem": (_I, [_I, _I, _IP, _IP]),
         "stencil_tb_max_row_cells": (_I, []),

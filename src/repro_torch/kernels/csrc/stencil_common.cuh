@@ -41,6 +41,16 @@ struct StencilArgs {
     float w[STENCIL_MAX_POINTS];
 };
 
+// A batched launch of a persistent kernel stacks B domains of H * P cells
+// and puts lane b on the CTAs (x, b): blockIdx.x and gridDim.x keep their
+// meaning inside a lane, and one grid.sync() serves every lane. A CTA
+// moves its domain pointers to its lane's domain first (64-bit: B domains
+// may hold more than 2^31 cells).
+template <typename T>
+__device__ __forceinline__ T* lane_domain(T* p, const StencilArgs& a) {
+    return p + (size_t)blockIdx.y * (size_t)a.H * (size_t)a.P;
+}
+
 // The spec copied into shared memory once per block.
 struct SpecShared {
     int d0[STENCIL_MAX_POINTS];

@@ -48,7 +48,10 @@
 //     waits for a row's window row, computes its cells of the row (at most
 //     ONE_TILE_CELLS a thread, neighbouring threads neighbouring columns,
 //     stored as coalesced row runs) and frees the slot of the row 2r above;
-//   * grid.sync() is the barrier between steps (the paper's Fig. 3, right).
+//   * grid.sync() is the barrier between steps (the paper's Fig. 3, right);
+//   * a batch of B domains is one launch of grid (ctas, B): lane b's CTAs
+//     (x, b) hold its boxes and walk its units, laid out as for one domain
+//     on `ctas` CTAs (stencil2d.lane_ctas); one grid.sync() serves all.
 //
 // Cells are float or __nv_bfloat16 (one instance each, chosen at launch).
 // Every update sums its terms in the spec's order with the rounding of
@@ -86,12 +89,12 @@ constexpr int PERKS_MAX_SLOTS = 2 * STENCIL_MAX_RADIUS + 1 + PERKS_STREAM_ROWS;
 // A window wait that lasts this many cycles (seconds) is a fault.
 constexpr long long PERKS_WAIT_CYCLES = 1LL << 34;
 
-// Built with -DPERKS_PROFILE, every CTA sums the clock cycles of a step's
-// phases: thread 0 (a computing warp) 0 the box (and the window's first
-// copies), 1 waiting for window rows, 2 computing and storing rows and
-// freeing slots, 3 grid.sync() (and the feeder's last rows); the feeder's
-// lane 0 4 waiting for a free slot, 5 its whole walk after the box;
-// stencil_perks_profile reads and clears them.
+// Built with -DPERKS_PROFILE, every CTA (of every lane) sums the clock
+// cycles of a step's phases: thread 0 (a computing warp) 0 the box (and the
+// window's first copies), 1 waiting for window rows, 2 computing and
+// storing rows and freeing slots, 3 grid.sync() (and the feeder's last
+// rows); the feeder's lane 0 4 waiting for a free slot, 5 its whole walk
+// after the box; stencil_perks_profile reads and clears them.
 #ifdef PERKS_PROFILE
 __device__ unsigned long long perks_cycles[6];
 #define PERKS_MARK(kind)                         \
@@ -205,6 +208,9 @@ stencil_perks_kernel(const T* __restrict__ x, T* buf0, T* buf1, StencilArgs a,
     if (threadIdx.x < STENCIL_MAX_POINTS) lin[threadIdx.x] = g.lin[threadIdx.x];
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
+    x = lane_domain(x, a);
+    buf0 = lane_domain(buf0, a);
+    buf1 = lane_domain(buf1, a);
 
     const int P = a.P, r = a.r, H = a.H, D1 = a.D1, D2 = a.D2;
     const int tid = threadIdx.x;
@@ -679,15 +685,16 @@ extern "C" int stencil_perks_max_ctas(int npts, int dtype, int smem_bytes,
     return 0;
 }
 
-// Launches on `stream` for elements of type `dtype` (STENCIL_F32 or
-// STENCIL_BF16); returns the cudaError_t of the launch (0 = success) and
-// sets *async to whether the window rows are bulk copies: the
+// Launches `grid` CTAs for each of `lanes` stacked domains on `stream` for
+// elements of type `dtype` (STENCIL_F32 or STENCIL_BF16); returns the
+// cudaError_t of the launch (0 = success) and sets *async to whether the
+// window rows are bulk copies: the
 // buffers and row strides on 16-byte boundaries, and every window's columns
 // from one (the layout's tile columns, left halo and window width are
 // 16-byte multiples).
 extern "C" int stencil_perks_launch(const void* x, void* buf0, void* buf1,
                                     StencilArgs a, PerksArgs g, int dtype,
-                                    int grid, int smem_bytes,
+                                    int grid, int lanes, int smem_bytes,
                                     cudaStream_t stream, int* async) {
     const void* f = perks_kernel(a.npts, dtype);
     const int eb = dtype == STENCIL_BF16 ? 2 : 4;
@@ -701,8 +708,8 @@ extern "C" int stencil_perks_launch(const void* x, void* buf0, void* buf1,
         f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
     void* args[] = {(void*)&x, (void*)&buf0, (void*)&buf1, (void*)&a, (void*)&g};
-    e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(ONE_THREADS), args,
-                                    (size_t)smem_bytes, stream);
+    e = cudaLaunchCooperativeKernel(f, dim3(grid, lanes), dim3(ONE_THREADS),
+                                    args, (size_t)smem_bytes, stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

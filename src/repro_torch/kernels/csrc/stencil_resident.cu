@@ -30,7 +30,10 @@
 //     the rows outside it from device memory instead;
 //   * each step a band writes only its r-row top and bottom borders to
 //     device memory (from registers), where its neighbours read them after
-//     grid.sync(), the paper's barrier (Fig. 3, right).
+//     grid.sync(), the paper's barrier (Fig. 3, right);
+//   * a batch of B domains is one launch of grid (ctas, B): lane b's CTAs
+//     (x, b) hold its bands, laid out as for one domain on `ctas` CTAs
+//     (stencil2d.lane_ctas), and one grid.sync() a step serves every lane.
 //
 // Bound on the H100: device memory is touched twice (the domain in and
 // out); each step costs the band's shared-memory traffic (npoints loads and
@@ -54,10 +57,10 @@ constexpr int RES_CELLS = 40;
 // a group interleave); a thread stops after the group holding its last cell.
 constexpr int RES_GROUP = 4;
 
-// Built with -DRES_PROFILE, thread 0 of every CTA sums the clock cycles of
-// a step's phases: 0 computing blocks (each up to its __syncthreads), 1
-// writing them back, 2 the grid barrier, 3 the halo copies;
-// stencil_resident_profile reads and clears them.
+// Built with -DRES_PROFILE, thread 0 of every CTA (of every lane) sums the
+// clock cycles of a step's phases: 0 computing blocks (each up to its
+// __syncthreads), 1 writing them back, 2 the grid barrier, 3 the halo
+// copies; stencil_resident_profile reads and clears them.
 #ifdef RES_PROFILE
 __device__ unsigned long long res_cycles[4];
 #define RES_MARK(kind)                                                    \
@@ -153,6 +156,9 @@ stencil_resident_kernel(const T* __restrict__ x, T* buf0, T* buf1,
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
     T* S = reinterpret_cast<T*>(smem_raw);
+    x = lane_domain(x, a);
+    buf0 = lane_domain(buf0, a);
+    buf1 = lane_domain(buf1, a);
 
     const int P = a.P, r = a.r, H = a.H, D1 = a.D1, D2 = a.D2, tid = threadIdx.x;
     const bool is3 = a.ndim == 3;
@@ -364,13 +370,13 @@ extern "C" int stencil_resident_max_ctas(int npts, int dtype, int smem_bytes,
     return 0;
 }
 
-// Launches on `stream` for elements of type `dtype`; returns the
-// cudaError_t of the launch (0 = success) and sets *async to whether the
-// halo rows are copied by cp.async (halo rows in shared memory, 16-byte
-// aligned rows).
+// Launches `grid` CTAs for each of `lanes` stacked domains on `stream` for
+// elements of type `dtype`; returns the cudaError_t of the launch (0 =
+// success) and sets *async to whether the halo rows are copied by cp.async
+// (halo rows in shared memory, 16-byte aligned rows).
 extern "C" int stencil_resident_launch(const void* x, void* buf0, void* buf1,
                                        StencilArgs a, ResArgs g, int dtype,
-                                       int grid, int smem_bytes,
+                                       int grid, int lanes, int smem_bytes,
                                        cudaStream_t stream, int* async) {
     const void* f = resident_kernel(a.npts, dtype, g.halo);
     const int eb = dtype == STENCIL_BF16 ? 2 : 4;
@@ -389,8 +395,8 @@ extern "C" int stencil_resident_launch(const void* x, void* buf0, void* buf1,
         f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
     void* args[] = {(void*)&x, (void*)&buf0, (void*)&buf1, (void*)&a, (void*)&g};
-    e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(RES_THREADS), args,
-                                    (size_t)smem_bytes, stream);
+    e = cudaLaunchCooperativeKernel(f, dim3(grid, lanes), dim3(RES_THREADS),
+                                    args, (size_t)smem_bytes, stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

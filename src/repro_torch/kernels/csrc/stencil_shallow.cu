@@ -29,7 +29,10 @@
 //     cell) and the interior tests are made once a level and unit. One
 //     __syncthreads a level;
 //   * the outermost r cells on every axis stay frozen (copied from the
-//     level below).
+//     level below);
+//   * a batch of B domains is one launch of grid (ctas, B): lane b's CTAs
+//     (x, b) hold its bands and walk its tiles, laid out as for one domain
+//     on `ctas` CTAs (stencil2d.lane_ctas); one grid.sync() serves all.
 // Every update sums its terms in the spec's order with the rounding of
 // stencil_common.cuh, so each pass gives the bits of t single steps.
 //
@@ -181,6 +184,9 @@ stencil_shallow_kernel(const T* x, T* buf0, T* buf1, StencilArgs a,
     if (threadIdx.x < STENCIL_MAX_POINTS) lin[threadIdx.x] = g.lin[threadIdx.x];
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
+    x = lane_domain(x, a);
+    buf0 = lane_domain(buf0, a);
+    buf1 = lane_domain(buf1, a);
 
     const int P = a.P, r = a.r, H = a.H, R = g.R, t = g.t, D1 = a.D1, D2 = a.D2;
     const int rt = r * t, tid = threadIdx.x, is3 = a.ndim == 3;
@@ -352,14 +358,15 @@ extern "C" int stencil_shallow_max_ctas(int npts, int dtype, int smem_bytes,
     return 0;
 }
 
-// Launches on `stream` for elements of type `dtype`; returns the
-// cudaError_t of the launch (0 = success) and sets *async to whether the
-// tile windows are copied by cp.async: the buffers and row strides on
+// Launches `grid` CTAs for each of `lanes` stacked domains on `stream` for
+// elements of type `dtype`; returns the cudaError_t of the launch (0 =
+// success) and sets *async to whether the tile windows are copied by
+// cp.async: the buffers and row strides on
 // 16-byte boundaries and every window's columns from one (the layout's
 // strip and left halo are 16-byte multiples).
 extern "C" int stencil_shallow_launch(const void* x, void* buf0, void* buf1,
                                       StencilArgs a, ShallowArgs g, int dtype,
-                                      int grid, int smem_bytes,
+                                      int grid, int lanes, int smem_bytes,
                                       cudaStream_t stream, int* async) {
     const void* f = shallow_kernel(a.npts, dtype);
     const int eb = dtype == STENCIL_BF16 ? 2 : 4;
@@ -375,7 +382,8 @@ extern "C" int stencil_shallow_launch(const void* x, void* buf0, void* buf1,
         f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
     void* args[] = {(void*)&x, (void*)&buf0, (void*)&buf1, (void*)&a, (void*)&g};
-    e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(SHALLOW_THREADS), args,
+    e = cudaLaunchCooperativeKernel(f, dim3(grid, lanes),
+                                    dim3(SHALLOW_THREADS), args,
                                     (size_t)smem_bytes, stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();

@@ -44,7 +44,13 @@
 //     side halo: the only work done twice;
 //   * the outermost r cells on every axis stay frozen: a window that
 //     reaches the domain border does not shrink there (the reference's
-//     `advance`), and frozen cells are copied from the level below.
+//     `advance`), and frozen cells are copied from the level below;
+//   * a batch of B domains is one launch of grid (ctas, B): lane b's CTAs
+//     (x, b) hold its bands and walk its units, laid out as for one domain
+//     on `ctas` CTAs (stencil2d.lane_ctas), and one grid.sync() a pass
+//     serves every lane. The level-0 tensor maps are rank 4 with the lane
+//     outermost, so a box past a lane's last row reads as 0, as it does
+//     alone, and never as the next lane's first rows.
 // Every update sums its terms in the spec's order with the rounding of
 // stencil_common.cuh, so each pass gives the bits of t single steps.
 //
@@ -71,15 +77,16 @@ namespace cg = cooperative_groups;
 // up through the CUDA runtime, so that the library links nothing beyond it
 // (csrc/decode_attn.cu has its own 2D ones).
 
-// One box of the 3D tensor map `map` at (c0, c1, c2), innermost first;
+// One box of the 4D tensor map `map` at (c0, c1, c2, c3), innermost first;
 // cells outside the tensor read as 0.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier"
-                 "::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier"
+                 "::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
                  :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-                    "r"(c1), "r"(c2), "r"(bar)
+                    "r"(c1), "r"(c2), "r"(c3), "r"(bar)
                  : "memory");
 }
 
@@ -267,9 +274,10 @@ struct DeepSplit {
 
 // Warp 0: level-0 rows [lo(0), hi(0)) of the window into their ring, q0
 // rows ahead of use at most. By TMA where the buffers allow (2D: boxes of
-// 128 bytes along the row; 3D: one box of the window; cells outside the
-// domain read as 0), else by loads through L2 and stores, each lane then
-// arriving on the slot's full barrier.
+// 128 bytes along the row; 3D: one box of the window; the lane blockIdx.y
+// the outermost coordinate; cells outside the domain read as 0), else by
+// loads through L2 and stores, each lane then arriving on the slot's full
+// barrier.
 template <typename T>
 __device__ __forceinline__ void deep_load(const DeepGeo& G, const DeepSmem& m,
                           const CUtensorMap* map, int tma, const T* src,
@@ -290,8 +298,8 @@ __device__ __forceinline__ void deep_load(const DeepGeo& G, const DeepSmem& m,
             if (lane == 0) mbar_expect_tx(full, area * sizeof(T));
             __syncwarp();
             for (int b = lane; b * bw < W; b += 32)
-                tma_load_3d(smem_u32(d) + b * 128, map, gx0 + b * bw, gy0, j,
-                            full);
+                tma_load_4d(smem_u32(d) + b * 128, map, gx0 + b * bw, gy0, j,
+                            (int)blockIdx.y, full);
         } else {
             T* row = reinterpret_cast<T*>(d);
             const T* srow = src + (size_t)j * a.P;
@@ -531,6 +539,9 @@ stencil_tb_kernel(const T* x, T* buf0, T* buf1, StencilArgs a, TbArgs g,
     __shared__ const T* rows[PERKS_MAX_BLOCK_ROWS + 2 * STENCIL_MAX_RADIUS];
     load_spec(a, s);
     cg::grid_group grid = cg::this_grid();
+    x = lane_domain(x, a);
+    buf0 = lane_domain(buf0, a);
+    buf1 = lane_domain(buf1, a);
 
     const int P = a.P, R = g.R, t = g.t;
     const int rt = a.r * t, tid = threadIdx.x, b = blockIdx.x;
@@ -644,11 +655,13 @@ extern "C" int stencil_tb_max_ctas(int npts, int dtype, int smem_bytes, int* out
 // 16-byte boundaries, the row strides are multiples of 16 bytes, every box
 // starts on a 16-byte column (TMA faults on one that does not) and the box
 // fits (2D: 128-byte boxes tiling the window's width; 3D: one box of the
-// window, at most 256 x 256). Sets *use to 1 and fills `maps` then; returns
-// a cudaError_t if a map that should encode does not.
+// window, at most 256 x 256). Each map spans the `lanes` stacked domains,
+// the lane outermost (one lane's box is 1 deep there). Sets *use to 1 and
+// fills `maps` then; returns a cudaError_t if a map that should encode does
+// not.
 static int deep_maps(TbMaps* maps, const void* x, const void* buf0,
                      const void* buf1, const StencilArgs& a, const TbArgs& g,
-                     int dtype, int* use) {
+                     int dtype, int lanes, int* use) {
     *use = 0;
     const int eb = dtype == STENCIL_BF16 ? 2 : 4;
     const int W = g.w0, Y = a.ndim == 3 ? g.sy + 2 * a.r * g.t : 1;
@@ -662,16 +675,17 @@ static int deep_maps(TbMaps* maps, const void* x, const void* buf0,
         return 0;
     const EncodeTiledFn enc = encode_tiled();
     if (!enc) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {(cuuint64_t)a.D2, (cuuint64_t)a.D1,
-                                (cuuint64_t)a.H};
-    const cuuint64_t strides[2] = {(cuuint64_t)a.D2 * eb, (cuuint64_t)a.P * eb};
-    const cuuint32_t box[3] = {(cuuint32_t)bw, (cuuint32_t)Y, 1};
-    const cuuint32_t step[3] = {1, 1, 1};
+    const cuuint64_t dims[4] = {(cuuint64_t)a.D2, (cuuint64_t)a.D1,
+                                (cuuint64_t)a.H, (cuuint64_t)lanes};
+    const cuuint64_t strides[3] = {(cuuint64_t)a.D2 * eb, (cuuint64_t)a.P * eb,
+                                   (cuuint64_t)a.H * a.P * eb};
+    const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)Y, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
     for (int i = 0; i < 3; ++i)
         if (enc(&maps->m[i], dtype == STENCIL_BF16
                                  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                3, const_cast<void*>(bufs[i]), dims, strides, box, step,
+                4, const_cast<void*>(bufs[i]), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -680,18 +694,19 @@ static int deep_maps(TbMaps* maps, const void* x, const void* buf0,
     return 0;
 }
 
-// Launches on `stream` for elements of type `dtype` (STENCIL_F32 or
-// STENCIL_BF16); returns the cudaError_t of the launch (0 = success) and
-// sets *tma to whether level 0 is loaded by TMA.
+// Launches `grid` CTAs for each of `lanes` stacked domains on `stream` for
+// elements of type `dtype` (STENCIL_F32 or STENCIL_BF16); returns the
+// cudaError_t of the launch (0 = success) and sets *tma to whether level 0
+// is loaded by TMA.
 extern "C" int stencil_tb_launch(const void* x, void* buf0, void* buf1,
                                  StencilArgs a, TbArgs g, int dtype, int grid,
-                                 int smem_bytes, cudaStream_t stream,
-                                 int* tma) {
+                                 int lanes, int smem_bytes,
+                                 cudaStream_t stream, int* tma) {
     const void* f = tb_kernel(a.npts, dtype);
     TbMaps maps;
     memset(&maps, 0, sizeof maps);
     int use = 0;
-    const int err = deep_maps(&maps, x, buf0, buf1, a, g, dtype, &use);
+    const int err = deep_maps(&maps, x, buf0, buf1, a, g, dtype, lanes, &use);
     if (err) return err;
     *tma = use;
     cudaError_t e = cudaFuncSetAttribute(
@@ -700,8 +715,8 @@ extern "C" int stencil_tb_launch(const void* x, void* buf0, void* buf1,
     void* args[] = {(void*)&x,         (void*)&buf0,      (void*)&buf1,
                     (void*)&a,         (void*)&g,         (void*)&maps.m[0],
                     (void*)&maps.m[1], (void*)&maps.m[2], (void*)&use};
-    e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(PERKS_THREADS), args,
-                                    (size_t)smem_bytes, stream);
+    e = cudaLaunchCooperativeKernel(f, dim3(grid, lanes), dim3(PERKS_THREADS),
+                                    args, (size_t)smem_bytes, stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

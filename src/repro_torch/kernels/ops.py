@@ -33,17 +33,24 @@ from repro_torch.kernels.common import StencilSpec
 #: ``decode_attention`` counts all its launches, and its tensor-core and
 #: CUDA-core kernels' apart; ``stencil_baseline_step``, ``spmv_ell`` and
 #: ``cg_fused`` count their batched launches (B instances a launch) apart
-#: too, as ``<name>_batched``; ``stencil_baseline_step`` also its launches
-#: on rows not on 16-byte boundaries and of specs it has no compiled shape
-#: for
+#: too, as ``<name>_batched``, and so do the persistent stencil kernels, by
+#: source: ``stencil_perks_batched`` (``csrc/stencil_perks.cu``),
+#: ``stencil_shallow_batched``, ``stencil_resident_batched`` and
+#: ``stencil_tb_batched`` (the deep schedule); ``stencil_baseline_step``
+#: also its launches on rows not on 16-byte boundaries and of specs it has
+#: no compiled shape for
 KERNELS = {
     "stencil_perks": (_s2d.stencil_perks, "launches"),
+    "stencil_perks_batched": (_s2d.stencil_perks, "batched_launches"),
     "stencil_perks_window": (_s2d.stencil_perks, "window_launches"),
     "stencil_perks_fused": (_s2d.stencil_perks, "fused_launches"),
+    "stencil_shallow_batched": (_s2d.stencil_perks, "fused_batched_launches"),
     "stencil_perks_fused_async": (_s2d.stencil_perks, "fused_async_launches"),
     "stencil_perks_deep": (_s2d.stencil_perks_deep, "launches"),
+    "stencil_tb_batched": (_s2d.stencil_perks_deep, "batched_launches"),
     "stencil_perks_deep_tma": (_s2d.stencil_perks_deep, "tma_launches"),
     "stencil_resident": (_s2d.stencil_resident, "launches"),
+    "stencil_resident_batched": (_s2d.stencil_resident, "batched_launches"),
     "stencil_resident_async": (_s2d.stencil_resident, "async_launches"),
     "stencil_baseline_step": (_s2d.stencil_baseline_step, "launches"),
     "stencil_baseline_step_batched": (_s2d.stencil_baseline_step,
@@ -69,7 +76,8 @@ KERNELS = {
 
 def stencil_resident(x: torch.Tensor, *, spec: StencilSpec,
                      steps: int) -> torch.Tensor:
-    """Small-domain PERKS stencil (whole domain in shared memory)."""
+    """Small-domain PERKS stencil (whole domain in shared memory); ``x``
+    may be ``[B, ...]``, B domains in one launch, as for the next two."""
     return _s2d.stencil_resident(x, spec, steps=steps)
 
 

@@ -37,7 +37,10 @@ def stencil_step(x: torch.Tensor, spec: StencilSpec,
 
 def stencil_run(x: torch.Tensor, spec: StencilSpec, steps: int) -> torch.Tensor:
     """``steps`` time steps, ping-ponging two buffers it owns; ``x`` is
-    never written."""
+    never written. ``x`` of rank ``spec.ndim + 1`` is ``[B, ...]``, each
+    domain run on its own (so each gets its single run's bits)."""
+    if x.dim() == spec.ndim + 1:
+        return torch.stack([stencil_run(d, spec, steps) for d in x])
     cur = x.clone()
     if steps == 0:
         return cur

@@ -37,9 +37,17 @@ float32 and bfloat16 cells:
     memory fed by ``cp.async``, a thread taking 16 bytes of cells
     (``step_layout``).
 
+The three persistent entry points also take ``[B, ...]``, B domains of the
+spec's rank, in ONE cooperative launch: lane b runs on the CTAs (x, b) of a
+grid (``lane_ctas``, B), with the layout one domain alone takes on that
+many CTAs, so each lane gives its own run's bits; one grid barrier serves
+every lane. A batch the card cannot hold raises ``ValueError``.
+
 Dispatch: a CPU tensor runs the plain torch version (``ref.py``); a CUDA
 tensor launches the hand kernel or raises — there is no fallback. Each
-wrapper counts its launches in its ``launches`` attribute;
+wrapper counts its launches in its ``launches`` attribute, and its batched
+ones apart in ``batched_launches`` (``fused_batched_launches`` for
+``stencil_perks``'s shallow tiles);
 ``stencil_perks`` counts the one-step launches whose window rows came by
 bulk copies in ``window_launches``, its ``fuse_steps>1`` launches apart, in
 ``fused_launches``, and of those the ones whose tiles were copied by
@@ -159,6 +167,16 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # -- layout arithmetic shared by the wrappers and the planner -----------------
+
+def lane_ctas(max_ctas: int, lanes: int) -> int:
+    """CTAs each lane of a batched launch of a persistent stencil kernel
+    runs on: the ``max_ctas`` CTAs the card holds at once at the full
+    per-block shared memory, shared evenly by ``lanes`` domains (0 where
+    the lanes outnumber them). A lane is laid out as one domain alone on
+    this many CTAs (the planner takes the card's SMs for ``max_ctas``: one
+    such CTA an SM)."""
+    return max_ctas // max(1, lanes)
+
 
 def rows_per_cta(row_cells: int, dtype_bytes: int, radius: int,
                  smem_bytes: int, window_bytes: int = 0) -> int:
@@ -959,13 +977,21 @@ def _step_per_sm(spec: StencilSpec, shape: tuple[int, ...], dtype: int,
 
 # -- argument checks -----------------------------------------------------------
 
+def _lanes(x: torch.Tensor, spec: StencilSpec) -> tuple[tuple[int, ...], int]:
+    """(one domain's shape, lanes): ``x`` is one domain of the spec's rank,
+    or ``[B, ...]``, B of them."""
+    if x.dim() == spec.ndim + 1:
+        return tuple(x.shape[1:]), x.shape[0]
+    return tuple(x.shape), 1
+
+
 def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
                       sub_rows: int, fuse_steps: int, deep: bool = False
                       ) -> None:
     """The reference's kernel preconditions, raised as ``ValueError``: the
     deep schedule's block needs one level's halo, the shallow schedule's
     tile the fused r*t halo."""
-    H, r = x.shape[0], spec.radius
+    H, r = _lanes(x, spec)[0][0], spec.radius
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     if fuse_steps < 1:
@@ -984,17 +1010,23 @@ def _check_perks_args(x, spec: StencilSpec, steps: int, cached_rows: int,
             f"(sub_rows >= radius*fuse_steps = {r * min(fuse_steps, steps)})")
 
 
-def _check_cuda(x: torch.Tensor, spec: StencilSpec) -> None:
+def _check_cuda(x: torch.Tensor, spec: StencilSpec,
+                batched: bool = False) -> None:
+    """Raise on what the kernels do not take; ``batched``: ``x`` may also
+    be ``[B, ...]``, B domains (each held to the limits of one)."""
     if x.dtype not in DTYPES:
         raise TypeError(f"the CUDA stencil kernels take float32 or bfloat16, "
                         f"got {x.dtype}")
-    if x.dim() != spec.ndim or spec.ndim not in (2, 3):
-        raise ValueError(f"{spec.name} needs a {spec.ndim}D domain, got "
+    if (x.dim() not in ((spec.ndim, spec.ndim + 1) if batched
+                        else (spec.ndim,)) or spec.ndim not in (2, 3)):
+        raise ValueError(f"{spec.name} needs a {spec.ndim}D domain"
+                         f"{' or a batch of them' if batched else ''}, got "
                          f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("the CUDA stencil kernels take contiguous tensors")
-    if x.numel() >= 2**31:
-        raise ValueError(f"domain of {x.numel()} cells exceeds 32-bit "
+    cells = math.prod(_lanes(x, spec)[0])
+    if cells >= 2**31:
+        raise ValueError(f"domain of {cells} cells exceeds 32-bit "
                          f"indexing")
     if spec.npoints > _build.MAX_POINTS or not 1 <= spec.radius <= _build.MAX_RADIUS:
         raise ValueError(f"{spec.name}: the kernels take at most "
@@ -1036,26 +1068,55 @@ def _limit(lib, prefix: str, spec: StencilSpec, x: torch.Tensor) -> int:
     return optin.value - PERKS_STATIC_SMEM
 
 
-def _grid(lib, prefix: str, spec: StencilSpec, x: torch.Tensor, smem: int,
-          nb: int) -> int:
-    """Co-resident CTAs of kernel ``prefix`` at ``smem`` bytes each; raises
-    ``ValueError`` when the ``nb`` bands do not all fit."""
+@functools.lru_cache(maxsize=256)
+def _co_resident(prefix: str, npoints: int, dtype: int, smem: int,
+                 index: int) -> int:
+    """Co-resident CTAs of kernel ``prefix`` at ``smem`` bytes each on card
+    ``index`` (its ``<prefix>_max_ctas``: registers and shared memory)."""
     grid = ctypes.c_int()
-    _build.check(getattr(lib, f"{prefix}_max_ctas")(
-        spec.npoints, DTYPES[x.dtype], smem, ctypes.byref(grid)),
-        f"{prefix}_max_ctas")
-    if grid.value < max(nb, 1):
-        raise ValueError(f"{nb} bands need {nb} co-resident CTAs, the "
-                         f"card runs {grid.value} with {smem} B each")
+    _build.check(getattr(_build.load(prefix), f"{prefix}_max_ctas")(
+        npoints, dtype, smem, ctypes.byref(grid)), f"{prefix}_max_ctas")
     return grid.value
+
+
+def _lane_ctas(prefix: str, spec: StencilSpec, x: torch.Tensor, limit: int,
+               lanes: int) -> int:
+    """``lane_ctas`` of kernel ``prefix`` on ``x``'s card: its co-resident
+    CTAs at the full ``limit`` bytes each over ``lanes`` domains; raises
+    ``ValueError`` where the lanes outnumber them."""
+    full = _co_resident(prefix, spec.npoints, DTYPES[x.dtype], limit,
+                        x.device.index)
+    ctas = lane_ctas(full, lanes)
+    if ctas < 1:
+        raise ValueError(f"{lanes} lanes of {prefix} need a co-resident CTA "
+                         f"each; the card runs {full} with {limit} B each")
+    return ctas
+
+
+def _grid(prefix: str, spec: StencilSpec, x: torch.Tensor, smem: int,
+          nb: int, lanes: int = 1, ctas: int = 0) -> int:
+    """The CTAs a lane of kernel ``prefix`` launches with at ``smem`` bytes
+    each: for one domain every co-resident CTA, for B = ``lanes`` > 1
+    domains the ``ctas`` a lane was laid out on. Raises ``ValueError`` when
+    the ``nb`` bands of one domain, or the lanes' ``lanes * ctas`` CTAs, are
+    not all co-resident."""
+    grid = _co_resident(prefix, spec.npoints, DTYPES[x.dtype], smem,
+                        x.device.index)
+    need = max(nb, 1) if lanes == 1 else lanes * ctas
+    if grid < need:
+        what = f"{nb} bands" if lanes == 1 else f"{lanes} lanes of {ctas}"
+        raise ValueError(f"{what} need {need} co-resident CTAs, the card "
+                         f"runs {grid} with {smem} B each")
+    return grid if lanes == 1 else ctas
 
 
 # -- the persistent kernels ---------------------------------------------------
 
 def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
                   cached_rows: int) -> tuple[torch.Tensor, bool]:
-    """Launch ``csrc/stencil_perks.cu`` on a checked CUDA tensor: the
-    result, and whether its window rows were bulk copies."""
+    """Launch ``csrc/stencil_perks.cu`` on a checked CUDA tensor (one
+    domain or a batch): the result, and whether its window rows were bulk
+    copies."""
     lib = _build.load("stencil_perks")
     built = [ctypes.c_int() for _ in range(4)]
     lib.stencil_perks_shape(*(ctypes.byref(v) for v in built))
@@ -1065,23 +1126,24 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
                            "on ONE_THREADS / ONE_CELLS / PERKS_STREAM_ROWS / "
                            "ONE_TILE_CELLS")
     r = spec.radius
-    shape = tuple(x.shape)
+    shape, lanes = _lanes(x, spec)
     eb = x.element_size()
     with _build.on_device(x):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         limit = _limit(lib, "stencil_perks", spec, x)
-        lay = perks_layout(shape, r, eb, sms, limit, cached_rows)
+        ctas = _lane_ctas("stencil_perks", spec, x, limit, lanes)
+        lay = perks_layout(shape, r, eb, ctas, limit, cached_rows)
         if lay is None:
-            cap = perks_cached_rows(shape, r, eb, sms, limit)
+            cap = perks_cached_rows(shape, r, eb, ctas, limit)
             raise ValueError(
                 f"cannot cache {cached_rows} planes of {shape[1:]} {x.dtype} "
                 f"cells: the boxes, their {r}-plane shift and the streamed "
                 f"rows' window do not fit one CTA's {limit} B of shared "
                 f"memory, so the kernel holds at most {cap} planes of this "
-                f"shape over {sms} SMs with rows streamed (a box's plane "
-                f"slab is at most {PERKS_MAX_ROW_CELLS} cells)")
-        grid = min(sms, _grid(lib, "stencil_perks", spec, x, lay.smem,
-                              lay.boxes))
+                f"shape over {ctas} CTAs{_a_lane(lanes)} with rows streamed "
+                f"(a box's plane slab is at most {PERKS_MAX_ROW_CELLS} cells)")
+        grid = min(sms, _grid("stencil_perks", spec, x, lay.smem, lay.boxes,
+                              lanes, ctas))
         g = _build.PerksArgs(steps, cached_rows, lay.nbz, lay.nby,
                              lay.box_bytes, lay.strip[0], lay.strip[1],
                              lay.window[0], lay.window[1], lay.wy, lay.nseg,
@@ -1091,16 +1153,22 @@ def _launch_perks(x: torch.Tensor, spec: StencilSpec, steps: int,
         fed = ctypes.c_int()
         err = lib.stencil_perks_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
-            _build.stream(), ctypes.byref(fed))
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lanes,
+            lay.smem, _build.stream(), ctypes.byref(fed))
     _build.check(err, "stencil_perks_launch")
     return (buf0 if (steps - 1) % 2 == 0 else buf1), bool(fed.value)
 
 
+def _a_lane(lanes: int) -> str:
+    """How an error message names a lane's CTAs."""
+    return f" (a lane of {lanes})" if lanes > 1 else ""
+
+
 def _launch_resident(x: torch.Tensor, spec: StencilSpec,
                      steps: int) -> tuple[torch.Tensor, bool]:
-    """Launch ``csrc/stencil_resident.cu`` on a checked CUDA tensor: the
-    result, and whether the halo rows were copied by ``cp.async``."""
+    """Launch ``csrc/stencil_resident.cu`` on a checked CUDA tensor (one
+    domain or a batch): the result, and whether the halo rows were copied
+    by ``cp.async``."""
     lib = _build.load("stencil_resident")
     threads, cells = ctypes.c_int(), ctypes.c_int()
     lib.stencil_resident_shape(ctypes.byref(threads), ctypes.byref(cells))
@@ -1108,39 +1176,42 @@ def _launch_resident(x: torch.Tensor, spec: StencilSpec,
         raise RuntimeError("csrc/stencil_resident.cu and stencil2d.py "
                            "disagree on RES_THREADS / RES_CELLS")
     r = spec.radius
-    shape = tuple(x.shape)
+    shape, lanes = _lanes(x, spec)
     row_cells = math.prod(shape[1:])
     with _build.on_device(x):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         limit = _limit(lib, "stencil_resident", spec, x)
-        lay = resident_layout(shape, r, x.element_size(), sms, limit)
+        ctas = _lane_ctas("stencil_resident", spec, x, limit, lanes)
+        lay = resident_layout(shape, r, x.element_size(), ctas, limit)
         if lay is None:
-            cap = sms * rows_per_cta(row_cells, x.element_size(), r, limit)
+            cap = ctas * rows_per_cta(row_cells, x.element_size(), r, limit)
             raise ValueError(
                 f"cannot keep {shape[0]} rows of {row_cells} {x.dtype} "
                 f"cells on chip: a band plus r = {r} rows must fit one "
                 f"CTA's {limit} B of shared memory, so the kernel holds at "
-                f"most {cap} rows of this width over {sms} SMs (rows wider "
-                f"than {PERKS_MAX_ROW_CELLS} cells are not cached)")
-        grid = _grid(lib, "stencil_resident", spec, x, lay.smem, lay.nb)
+                f"most {cap} rows of this width over {ctas} CTAs"
+                f"{_a_lane(lanes)} (rows wider than {PERKS_MAX_ROW_CELLS} "
+                f"cells are not cached)")
+        grid = _grid("stencil_resident", spec, x, lay.smem, lay.nb, lanes,
+                     ctas)
         g = _build.ResArgs(steps, lay.nb, lay.kb, 0, 0, int(lay.halo))
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
         copied = ctypes.c_int()
         err = lib.stencil_resident_launch(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
-            _build.stream(), ctypes.byref(copied))
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lanes,
+            lay.smem, _build.stream(), ctypes.byref(copied))
     _build.check(err, "stencil_resident_launch")
     return (buf0 if (steps - 1) % 2 == 0 else buf1), bool(copied.value)
 
 
 def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
                cached_rows: int, deep: bool) -> tuple[torch.Tensor, bool]:
-    """Launch a temporal-blocking kernel on a checked CUDA tensor, t steps
-    a pass: deep level pipelines (``csrc/stencil_tb.cu``) or shallow tiles
-    (``csrc/stencil_shallow.cu``). Returns the result, and whether level 0
-    came by the asynchronous route (deep: TMA; shallow: ``cp.async``)."""
+    """Launch a temporal-blocking kernel on a checked CUDA tensor (one
+    domain or a batch), t steps a pass: deep level pipelines
+    (``csrc/stencil_tb.cu``) or shallow tiles (``csrc/stencil_shallow.cu``).
+    Returns the result, and whether level 0 came by the asynchronous route
+    (deep: TMA; shallow: ``cp.async``)."""
     name = "stencil_tb" if deep else "stencil_shallow"
     lib = _build.load(name)
     if deep:
@@ -1157,15 +1228,15 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
         raise RuntimeError("csrc/stencil_common.cuh and stencil2d.py "
                            "disagree on the widest cached row")
     r = spec.radius
-    shape = tuple(x.shape)
+    shape, lanes = _lanes(x, spec)
     eb = x.element_size()
     with _build.on_device(x):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         limit = _limit(lib, name, spec, x)
-        lay = tb_layout(shape, r, t, eb, deep=deep, ctas=sms, limit=limit,
+        ctas = _lane_ctas(name, spec, x, limit, lanes)
+        lay = tb_layout(shape, r, t, eb, deep=deep, ctas=ctas, limit=limit,
                         cached_rows=cached_rows)
         if lay is None:
-            nb, maxband = band_layout(cached_rows, r, sms)
+            nb, maxband = band_layout(cached_rows, r, ctas)
             band = (maxband + 2 * r * t + r) * math.prod(shape[1:]) * eb \
                 if nb else 0
             least = tb_least_scratch(shape, r, t, eb, deep)
@@ -1173,11 +1244,12 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
                 f"{'stencil_perks_deep' if deep else 'stencil_perks'} "
                 f"cannot run {spec.name} on {shape} {x.dtype} at "
                 f"{t} steps a pass (r*t = {r * t}-cell halos) with "
-                f"{cached_rows} cached rows: the bands need {band} B of "
-                f"shared memory per CTA and the smallest streaming layout "
-                f"{least} B more, and a CTA has {limit} B (cached rows are "
-                f"at most {PERKS_MAX_ROW_CELLS} cells wide)")
-        grid = _grid(lib, name, spec, x, lay.smem, lay.nb)
+                f"{cached_rows} cached rows over {ctas} CTAs{_a_lane(lanes)}: "
+                f"the bands need {band} B of shared memory per CTA and the "
+                f"smallest streaming layout {least} B more, and a CTA has "
+                f"{limit} B (cached rows are at most {PERKS_MAX_ROW_CELLS} "
+                f"cells wide)")
+        grid = _grid(name, spec, x, lay.smem, lay.nb, lanes, ctas)
         if deep:
             g = _build.TbArgs(steps, t, cached_rows, lay.nb, lay.strip[0],
                               lay.strip[1], lay.rows, lay.band_bytes,
@@ -1194,8 +1266,8 @@ def _launch_tb(x: torch.Tensor, spec: StencilSpec, steps: int, t: int,
         fed = ctypes.c_int()
         err = getattr(lib, f"{name}_launch")(
             x.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lay.smem,
-            _build.stream(), ctypes.byref(fed))
+            stencil_args(spec, shape), g, DTYPES[x.dtype], grid, lanes,
+            lay.smem, _build.stream(), ctypes.byref(fed))
     _build.check(err, f"{name}_launch")
     passes = -(-steps // t)
     return (buf0 if (passes - 1) % 2 == 0 else buf1), bool(fed.value)
@@ -1212,7 +1284,8 @@ def stencil_perks(
 ) -> torch.Tensor:
     """Run ``steps`` time steps of ``spec`` with rows [0, cached_rows) kept
     on chip for the kernel's whole lifetime (the PERKS scheme); ``x`` is
-    not written.
+    not written. ``x`` is one domain, or ``[B, ...]``: B domains in one
+    launch, each lane bit-equal to its own run.
 
     ``fuse_steps=t`` is temporal blocking: the streamed rows go through
     device memory once every t steps (the last pass takes ``steps % t``),
@@ -1228,43 +1301,54 @@ def stencil_perks(
     _check_perks_args(x, spec, steps, cached_rows, sub_rows, fuse_steps)
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
-    _check_cuda(x, spec)
+    _check_cuda(x, spec, batched=True)
     if steps == 0:
         return x.clone()
+    shape, lanes = _lanes(x, spec)
+    batched = x.dim() > spec.ndim
     t = min(fuse_steps, steps)
     if t > 1:
         out, copied = _launch_tb(x, spec, steps, t, cached_rows, deep=False)
         stencil_perks.fused_launches += 1
+        stencil_perks.fused_batched_launches += batched
         stencil_perks.fused_async_launches += copied
         return out
-    if cached_rows == x.shape[0] and _resident_holds(x, spec):
+    if cached_rows == shape[0] and _resident_holds(x, spec, lanes):
         out, copied = _launch_resident(x, spec, steps)
         stencil_resident.launches += 1
+        stencil_resident.batched_launches += batched
         stencil_resident.async_launches += copied
         return out
     out, fed = _launch_perks(x, spec, steps, cached_rows)
     stencil_perks.launches += 1
+    stencil_perks.batched_launches += batched
     stencil_perks.window_launches += fed
     return out
 
 
-def _resident_holds(x: torch.Tensor, spec: StencilSpec) -> bool:
-    """Whether ``csrc/stencil_resident.cu`` holds the whole domain on the
-    card (else the one-step kernel's boxes take every plane)."""
+def _resident_holds(x: torch.Tensor, spec: StencilSpec, lanes: int) -> bool:
+    """Whether ``csrc/stencil_resident.cu`` holds the whole domain (each of
+    ``lanes`` domains on its lane's CTAs) on the card; else the one-step
+    kernel's boxes take every plane."""
+    lib = _build.load("stencil_resident")
     with _build.on_device(x):
-        props = torch.cuda.get_device_properties(x.device)
-        limit = props.shared_memory_per_block_optin - PERKS_STATIC_SMEM
-        return resident_layout(tuple(x.shape), spec.radius,
-                               x.element_size(),
-                               props.multi_processor_count,
-                               limit) is not None
+        limit = _limit(lib, "stencil_resident", spec, x)
+        full = _co_resident("stencil_resident", spec.npoints,
+                            DTYPES[x.dtype], limit, x.device.index)
+        ctas = lane_ctas(full, lanes)
+        return ctas > 0 and resident_layout(
+            _lanes(x, spec)[0], spec.radius, x.element_size(), ctas,
+            limit) is not None
 
 
 stencil_perks.launches = 0
+#: the launches of a batch ([B, ...]) of domains, one-step and fused
+stencil_perks.batched_launches = 0
 #: the one-step launches whose window rows were bulk copies (the
 #: others load them through L2)
 stencil_perks.window_launches = 0
 stencil_perks.fused_launches = 0
+stencil_perks.fused_batched_launches = 0
 #: the fused launches whose tile windows were copied by cp.async (the
 #: others load through L2)
 stencil_perks.fused_async_launches = 0
@@ -1288,26 +1372,30 @@ def stencil_perks_deep(
     The reference's preconditions raise ``ValueError``: ``sub_rows`` (its
     wavefront block, which the CUDA kernel does not use) must be at least
     the radius. A layout the CTA's shared memory cannot hold raises
-    ``ValueError`` naming the limit.
+    ``ValueError`` naming the limit. ``x`` may be ``[B, ...]``, as in
+    ``stencil_perks``.
     """
     _check_perks_args(x, spec, steps, cached_rows, sub_rows, fuse_steps,
                       deep=True)
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
-    _check_cuda(x, spec)
-    if x.shape[0] >= DEEP_MAX_ROWS:
+    _check_cuda(x, spec, batched=True)
+    H = _lanes(x, spec)[0][0]
+    if H >= DEEP_MAX_ROWS:
         raise ValueError(f"the deep schedule takes fewer than "
-                         f"{DEEP_MAX_ROWS} rows, got {x.shape[0]}")
+                         f"{DEEP_MAX_ROWS} rows, got {H}")
     if steps == 0:
         return x.clone()
     t = max(1, min(fuse_steps, steps))
     out, tma = _launch_tb(x, spec, steps, t, cached_rows, deep=True)
     stencil_perks_deep.launches += 1
+    stencil_perks_deep.batched_launches += x.dim() > spec.ndim
     stencil_perks_deep.tma_launches += tma
     return out
 
 
 stencil_perks_deep.launches = 0
+stencil_perks_deep.batched_launches = 0
 #: the launches that loaded level 0 by TMA (the others load through L2)
 stencil_perks_deep.tma_launches = 0
 
@@ -1322,21 +1410,24 @@ def stencil_resident(
     shared memory for all steps — device memory sees one load and one
     store, apart from the bands' r-row borders each step
     (``csrc/stencil_resident.cu``). Raises ``ValueError`` if it does not
-    fit (``resident_layout``); never streams."""
+    fit (``resident_layout``); never streams. ``x`` may be ``[B, ...]``,
+    each lane on its share of the CTAs (``lane_ctas``)."""
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     if _build.is_cpu(x, "stencil"):
         return ref.stencil_run(x, spec, steps)
-    _check_cuda(x, spec)
+    _check_cuda(x, spec, batched=True)
     if steps == 0:
         return x.clone()
     out, copied = _launch_resident(x, spec, steps)
     stencil_resident.launches += 1
+    stencil_resident.batched_launches += x.dim() > spec.ndim
     stencil_resident.async_launches += copied
     return out
 
 
 stencil_resident.launches = 0
+stencil_resident.batched_launches = 0
 #: the launches whose halo rows were copied by cp.async (halo rows in
 #: shared memory and 16-byte aligned rows; the others load them through L2
 #: or read them from device memory)

@@ -6,7 +6,10 @@ them with z-planes as rows (the temporal-blocking kernels and the one-step
 kernel's streamed rows tile each plane into rectangles; the one-step
 kernel cuts cached planes wider than a CTA's registers hold into boxes of
 plane rows). The one 3D-specific piece is how many leading planes can stay
-on chip, re-derived here for Hopper.
+on chip, re-derived here for Hopper. The persistent entry points take a
+batch of domains ``[B, ...]`` as they do in 2D (``stencil2d.lane_ctas``);
+``plan_resident_planes`` with ``chip=exec.batch.per_instance_chip(chip,
+B)`` gives the planes one lane holds.
 """
 from __future__ import annotations
 

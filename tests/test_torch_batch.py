@@ -4,7 +4,8 @@ per-instance runs and the JAX reference's.
 The contract is the reference's: a B-wide batched dispatch computes what B
 single-instance dispatches compute, bit for bit, on every tier it runs.
 Within the port the batched host_loop and device_loop (and CG's batched
-resident ``cg_fused``) are bit-equal to the port's ``execute_sequential``;
+resident ``cg_fused``) are bit-equal to the port's ``execute_sequential``
+(the batched resident stencil tier: ``test_torch_stencil_lanes.py``);
 against the reference's ``execute_sequential`` they agree at the
 reference's bounds (stencils atol 5e-6, rtol 0; CG rtol 1e-3, atol 1e-5).
 The reference's own batched stencil runs are not the ground truth here:
@@ -116,19 +117,6 @@ def test_batched_stencil_matches_sequential(name):
         for got, w in zip(bp.split(out), want):
             np.testing.assert_allclose(got.numpy(), np.asarray(w),
                                        rtol=0, atol=ATOL)
-
-
-def test_batched_stencil_resident_plans_raise_and_are_not_offered():
-    _, insts = _stencils("2d5pt")
-    bp = BatchedProblem.from_instances(insts)
-    assert not bp.supports("resident")
-    assert {c.tier for c in plan_candidates(bp)} == {"host_loop",
-                                                     "device_loop"}
-    assert all(c.batch == B for c in plan_candidates(bp))
-    assert {c.tier for c in plan_candidates(insts[0], batch=4)} == {
-        "host_loop", "device_loop"}
-    with pytest.raises(NotImplementedError, match="stencil_resident.cu"):
-        execute(bp, Plan(tier="resident", batch=B, cached_rows=24))
 
 
 def test_batched_oracle_split_and_single_plan_refusal():

@@ -10,6 +10,7 @@ runs on a machine without them:
 Every test needs a CUDA device and skips, with its reason, where torch
 finds none.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -512,6 +513,144 @@ def test_cuda_device_loop_keeps_its_graph(cuda):
     assert first.data_ptr() != second.data_ptr()
     perks.clear_graphs()
     assert not perks.graph_cached(p.step_fn(), p.x, STEPS)
+
+
+# -- the batched resident stencil kernels ------------------------------------------
+# B domains in one cooperative launch, lane b on the CTAs (x, b) of a grid
+# (stencil2d.lane_ctas, B): each lane bit-equal to its own launch on the
+# whole card and to the plain version. Aligned shapes take the deep
+# kernel's TMA maps and the bulk and cp.async copies, ragged ones the
+# loads through L2.
+
+LANE_SHAPES = {2: [(96, 264), (77, 130)], 3: [(40, 36, 44), (23, 19, 30)]}
+LANE_STEPS = 7
+
+
+def _lane_kernels(spec):
+    """(launch counter of the batched launch, the launch) of the four
+    kernels: the one-step kernel and the shallow tiles at 4r + 1 cached
+    rows, the deep pipelines likewise, the whole domain."""
+    rows = 4 * spec.radius + 1
+    n = LANE_STEPS
+    return [
+        ("stencil_perks_batched", lambda x: ops.stencil_perks(
+            x, spec=spec, steps=n, cached_rows=rows)),
+        ("stencil_shallow_batched", lambda x: ops.stencil_perks(
+            x, spec=spec, steps=n, cached_rows=rows, sub_rows=64,
+            fuse_steps=3)),
+        ("stencil_tb_batched", lambda x: ops.stencil_perks_deep(
+            x, spec=spec, steps=n, cached_rows=rows, fuse_steps=4)),
+        ("stencil_resident_batched", lambda x: ops.stencil_resident(
+            x, spec=spec, steps=n)),
+    ]
+
+
+def _lanes(b, shape, dtype, cuda, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b,) + shape).astype(np.float32)).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_batched_resident_kernels_lane_by_lane(name, dtype, cuda):
+    spec = get_spec(name)
+    for shape in LANE_SHAPES[spec.ndim]:
+        for b in (3, 8):
+            xs = _lanes(b, shape, dtype, cuda, seed=31 + b)
+            want = ref.stencil_run(xs, spec, LANE_STEPS)
+            for counter, run in _lane_kernels(spec):
+                before = ops.launch_counts()[counter]
+                got = run(xs)
+                assert ops.launch_counts()[counter] == before + 1, counter
+                assert torch.equal(got, want), (name, shape, b, counter)
+                for i in range(b):
+                    assert torch.equal(got[i], run(xs[i])), (counter, i)
+                assert ops.launch_counts()[counter] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["2d5pt", "2ds25pt", "3d7pt", "3d13pt"])
+def test_cuda_batched_lanes_that_differ_only_at_their_boundaries(name, dtype,
+                                                                  cuda):
+    """Every lane holds the same domain but its first and last rows, so a
+    lane that read its neighbour's rows (a wrong lane offset, or a TMA map
+    whose rows run on into the next lane) differs from its own launch."""
+    spec = get_spec(name)
+    shape = LANE_SHAPES[spec.ndim][0]
+    b, k = 4, min(8 * spec.radius, shape[0] // 3)
+    xs = _lanes(1, shape, dtype, cuda, seed=41).repeat((b,) + (1,) * len(shape))
+    edge = _lanes(b, (2 * k,) + shape[1:], dtype, cuda, seed=42)
+    xs[:, :k], xs[:, -k:] = edge[:, :k], edge[:, k:]
+    want = ref.stencil_run(xs, spec, LANE_STEPS)
+    tma = ops.launch_counts()["stencil_perks_deep_tma"]
+    for counter, run in _lane_kernels(spec):
+        got = run(xs)
+        assert torch.equal(got, want), counter
+        for i in range(b):
+            assert torch.equal(got[i], run(xs[i])), (counter, i)
+        assert not torch.equal(got[0], got[1])
+    # the deep kernel took its rank-4 TMA maps, lanes and single launches
+    if shape[-1] * xs.element_size() % 16 == 0:
+        assert ops.launch_counts()["stencil_perks_deep_tma"] == tma + 1 + b
+
+
+def test_cuda_one_lane_is_the_single_launch(cuda):
+    """B = 1 ([1, ...]) launches the single launch's layout and gives its
+    bits; it counts as a batched launch, a single launch does not."""
+    for name in ("2d5pt", "3d7pt"):
+        spec = get_spec(name)
+        x = _lanes(1, LANE_SHAPES[spec.ndim][0], torch.float32, cuda, 51)[0]
+        for counter, run in _lane_kernels(spec):
+            before = ops.launch_counts()[counter]
+            one = run(x)
+            assert ops.launch_counts()[counter] == before
+            assert torch.equal(run(x[None])[0], one), counter
+            assert ops.launch_counts()[counter] == before + 1
+
+
+def test_cuda_batches_the_card_cannot_hold_raise(cuda):
+    spec = get_spec("2d5pt")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    many = torch.zeros((sms + 1, 16, 16), device=cuda)
+    for _, run in _lane_kernels(spec):
+        with pytest.raises(ValueError, match="co-resident CTA"):
+            run(many)
+    # the whole card holds the domain, two lanes' halves of it do not
+    limit = (torch.cuda.get_device_properties(cuda)
+             .shared_memory_per_block_optin - stencil2d.PERKS_STATIC_SMEM)
+    per = stencil2d.rows_per_cta(8192, 4, 1, limit)
+    H = (sms // 2) * per + 4
+    x = _lanes(2, (H, 8192), torch.float32, cuda, 61)
+    assert torch.equal(ops.stencil_resident(x[0], spec=spec, steps=3),
+                       ref.stencil_run(x[0], spec, 3))
+    with pytest.raises(ValueError, match="cannot keep"):
+        ops.stencil_resident(x, spec=spec, steps=3)
+
+
+@pytest.mark.parametrize("name,shape,b", [("2d5pt", (256, 520), 4),
+                                          ("3d7pt", (48, 40, 44), 3)])
+def test_cuda_batched_resident_plans_match_sequential(name, shape, b, cuda):
+    """Every resident candidate the planner offers a batch runs in one
+    launch, each lane bit-equal to ``execute_sequential`` of its plan."""
+    from repro_torch.exec import BatchedProblem, execute_sequential
+    spec = get_spec(name)
+    xs = _lanes(b, shape, torch.float32, cuda, 71)
+    insts = [StencilProblem(xs[i], spec, 9) for i in range(b)]
+    bp = BatchedProblem.from_instances(insts)
+    cands = [c for c in plan_candidates(bp) if c.tier == "resident"]
+    assert cands
+    before = ops.launch_counts()
+    for c in cands:
+        out = execute(bp, c)
+        seq = execute_sequential(insts, dataclasses.replace(
+            c, batch=1, problem=""))
+        for i, w in enumerate(seq):
+            assert torch.equal(out[i], w), (c, i)
+    after = ops.launch_counts()
+    batched = sum(after[k] - before[k] for k in (
+        "stencil_perks_batched", "stencil_shallow_batched",
+        "stencil_tb_batched", "stencil_resident_batched"))
+    assert batched == len(cands)
 
 
 # -- the CG slice ----------------------------------------------------------------
