@@ -106,6 +106,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    identical everywhere, ``decode_attention`` 24 launches a token on the
    host loop, every one on the tensor cores, times per tier; and the smoke
    config in float32 on the card against the CPU;
+13b. [serve ssm] the SSM and hybrid families served, counted: the
+   ``Engine`` on mamba2-780m and zamba2-1.2b at full width (seeded random
+   weights on the card), 8 requests, prompt 512, 32 new tokens, bf16, two
+   persistent batches (capture, replay) and a host-loop one, then
+   ``DecodeAttentionProblem`` on every tier: tokens identical everywhere,
+   ``ssm_scan`` launches equal to the layers a prefill (all with the final
+   state), zamba2's ``decode_attention`` 6 a token on the tensor cores,
+   the replayed batch's torch operators against a prefill's; zamba2's
+   six ``decode_attention`` calls of the first and the last decode step,
+   recorded, against their plain version in bf16 and float32;
+   ``ssd_scan(return_state=True)`` against the per-step recurrence on
+   layer 0's recorded prefill inputs (y and h within 1e-3, y bit for bit
+   the stateless launch's), timed; prefill and decode times beside the
+   byte model of a token;
 14. [batch kernels] the batched launches, B instances in one launch: the
    batched ``stencil_step`` on every Table-III spec in f32 and bf16 at
    B = 3, ``spmv_ell`` at B = 1, 2, 4, 8 on poisson2d(1024), ``vdot`` on
@@ -166,7 +180,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    then, counted, ``StencilProblem`` -> ``execute`` on the host and device
    loop tiers (4 steps), bit for bit against the plain run, every launch
    on a compiled shape and on 16-byte rows;
-20. one ``{"kernels": [...]}`` line with all twelve kernels, the seven
+20. one ``{"kernels": [...]}`` line with all twelve kernels, the SSD
+   scan's final-state launch (``ssm_scan_state``), the seven
    batched launches (the step kernel, ``spmv_ell``, ``cg_fused`` and the
    four resident stencil kernels), ``vdot`` and the step kernel per spec
    and type, the card's name and power limit, and ``{"ok": true,
@@ -176,6 +191,7 @@ Without a CUDA device it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -340,6 +356,14 @@ TC_SEQS = (1, 63, 64, 65, 160, 1000)
 DECODE_BY_CONFIG = (8, 4096)           # B, S: both kernels at each config
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+# [serve ssm]: the SSM and hybrid families at full width, prompt 512 (four
+# chunks of 128)
+SSM_SERVE_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 8, 512, 32
+SSM_STATE_KERNEL = {
+    "ssm_scan_state": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                       "src/repro/kernels/ssm_scan.py:72"),
+}
 
 FAILS: list[str] = []
 
@@ -372,6 +396,13 @@ def check_decode_bf16(what: str, got: torch.Tensor,
     return check_close(f"{what} (atol {tol['atol']} x rms, rms >= "
                        f"{rms.min().item()!r})", got, want, tol["rtol"],
                        tol["atol"] * rms, quiet)
+
+
+def digest(t: torch.Tensor) -> str:
+    """A short hash of a tensor's bits (to compare runs of two trees)."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()[:16]
 
 
 def bit_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -1508,8 +1539,15 @@ def ml_phases(rng):
                         1e-3, 1e-3)
         if p.tier == "resident":
             keep("ssm_scan", e)
+            y_resident = y
     launches["ssm_scan"] = ops.launch_counts()["ssm_scan"]
     print(f"[ssm path] launches {json.dumps(ops.launch_counts())}")
+    # the launch that also returns the final state gives the path's y bit
+    # for bit (after the count is read)
+    y_state, _ = ops.ssd_scan(x, dt, a, b, c, d, chunk=128, return_state=True)
+    bit_equal("[ssm path] resident y against ssd_scan(return_state=True)'s",
+              y_resident, y_state[0])
+    print(f"  resident y digest {digest(y_resident)}")
     if launches["ssm_scan"] == 0:
         FAILS.append("ssm_scan was not launched on the SSD scan path")
     if best.tier != "resident":
@@ -1611,52 +1649,9 @@ def ml_phases(rng):
             "decode_attention"]:
         FAILS.append("the serving path ran decode_attention off the tensor "
                      "cores")
-    # the kernel against its plain version at the shapes and on the values
-    # the serving path gives it: every layer's q, cache and length of the
-    # first and the last decode step, recorded from decode_step on a copy
-    # of the prefilled cache (these launches come after the count is read)
-    print(f"[serve] decode_attention against its plain version on the "
-          f"served inputs: B={SERVE_REQUESTS}, S={cache['k'].shape[2]}, "
-          f"Hq/Hkv={cfg.n_heads}/{cfg.n_kv_heads}, D={cfg.head_dim}, "
-          f"{str(cache['k'].dtype)[6:]}, length=pos+1; bf16 and float32")
-    import repro_torch.models.transformer as tfm
-    real, calls = tfm.decode_attention, []
-
-    def record(q, k, v, *, length=None):
-        calls.append((q.clone(), k.clone(), v.clone(), length.clone()))
-        return real(q, k, v, length=length)
-
-    rec_cache = {n: t.clone() for n, t in prob.cache.items()}
-    tok, rec_toks = first, [first]
-    for i in range(SERVE_NEW - 1):
-        tfm.decode_attention = record if i in (0, SERVE_NEW - 2) else real
-        try:
-            lg, rec_cache = model.decode_step(cparams, rec_cache, tok)
-        finally:
-            tfm.decode_attention = real
-        tok = torch.argmax(lg, dim=-1).to(torch.int32)
-        rec_toks.append(tok)
-    if not np.array_equal(torch.stack(rec_toks, 1).cpu().numpy(), toks):
-        FAILS.append("the recorded decode_step tokens differ from the "
-                     "Engine's")
-    for step, part in (("first", calls[:cfg.n_layers]),
-                       ("last", calls[cfg.n_layers:])):
-        q, k, v, ln = (torch.stack(t) for t in zip(*part))
-        want = torch.stack([ref.decode_attention(
-            qi.float(), ki.float(), vi.float(), length=li)
-            for qi, ki, vi, li in part])
-        got = torch.stack([ops.decode_attention(qi, ki, vi, length=li)
-                           for qi, ki, vi, li in part])
-        got32 = torch.stack([ops.decode_attention(
-            qi.float(), ki.float(), vi.float(), length=li)
-            for qi, ki, vi, li in part])
-        what = (f"decode_attention served, {cfg.n_layers} layers of the "
-                f"{step} step, length={int(ln[0, 0])}")
-        keep("decode_attention", check_decode_bf16(
-            f"{what} {str(q.dtype)[6:]}", got.float(), want))
-        keep("decode_attention", check_close(
-            f"{what} f32", got32, want, **DECODE_TOL[torch.float32]))
-    del calls, rec_cache
+    keep("decode_attention", check_served_decode(
+        "[serve]", model, cparams, prob.cache, first, toks, SERVE_NEW,
+        cfg.n_layers))
     for name, p in tiers.items():
         ms = cuda_ms(lambda: execute(prob, p), 3)
         print("  " + json.dumps(dict(
@@ -1704,6 +1699,302 @@ def ml_phases(rng):
         check_close(f"smoke f32 decode step {i} logits, card vs CPU",
                     lg_c.cpu(), lg_h, 1e-4, 1e-4)
         tok = torch.argmax(lg_h, -1).to(torch.int32)
+    return errs, timing, launches
+
+
+def check_served_decode(label: str, model, cparams, cache, first, toks,
+                        n_new: int, n_calls: int) -> float:
+    """``decode_attention`` against its plain version at the shapes and on
+    the values a served model gives it: the ``n_calls`` attention calls of
+    the first and of the last decode step (q, the ring and length), recorded
+    from ``decode_step`` on a copy of the prefilled ``cache`` (these
+    launches come after the path's count is read), in bf16 and in float32.
+    The recorded run's tokens must be the Engine's ``toks``. Returns the
+    largest error."""
+    import repro_torch.models.transformer as tfm
+    from repro_torch.kernels import ops, ref
+    real, calls = tfm.decode_attention, []
+
+    def record(q, k, v, *, length=None):
+        calls.append((q.clone(), k.clone(), v.clone(), length.clone()))
+        return real(q, k, v, length=length)
+
+    rec_cache = {n: t.clone() for n, t in cache.items()}
+    tok, rec_toks = first, [first]
+    for i in range(n_new - 1):
+        tfm.decode_attention = record if i in (0, n_new - 2) else real
+        try:
+            lg, rec_cache = model.decode_step(cparams, rec_cache, tok)
+        finally:
+            tfm.decode_attention = real
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        rec_toks.append(tok)
+    if not np.array_equal(torch.stack(rec_toks, 1).cpu().numpy(), toks):
+        FAILS.append(f"{label} the recorded decode_step tokens differ from "
+                     f"the Engine's")
+    if len(calls) != 2 * n_calls:
+        FAILS.append(f"{label} a decode step called decode_attention "
+                     f"{len(calls) // 2} times, not {n_calls}")
+        return float("inf")
+    q0, k0 = calls[0][:2]
+    print(f"{label} decode_attention against its plain version on the "
+          f"served inputs: B={q0.shape[0]}, S={k0.shape[1]}, "
+          f"Hq/Hkv={q0.shape[1]}/{k0.shape[2]}, D={q0.shape[2]}, "
+          f"{str(k0.dtype)[6:]}, length=pos+1, {n_calls} calls a step; "
+          f"bf16 and float32")
+    err = 0.0
+    for step, part in (("first", calls[:n_calls]), ("last", calls[n_calls:])):
+        want = torch.stack([ref.decode_attention(
+            qi.float(), ki.float(), vi.float(), length=li)
+            for qi, ki, vi, li in part])
+        got = torch.stack([ops.decode_attention(qi, ki, vi, length=li)
+                           for qi, ki, vi, li in part])
+        got32 = torch.stack([ops.decode_attention(
+            qi.float(), ki.float(), vi.float(), length=li)
+            for qi, ki, vi, li in part])
+        what = (f"decode_attention served, {n_calls} calls of the {step} "
+                f"step, length={int(part[0][3][0])}")
+        err = max(err, check_decode_bf16(f"{what} {str(q0.dtype)[6:]}",
+                                         got.float(), want),
+                  check_close(f"{what} f32", got32, want,
+                              **DECODE_TOL[torch.float32]))
+    return err
+
+
+def ssm_serve_phase(rng):
+    """[serve ssm]: the ``Engine`` on mamba2-780m and zamba2-1.2b at full
+    width, counted, with ``ssd_scan(return_state=True)`` (the prefill's
+    scan, which hands the final state to the decode) held to its plain
+    version on one layer's recorded prefill inputs, and zamba2's
+    ``decode_attention`` to its plain version on the shared block's served
+    inputs. Returns (errors, timing, launches): the ``ssm_scan_state``
+    entry, and the served ``decode_attention`` error."""
+    from repro_torch import DecodeAttentionProblem, Engine, Model, Plan, execute
+    from repro_torch.configs import get_config
+    from repro_torch.core import perks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as kssm
+    from repro_torch.models import mamba2 as mb
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.runtime.server import Request, ServeConfig
+
+    errs = {"ssm_scan_state": 0.0, "decode_attention": 0.0}
+    timing, launches = {}, {"ssm_scan_state": 0}
+    nreq, plen, new = SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW
+    for arch in SSM_SERVE_ARCHS:
+        cfg = get_config(arch)
+        hybrid = cfg.family == "hybrid"
+        n_attn = cfg.n_layers // cfg.shared_attn_every if hybrid else 0
+        print(f"[serve ssm] Engine on {arch} at full width ({cfg.n_layers} "
+              f"Mamba2 layers, {n_attn} shared-attention applications, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{str(cfg.compute_dtype)[6:]} compute), seeded init on the "
+              f"card; {nreq} requests, prompt {plen}, {new} new tokens")
+        t0 = time.perf_counter()
+        model = Model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        cparams = model.compute_params(params)
+        torch.cuda.synchronize()
+        print(f"  init {time.perf_counter() - t0:.2f} s, {model.n_params()} "
+              f"parameters")
+        prompts = [rng.integers(0, cfg.vocab, plen, dtype=np.int32)
+                   for _ in range(nreq)]
+        tokens = torch.from_numpy(np.stack(prompts)).cuda()
+        # torch operators of one prefill and of one decode step, for the
+        # replayed batch's count below
+        with LaunchCount() as lc:
+            _, cache = model.prefill(cparams, {"tokens": tokens},
+                                     cache_seq=plen + new)
+        prefill_ops = lc.n
+        first = torch.zeros(nreq, dtype=torch.int32, device="cuda")
+        with LaunchCount() as lc:
+            model.decode_step(cparams, cache, first)
+        step_ops = lc.n
+        del cache
+        print(f"[serve ssm] {arch}: counters set to 0")
+        perks.clear_graphs()
+        ops.reset_launch_counts()
+        outs = {}
+        for persistent, batches in ((True, 2), (False, 1)):
+            # the first persistent batch captures the decode graph, the
+            # second replays it (counted under an operator counter)
+            eng = Engine(model, params, ServeConfig(max_batch=nreq,
+                                                    persistent=persistent))
+            for batch in range(batches):
+                for pr in prompts:
+                    eng.submit(Request(prompt=pr, max_new_tokens=new))
+                before = ops.launch_counts()
+                caps = perks.capture.count
+                replay = persistent and batch == 1
+                with (LaunchCount() if replay else contextlib.nullcontext()
+                      ) as lc:
+                    out, stats = eng.run_batch()
+                torch.cuda.synchronize()
+                d = {k: v - before[k] for k, v in ops.launch_counts().items()}
+                ok = (out.shape == (nreq, new)
+                      and bool(((out >= 0) & (out < cfg.vocab)).all()))
+                stats.update(
+                    batch_index=batch, ssm_scan_launches=d["ssm_scan"],
+                    ssm_scan_state_launches=d["ssm_scan_state"],
+                    decode_attention_launches=d["decode_attention"],
+                    tensor_core_launches=d["decode_attention_tc"],
+                    graph_captures=perks.capture.count - caps, tokens_ok=ok)
+                if replay:
+                    stats.update(torch_ops=lc.n, prefill_ops=prefill_ops,
+                                 decode_step_ops=step_ops)
+                print("  " + json.dumps(stats))
+                if not ok:
+                    FAILS.append(f"{arch}: the Engine returned tokens of "
+                                 f"shape {out.shape} or outside the "
+                                 f"vocabulary")
+                if d["ssm_scan"] != cfg.n_layers or d["ssm_scan_state"] != (
+                        cfg.n_layers):
+                    FAILS.append(f"{arch}: a prefill launched ssm_scan "
+                                 f"{d['ssm_scan']} times ({d['ssm_scan_state']}"
+                                 f" with the state), not {cfg.n_layers}")
+                if not persistent and (
+                        d["decode_attention"] != n_attn * (new - 1)
+                        or d["decode_attention_tc"] != n_attn * (new - 1)):
+                    FAILS.append(f"{arch}: host-loop serving launched "
+                                 f"decode_attention {d['decode_attention']} "
+                                 f"times ({d['decode_attention_tc']} on the "
+                                 f"tensor cores), not {n_attn} a token")
+                if replay and (d["decode_attention"] or stats["graph_captures"]
+                               or lc.n - prefill_ops >= step_ops):
+                    FAILS.append(f"{arch}: the replayed persistent batch "
+                                 f"launched decode work outside its graph "
+                                 f"({d['decode_attention']} decode_attention, "
+                                 f"{stats['graph_captures']} captures, "
+                                 f"{lc.n - prefill_ops} operators beside the "
+                                 f"prefill's)")
+                outs.setdefault(stats["mode"], []).append(out)
+        toks = outs["persistent"][0]
+        if not all(np.array_equal(toks, o) for os_ in outs.values()
+                   for o in os_):
+            FAILS.append(f"{arch}: the Engine's tokens differ between modes "
+                         f"or batches")
+        # DecodeAttentionProblem on every tier from one prefill; layer 0's
+        # scan inputs recorded on the way
+        real, rec = mb.ssd_chunked, []
+
+        def record(*args, **kw):
+            if not rec:
+                rec.append(tuple(t.float().clone() for t in args))
+            return real(*args, **kw)
+
+        mb.ssd_chunked = record
+        try:
+            logits, cache = model.prefill(cparams, {"tokens": tokens},
+                                          cache_seq=plen + new)
+        finally:
+            mb.ssd_chunked = real
+        if not all(bool(torch.isfinite(t.float()).all()) for t in
+                   tree_leaves(cache)) or not bool(
+                       torch.isfinite(logits).all()):
+            FAILS.append(f"{arch}: the prefill's logits or cache are not "
+                         f"finite")
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        prob = DecodeAttentionProblem(model=model, params=cparams,
+                                      cache=cache, first_tokens=first,
+                                      n_steps=new - 1)
+        tiers = {}
+        for p in (Plan(tier="host_loop"), Plan(tier="device_loop"),
+                  Plan(tier="device_loop"), Plan(tier="resident"),
+                  Plan(tier="resident")):
+            before = ops.launch_counts()
+            got, _ = execute(prob, p)
+            torch.cuda.synchronize()
+            n = {k: ops.launch_counts()[k] - before[k]
+                 for k in ("decode_attention", "ssm_scan")}
+            same = np.array_equal(np.concatenate(
+                [first.cpu().numpy()[:, None], got.cpu().numpy()], 1), toks)
+            print(f"  execute decode {p.tier}: launches={n} tokens equal the "
+                  f"Engine's: {same}")
+            if not same:
+                FAILS.append(f"{arch}: decode {p.tier} tokens differ from "
+                             f"the Engine's")
+            tiers[p.tier] = p
+        launches["ssm_scan_state"] += ops.launch_counts()["ssm_scan_state"]
+        print(f"[serve ssm] {arch} launches {json.dumps(ops.launch_counts())}")
+        if hybrid:
+            # the shared block's decode_attention on its served inputs
+            errs["decode_attention"] = max(
+                errs["decode_attention"], check_served_decode(
+                    f"[serve ssm] {arch}", model, cparams, prob.cache, first,
+                    toks, new, n_attn))
+
+        # the final-state launch on layer 0's recorded prefill inputs (not
+        # counted): against its plain version, and its y bit for bit
+        # against the launch without the state
+        x, dt, a, b, c, d = rec[0][:6]
+        bsz, t_len, h, p_ = x.shape
+        n_st = b.shape[-1]
+        ck = cfg.ssm.chunk
+        run_state = lambda: kssm.ssd_scan(x, dt, a, b, c, d, chunk=ck,
+                                          return_state=True)
+        y1, h1 = run_state()
+        y0 = kssm.ssd_scan(x, dt, a, b, c, d, chunk=ck)
+        bit_equal(f"{arch} ssd_scan y with the state against without",
+                  y1, y0)
+
+        def plain():
+            outs_ = [ref.ssm_scan(x[i], dt[i], a, b[i], c[i], d,
+                                  return_state=True) for i in range(bsz)]
+            return (torch.stack([o[0] for o in outs_]),
+                    torch.stack([o[1] for o in outs_]))
+
+        yp, hp = plain()
+        what = (f"{arch} ssd_scan(return_state=True) on layer 0's prefill "
+                f"inputs B={bsz} T={t_len} H={h} P={p_} N={n_st} f32 "
+                f"chunk={ck}")
+        e = max(check_close(f"{what}: y", y1, yp, 1e-3, 1e-3),
+                check_close(f"{what}: h_final", h1, hp, 1e-3, 1e-3))
+        errs["ssm_scan_state"] = max(errs["ssm_scan_state"], e)
+        flops = bsz * ssd_scan_flops(t_len, h, p_, n_st, ck)
+        moved = bsz * (ssd_scan_bytes(t_len, h, p_, n_st, 4)
+                       + 4 * h * n_st * p_) - (bsz - 1) * 8 * h
+        t_ops, t_bytes = flops / FP32_FLOPS, moved / HBM_BW
+        row = dict(ms=cuda_ms(run_state, 5), graph_ms=graph_ms(run_state, 5),
+                   plain_ms=cuda_ms(plain, 1),
+                   bound=(1e3 * max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes"),
+                   library_ms=None, flops=flops, bytes=moved,
+                   stateless_graph_ms=graph_ms(
+                       lambda: kssm.ssd_scan(x, dt, a, b, c, d, chunk=ck), 5),
+                   launches_a_prefill=cfg.n_layers,
+                   launch=kssm.config(bsz, t_len, h, p_, n_st, ck))
+        print(f"  ssm_scan_state {arch}: {json.dumps(row)}")
+        timing.setdefault("ssm_scan_state", row)
+        del rec, x, dt, b, c, y0, y1, h1, yp, hp
+
+        # times: the prefill, and each decode tier (ms a token, tokens/s)
+        # beside the byte model of a token (every compute weight read once,
+        # the SSM state read and written, the K/V rings read)
+        state_b = sum(t.numel() * t.element_size() for k_, t in cache.items()
+                      if k_ not in prob.ring_keys and k_ != "pos")
+        ring_b = sum(t.numel() * t.element_size() for k_, t in cache.items()
+                     if k_ in prob.ring_keys)
+        param_b = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cparams))
+        token_b = param_b + 2 * state_b + ring_b
+        pre_ms = cuda_ms(lambda: model.prefill(
+            cparams, {"tokens": tokens}, cache_seq=plen + new), 3)
+        print("  " + json.dumps(dict(
+            cell=f"serve-{arch}", prefill_ms=pre_ms,
+            prefill_tok_per_s=nreq * plen / (pre_ms / 1e3),
+            params_bytes=param_b, state_bytes=state_b, ring_bytes=ring_b,
+            token_bytes=token_b,
+            token_bound_ms=1e3 * token_b / HBM_BW)))
+        for name, p in tiers.items():
+            ms = cuda_ms(lambda: execute(prob, p), 3)
+            print("  " + json.dumps(dict(
+                cell=f"serve-{arch}", tier=name, decode_ms=ms,
+                ms_per_token=ms / (new - 1),
+                tok_per_s=nreq * (new - 1) / (ms / 1e3),
+                bound_share=1e3 * token_b / HBM_BW / (ms / (new - 1)))))
+        del model, params, cparams, cache, prob, logits, eng
+        perks.clear_graphs()
+        torch.cuda.empty_cache()
     return errs, timing, launches
 
 
@@ -3055,6 +3346,11 @@ def main() -> int:
     # -- 11-13. the ML kernels, the SSD scan path and the serving path ---------------
     ml_errs, ml_timing, ml_launches = ml_phases(rng)
 
+    # -- 13b. the SSM and hybrid families served --------------------------------------
+    ss_errs, ss_timing, ss_launches = ssm_serve_phase(rng)
+    ml_errs["decode_attention"] = max(ml_errs["decode_attention"],
+                                      ss_errs["decode_attention"])
+
     # -- 14-18. batched launches and path, the service, tracing, autotune -------------
     b_errs, b_timing, b_launches = batch_phases(rng)
 
@@ -3073,6 +3369,8 @@ def main() -> int:
                              (KRYLOV_KERNELS, kr_errs, kr_timing,
                               kr_launches),
                              (ML_KERNELS, ml_errs, ml_timing, ml_launches),
+                             (SSM_STATE_KERNEL, ss_errs, ss_timing,
+                              ss_launches),
                              (BATCH_KERNELS, b_errs, b_timing, b_launches)):
         for k, (source, replaces) in table.items():
             t = tm[k]

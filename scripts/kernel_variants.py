@@ -146,11 +146,12 @@ T = 8192, H = 48, P = 64, N = 128; streams from seed 0 as
 ``chip_smoke.py`` makes them): float32 and bf16 streams at chunks 128, 15
 and 1, each eager (``ms``) and in a CUDA graph (``graph_ms``), with the
 largest absolute error against the plain version (``ref.ssm_scan`` on
-float32 copies of the same streams) and the launch the tree's build
-reports (the scan kernel's grid, shared memory a CTA, slots in its ring);
-it prints the library's ``ptxas`` registers and spills first. In turns
-with a parent tree (``--src build/parent/src --rounds 1``, this tree, this
-tree, the parent) it is the A/B of the scan.
+float32 copies of the same streams) and a digest of y's bits, and the
+launch the tree's build reports (the scan kernel's grid, shared memory a
+CTA, slots in its ring); it prints the library's ``ptxas`` registers and
+spills first. In turns with a parent tree (``--src build/parent/src
+--rounds 1``, this tree, this tree, the parent) it is the A/B of the scan,
+and equal digests show that both trees compute y bit for bit.
 
 ``--kernels ssm_profile`` times the float32 chunk-128 cell as shipped and
 built with ``-DSSM_PROFILE`` (clock cycles a chunk a CTA by phase, for the
@@ -955,6 +956,7 @@ def ssm(src: str, rounds: int) -> int:
             if rnd == 0:
                 err = (run().float() - want[dtype]).abs().max().item()
                 line[f"{key} max_abs_err"] = err
+                line[f"{key} digest"] = _digest(run().float())
                 tol = 1e-3 if dtype == "float32" else 5e-2
                 if not torch.allclose(run().float(), want[dtype], rtol=tol,
                                       atol=tol):

@@ -1,14 +1,19 @@
-"""Where a decode step's time goes on the card: the port's Engine path at
-qwen2-0.5b's full width (random weights from a seed), one decode step
+"""Where the serving path's time goes on the card: the port's Engine path
+at an architecture's full width (random weights from a seed; qwen2-0.5b by
+default, or mamba2-780m and zamba2-1.2b), one prefill and one decode step
 traced with ``torch.profiler`` and the kept graph of the whole generation
 timed against the sum of its kernels.
 
-    python3 scripts/serve_breakdown.py [--requests 8] [--prompt 128] [--new 32]
+    python3 scripts/serve_breakdown.py [--arch qwen2-0.5b] [--requests 8] \
+        [--prompt 128] [--new 32]
 
-Prints JSON lines: the device time of one eager decode step by kernel
-(top 12, and ``decode_attention``'s share), the kernels a step launches,
-and the kept graph's replay time, its kernels' summed device time and the
-device's idle share inside the replay. Needs one CUDA device.
+Prints JSON lines: the prefill's wall time (CUDA events), its kernels'
+summed device time and the device's idle share in it, with the device
+time by kernel (top 12, and the SSD scan's share); the device time of one
+eager decode step by kernel (top 12, and ``decode_attention``'s share),
+the kernels a step launches; and the kept graph's replay time, its
+kernels' summed device time and the device's idle share inside the
+replay. Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -49,6 +54,30 @@ def main() -> int:
         0, cfg.vocab, (args.requests, args.prompt), dtype=np.int32)).cuda()
     logits, cache = model.prefill(params, {"tokens": tokens},
                                   cache_seq=args.prompt + args.new)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        model.prefill(params, {"tokens": tokens},
+                      cache_seq=args.prompt + args.new)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    ev = prof.key_averages()
+    times = {e.key: e.device_time_total for e in ev
+             if e.device_time_total > 0}
+    calls = {e.key: e.count for e in ev if e.device_time_total > 0}
+    total = sum(times.values())
+    scan = sum(v for k, v in times.items() if "ssd_" in k)
+    print(json.dumps(dict(
+        what=f"one prefill, {args.requests} x {args.prompt} tokens",
+        arch=args.arch, card=torch.cuda.get_device_name(0),
+        wall_ms=wall_ms, kernels_device_ms=total / 1e3,
+        idle_share=max(0.0, 1 - total / 1e3 / wall_ms),
+        kernels_launched=sum(calls.values()), ssd_scan_us=scan,
+        ssd_scan_share=scan / total if total else None,
+        top=[dict(kernel=k[:90], us=v, calls=calls[k]) for k, v in
+             sorted(times.items(), key=lambda kv: -kv[1])[:12]])))
     first = torch.argmax(logits, dim=-1).to(torch.int32)
     step_cache = {k: t.clone() for k, t in cache.items()}
     model.decode_step(params, step_cache, first)          # warm
@@ -70,6 +99,7 @@ def main() -> int:
                or "decode_combine" in k)
     print(json.dumps(dict(
         what="one eager decode step, device time by kernel (us)",
+        arch=args.arch,
         card=torch.cuda.get_device_name(0), total_us=total,
         kernels_launched=sum(calls.values()),
         decode_attention_us=attn, decode_attention_share=attn / total,

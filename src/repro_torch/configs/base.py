@@ -94,8 +94,9 @@ class ModelConfig:
         return True
 
     def n_params(self) -> int:
-        """Parameter count, through the port's model stack (the dense
-        family only so far; the others raise ``NotImplementedError``)."""
+        """Parameter count, through the port's model stack (the dense, ssm
+        and hybrid families so far; the others raise
+        ``NotImplementedError``)."""
         from repro_torch.models import lm
         from repro_torch.nn.param import count_params
         return count_params(lm.Model(self).params_spec())

@@ -82,7 +82,9 @@ def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
 def params_from_reference(tree: Any, device: _device.DeviceLike = None):
     """The port's parameter tree (nested dicts of tensors, the same keys) on
     ``device`` (default ``"cuda"``) from the reference's parameters as
-    numpy arrays (``jax.tree.map(np.asarray, params)``)."""
+    numpy arrays (``jax.tree.map(np.asarray, params)``). Stacked leaves
+    keep their leading axes: a hybrid's Mamba2 ``layers`` (apps x every x
+    ...) come across as they are."""
     dev = _device.resolve(device)
 
     def conv(t):
@@ -93,6 +95,10 @@ def params_from_reference(tree: Any, device: _device.DeviceLike = None):
 
 
 def cache_from_reference(tree: Any, device: _device.DeviceLike = None):
-    """A prefilled decode cache (``{"k", "v", "pos"}``) from the reference's
-    as numpy arrays, on ``device`` (default ``"cuda"``)."""
+    """A prefilled decode cache from the reference's as numpy arrays, on
+    ``device`` (default ``"cuda"``): a dense model's ``{"k", "v", "pos"}``,
+    mamba2's ``{"conv", "h", "pos"}`` or a hybrid's ``{"conv", "h",
+    "shared_k", "shared_v", "pos"}`` with ``tail_conv``/``tail_h`` where it
+    has tail layers; every leaf keeps its shape and dtype (conv windows and
+    rings in the compute dtype, states h float32, pos int32)."""
     return params_from_reference(tree, device)

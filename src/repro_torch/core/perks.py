@@ -123,18 +123,20 @@ def host_loop(
 def capture(step_fn: StepFn, x: State, n_steps: int
             ) -> tuple[torch.cuda.CUDAGraph, list[State], State]:
     """Capture ``n_steps`` launches of ``step_fn`` on the CUDA state ``x``
-    into a CUDA graph: one warm-up step on a side stream first (its result
-    is discarded), both sets of ping-pong buffers allocated before capture.
-    Returns the graph, the buffers (the graph writes them, so they must
-    live as long as it does) and the state its last step writes; nothing
-    has run until the graph is replayed."""
+    into a CUDA graph: one warm-up step on a side stream first, on a copy
+    of ``x`` (its result is discarded, and a step that advances a state
+    tensor in place — a decode's SSM state — leaves ``x`` as it was), both
+    sets of ping-pong buffers allocated before capture. Returns the graph,
+    the buffers (the graph writes them, so they must live as long as it
+    does) and the state its last step writes; nothing has run until the
+    graph is replayed."""
     capture.count += 1
     bufs = _buffers(x)
     dev = _device(x)
     side = torch.cuda.Stream(device=dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        step_fn(x, bufs[0])
+        step_fn(_clone(x), bufs[0])
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -3,12 +3,13 @@ port of ``repro/exec/ml.py`` (single instances; the batching surface comes
 with the next slice, and until then a ``BatchedProblem`` of them raises
 ``NotImplementedError`` naming the family).
 
-* :class:`DecodeAttentionProblem` — token-by-token greedy decode. The time
-  axis is the generated-token index; a step is ``models.lm.token_step``
-  (``Model.decode_step`` + argmax + the token written into the output at
-  a device index). The resident tier is ``Model.decode_loop``; every tier
-  attends through the flash-decode kernel (``kernels/decode_attn.py``) on
-  the card.
+* :class:`DecodeAttentionProblem` — token-by-token greedy decode of any
+  ported family (dense, ssm, hybrid). The time axis is the generated-token
+  index; a step is ``models.lm.token_step`` (``Model.decode_step`` + argmax
+  + the token written into the output at a device index). The resident
+  tier is ``Model.decode_loop``; every tier attends through the
+  flash-decode kernel (``kernels/decode_attn.py``) on the card, where the
+  model has attention layers.
 * :class:`SSMScanProblem` — the SSD scan over one sequence, the chunk index
   as time axis. On the loop tiers the state ``h`` (H, N, P) float32 goes
   through device memory once per chunk; the resident tier runs
@@ -20,14 +21,15 @@ two sets of buffers the size of the whole state. A decode cache or an SSD
 output copied every step would add O(cache) or O(T) traffic to each step,
 so the large state tensors are written in place instead: ``initial_state``
 copies the problem's cache once (the reference's ``_copy_tree``) and makes
-a fresh output buffer, and each step writes only its slot — the cache at
-``pos % C``, the output at the step's rows, both through device indices —
-and returns that same tensor; the small tensors (position, tokens, step
-counter, the SSD state h) are new each step. So the problem's own cache and
-streams are never written, on any tier. A device loop's warm-up step before
-capture writes the same slots with the same values the graph then writes,
-and a chunked device loop's chunks continue from the tensors the last one
-wrote, so both stay exact.
+a fresh output buffer, and each step writes only its part — the K/V ring at
+``pos % C``, the conv windows and SSM states of a decode cache (advanced in
+place), the output at the step's rows, all through device indices — and
+returns those same tensors; the small tensors (position, tokens, step
+counter, the SSD state h of ``SSMScanProblem``) are new each step. So the
+problem's own cache and streams are never written, on any tier. A device
+loop's warm-up step before capture runs on a copy of the state
+(``core.perks.capture``), and a chunked device loop's chunks continue from
+the tensors the last one wrote, so both stay exact.
 """
 from __future__ import annotations
 
@@ -76,7 +78,7 @@ class DecodeAttentionProblem(Problem):
 
     model: Any                       # repro_torch.models.lm.Model
     params: Any
-    cache: Any                       # {"k", "v", "pos"} from Model.prefill
+    cache: Any                       # the dict Model.prefill returns
     first_tokens: torch.Tensor       # (B,) int32
     n_steps: int                     # tokens to generate beyond first_tokens
     eos_id: Optional[int] = None
@@ -91,8 +93,12 @@ class DecodeAttentionProblem(Problem):
     #: differs from the device loop in its single dispatch only
     carry_on_chip_every_tier = True
 
+    #: cache leaves that are rings (one slot written a step); the rest but
+    #: ``pos`` are recurrent state (rewritten every step)
+    ring_keys = ("k", "v", "ckv", "shared_k", "shared_v")
+
     def __post_init__(self):
-        dev = self.cache["k"].device
+        dev = self.cache["pos"].device
         object.__setattr__(self, "first_tokens", _device.as_domain(
             self.first_tokens, dev).to(torch.int32))
         object.__setattr__(self, "_cparams",
@@ -105,27 +111,22 @@ class DecodeAttentionProblem(Problem):
 
     @property
     def name(self) -> str:  # type: ignore[override]
-        fp = operand_fingerprint(self.first_tokens, self.cache["k"],
-                                 self.cache["v"])
+        fp = operand_fingerprint(self.first_tokens, *(
+            self.cache[k] for k in self.model.cache_keys()[:2]))
         b = self.first_tokens.shape[0]
         return f"decode_{self.model.cfg.name}_b{b}_n{self.n_steps}_{fp}"
 
     # -- protocol -------------------------------------------------------------
 
     def initial_state(self):
-        b = self.first_tokens.shape[0]
-        dev = self.first_tokens.device
-        return (self.cache["k"].clone(), self.cache["v"].clone(),
-                self.cache["pos"].clone(), self.first_tokens.clone(),
-                torch.zeros((b, self.n_steps), dtype=torch.int32, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev))
+        return lm.token_state(self.model, self.cache, self.first_tokens,
+                              self.n_steps)
 
     def step_fn(self):
         return self._step
 
     def finalize(self, state):
-        k, v, pos, _, toks, _ = state
-        return toks, {"k": k, "v": v, "pos": pos}
+        return lm.token_result(self.model, state)
 
     def oracle(self):
         """The per-token serving loop (host-loop order): ``decode_step`` +
@@ -149,40 +150,70 @@ class DecodeAttentionProblem(Problem):
         # rides in the params
         if self.eos_id is None:
             return None
-        return ((lambda s, eos: torch.all(s[3] == eos)),
+        return ((lambda s, eos: torch.all(s[-3] == eos)),
                 torch.tensor(self.eos_id, dtype=torch.int32,
                              device=self.first_tokens.device))
 
     def cacheable_arrays(self, *, fuse_steps: int = 1) -> Sequence[CacheableArray]:
         """The KV-bytes-per-token traffic model: each generated token
         re-reads the whole cache and every weight the step reads (in the
-        compute dtype); the K/V ring appends one slot per step (stores
-        amortise to 1/len). ``attn_carry`` is the attention score matrix an
-        unfused step would write and read per layer, which the flash-decode
-        kernel keeps on chip — on every tier of the port, so the planner
-        charges it to none (``carry_on_chip_every_tier``)."""
+        compute dtype); the ring leaves (``kv_cache``) append one slot per
+        step (stores amortise to 1/len), the recurrent leaves
+        (``ssm_state``: conv windows and SSM states) are rewritten whole.
+        ``attn_carry``, where the model has attention layers, is the
+        attention score matrix an unfused step would write and read per
+        layer, which the flash-decode kernel keeps on chip — on every tier
+        of the port, so the planner charges it to none
+        (``carry_on_chip_every_tier``)."""
         cfg = self.model.cfg
         b = int(self.first_tokens.shape[0])
         arrays = [CacheableArray("params", _tree_bytes(self._cparams),
                                  loads_per_step=1.0, stores_per_step=0.0)]
-        ring_b = _tree_bytes(self.cache["k"]) + _tree_bytes(self.cache["v"])
-        kv_len = max(1, int(self.cache["k"].shape[-3]))
-        arrays.append(CacheableArray("kv_cache", ring_b, loads_per_step=1.0,
-                                     stores_per_step=1.0 / kv_len))
-        arrays.append(CacheableArray(
-            "attn_carry", b * cfg.n_heads * kv_len * 4,
-            loads_per_step=float(cfg.n_layers),
-            stores_per_step=float(cfg.n_layers)))
+        kv_len = 1
+        ring_b = state_b = 0
+        for key, leaf in self.cache.items():
+            if key in self.ring_keys:
+                ring_b += _tree_bytes(leaf)
+                if leaf.dim() >= 3:
+                    kv_len = max(kv_len, int(leaf.shape[-3]))
+            elif key != "pos":
+                state_b += _tree_bytes(leaf)
+        if ring_b:
+            arrays.append(CacheableArray(
+                "kv_cache", ring_b, loads_per_step=1.0,
+                stores_per_step=1.0 / kv_len))
+        if state_b:
+            arrays.append(CacheableArray(
+                "ssm_state", state_b, loads_per_step=1.0,
+                stores_per_step=1.0))
+        n_attn = self._n_attn_layers()
+        if n_attn and ring_b:
+            arrays.append(CacheableArray(
+                "attn_carry", b * cfg.n_heads * kv_len * 4,
+                loads_per_step=float(n_attn),
+                stores_per_step=float(n_attn)))
         return arrays
+
+    def _n_attn_layers(self) -> int:
+        """Attention layers a decode step runs: every layer of a dense
+        model, one a super-block of a hybrid, none in a pure SSM."""
+        cfg = self.model.cfg
+        if cfg.family == "dense":
+            return cfg.n_layers
+        if cfg.family == "hybrid":
+            every = max(1, cfg.shared_attn_every or 1)
+            return max(1, cfg.n_layers // every)
+        return 0
 
     def resident_scratch_bytes(self) -> int:
         """On-chip memory the fused decode needs live at once: one layer's
         attention scores plus the online-softmax carry (m/l/acc)."""
         cfg = self.model.cfg
         b = int(self.first_tokens.shape[0])
-        carry = next(a for a in self.cacheable_arrays()
-                     if a.name == "attn_carry")
-        return carry.bytes + b * cfg.n_heads * (cfg.head_dim + 2) * 4
+        carry = next((a for a in self.cacheable_arrays()
+                      if a.name == "attn_carry"), None)
+        scores = carry.bytes if carry is not None else 0
+        return scores + b * cfg.n_heads * (cfg.head_dim + 2) * 4
 
     def domain_bytes(self) -> int:
         return _tree_bytes(self.cache)

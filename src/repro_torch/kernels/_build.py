@@ -191,8 +191,8 @@ _SIGNATURES = {
         "gmres_cycle_fused_smem": (_I, [_IP, _IP]),
     },
     "ssm_scan": {
-        "ssm_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _P]),
+        "ssm_scan_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _P]),
         "ssm_scan_workspace_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
         "ssm_scan_config": (_I, [_I, _I, _I, _I, _I, _I, _I, _IP]),
     },

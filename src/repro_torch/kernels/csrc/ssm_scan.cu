@@ -20,7 +20,9 @@
 //
 // Layout: x (B, T, H, P), dt (B, T, H), b and c (B, T, N), y (B, T, H, P),
 // one type, float32 or bf16 (read as float32, y rounded once); a and d (H,)
-// float32. The chunk C is any length from 1 to SSM_MAX_CHUNK, N at most
+// float32; on request the final state h_out (B, H, N, P) float32, which the
+// state warps store from their registers after the last chunk (a model's
+// prefill hands it to the decode). The chunk C is any length from 1 to SSM_MAX_CHUNK, N at most
 // SSM_MAX_STATE, any P and B, and T need not be a multiple of C: the last
 // chunk is shorter. A chunk is cut into 16-row tiles; rows past its end
 // are zeros in shared memory and are never read from or written to device
@@ -514,8 +516,8 @@ __global__ void __launch_bounds__(SSM_THREADS, 2)
 ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const float* __restrict__ a, const float* __restrict__ d,
                 const float* __restrict__ ws_s,
-                const float* __restrict__ ws_cb, T* __restrict__ y, int T_,
-                int H, int P, SsmGeom g) {
+                const float* __restrict__ ws_cb, T* __restrict__ y,
+                float* __restrict__ h_out, int T_, int H, int P, SsmGeom g) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int gq = lane >> 2, tq = lane & 3;
@@ -835,6 +837,25 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 }
                 consumer_sync();
             }
+            // the final state, where the caller asks for it: h_out (B, H,
+            // N, P) float32, after the last chunk
+            if (h_out != nullptr) {
+                float* ho = h_out + ((size_t)bt * H + head) * g.N * P + p0;
+#pragma unroll
+                for (int o = 0; o < NGW; ++o) {
+                    const int G = sw + SSM_ROWW * o;
+                    if (G >= g.NG) continue;
+#pragma unroll
+                    for (int q = 0; q < 2; ++q)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int n = 16 * G + gq + 8 * (e >> 1);
+                            const int p = 8 * q + 2 * tq + (e & 1);
+                            if (n < g.N && p < ps)
+                                ho[(size_t)n * P + p] = h[o][q][e];
+                        }
+                }
+            }
         }
 #ifdef SSM_PROFILE
         if (lane == 0 && (warp == 0 || warp == SSM_ROWW))
@@ -878,13 +899,14 @@ static int prepare(const SsmGeom& g) {
 template <typename T, int NGW>
 static int launch_scan(const SsmGeom& g, const void* x, const void* dt,
                        const float* a, const float* d, const float* ws_s,
-                       const float* ws_cb, void* y, int B, int T_, int H,
-                       int P, cudaStream_t stream) {
+                       const float* ws_cb, void* y, float* h_out, int B,
+                       int T_, int H, int P, cudaStream_t stream) {
     const int err = prepare<T, NGW>(g);
     if (err) return err;
     ssd_scan_kernel<T, NGW><<<dim3((P + SSM_SLICE - 1) / SSM_SLICE, H, B),
                               SSM_THREADS, g.smem, stream>>>(
-        (const T*)x, (const T*)dt, a, d, ws_s, ws_cb, (T*)y, T_, H, P, g);
+        (const T*)x, (const T*)dt, a, d, ws_s, ws_cb, (T*)y, h_out, T_, H, P,
+        g);
     return (int)cudaGetLastError();
 }
 
@@ -914,8 +936,8 @@ extern "C" int ssm_scan_config(int B, int T_, int H, int P, int N, int C,
 template <typename T>
 static int launch(const void* x, const void* dt, const float* a,
                   const void* b, const void* c, const float* d, void* y,
-                  float* ws, int B, int T_, int H, int P, int N, int C,
-                  cudaStream_t stream) {
+                  float* h_out, float* ws, int B, int T_, int H, int P, int N,
+                  int C, cudaStream_t stream) {
     const SsmGeom g = ssm_geom(T_, N, C);
     float* ws_s = ws;
     float* ws_cb = ws + (size_t)B * g.chunks * g.s_floats;
@@ -925,24 +947,25 @@ static int launch(const void* x, const void* dt, const float* a,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     return g.NG > 2 * SSM_ROWW
-        ? launch_scan<T, 4>(g, x, dt, a, d, ws_s, ws_cb, y, B, T_, H, P,
-                            stream)
-        : launch_scan<T, 2>(g, x, dt, a, d, ws_s, ws_cb, y, B, T_, H, P,
-                            stream);
+        ? launch_scan<T, 4>(g, x, dt, a, d, ws_s, ws_cb, y, h_out, B, T_, H,
+                            P, stream)
+        : launch_scan<T, 2>(g, x, dt, a, d, ws_s, ws_cb, y, h_out, B, T_, H,
+                            P, stream);
 }
 
 // Launches on `stream` (bf16 != 0: bf16 streams, else float32); ws holds
-// ssm_scan_workspace_floats(B, T, N, C) floats. Returns the cudaError_t
-// (0 = success).
+// ssm_scan_workspace_floats(B, T, N, C) floats. h_out, if not null,
+// receives the state after the last chunk, (B, H, N, P) float32; y is the
+// same with or without it. Returns the cudaError_t (0 = success).
 extern "C" int ssm_scan_launch(const void* x, const void* dt, const float* a,
                                const void* b, const void* c, const float* d,
-                               void* y, float* ws, int B, int T_, int H,
-                               int P, int N, int C, int bf16,
+                               void* y, float* h_out, float* ws, int B,
+                               int T_, int H, int P, int N, int C, int bf16,
                                cudaStream_t stream) {
     if (B <= 0 || T_ <= 0 || H <= 0 || P <= 0) return 0;
     if (!valid(B, T_, H, P, N, C)) return (int)cudaErrorInvalidValue;
-    return bf16 ? launch<__nv_bfloat16>(x, dt, a, b, c, d, y, ws, B, T_, H,
-                                        P, N, C, stream)
-                : launch<float>(x, dt, a, b, c, d, y, ws, B, T_, H, P, N, C,
-                                stream);
+    return bf16 ? launch<__nv_bfloat16>(x, dt, a, b, c, d, y, h_out, ws, B,
+                                        T_, H, P, N, C, stream)
+                : launch<float>(x, dt, a, b, c, d, y, h_out, ws, B, T_, H, P,
+                                N, C, stream);
 }

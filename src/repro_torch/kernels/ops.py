@@ -67,6 +67,7 @@ KERNELS = {
     "bicgstab_fused": (_kry.bicgstab_fused, "launches"),
     "gmres_cycle_fused": (_kry.gmres_cycle_fused, "launches"),
     "ssm_scan": (_ssm.ssd_scan, "launches"),
+    "ssm_scan_state": (_ssm.ssd_scan, "state_launches"),
     "decode_attention": (_da.decode_attention, "launches"),
     "decode_attention_tc": (_da.decode_attention, "tc_launches"),
     "decode_attention_cc": (_da.decode_attention, "cc_launches"),
@@ -163,10 +164,12 @@ def gmres_cycle(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
+             chunk: int = 128, return_state: bool = False):
     """Batched Mamba2 SSD scan with the state on chip: x (B,T,H,P), dt
-    (B,T,H), a (H,), b/c (B,T,N), d (H,) -> y (B,T,H,P)."""
-    return _ssm.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+    (B,T,H), a (H,), b/c (B,T,N), d (H,) -> y (B,T,H,P); with
+    ``return_state`` also the final state h (B,H,N,P) float32."""
+    return _ssm.ssd_scan(x, dt, a, b, c, d, chunk=chunk,
+                         return_state=return_state)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

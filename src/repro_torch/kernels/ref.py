@@ -385,14 +385,15 @@ def gmres_run(data: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
 # -- Mamba2 / SSD scan --------------------------------------------------------
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor,
-             d: torch.Tensor) -> torch.Tensor:
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             return_state: bool = False):
     """Selective-state-space (Mamba2 SSD) reference via the per-step
     recurrence, single sequence:
 
       x (T, H, P), dt (T, H) softplus-activated steps, a (H,) negative
       decays, b/c (T, N) input/output projections (shared across heads),
-      d (H,) skip. Returns y (T, H, P).
+      d (H,) skip. Returns y (T, H, P), and with ``return_state`` also the
+      state after the last step, h_T (H, N, P).
 
       h_t = exp(dt_t * a_h) * h_{t-1} + dt_t * outer(b_t, x_t)
       y_t = c_t @ h_t + d_h * x_t
@@ -410,9 +411,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         upd = dtt[:, None, None] * bt[None, :, None] * xt[:, None, :]
         state = decay[:, None, None] * state + upd
         ys.append(torch.einsum("n,hnp->hp", ct, state) + d[:, None] * xt)
-    if not ys:
-        return torch.zeros((0, h, p), dtype=x.dtype, device=x.device)
-    return torch.stack(ys)
+    y = (torch.stack(ys) if ys else
+         torch.zeros((0, h, p), dtype=x.dtype, device=x.device))
+    return (y, state) if return_state else y
 
 
 # -- decode attention ---------------------------------------------------------

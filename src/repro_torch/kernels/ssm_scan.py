@@ -3,7 +3,9 @@
 
 ``ssd_scan(x, dt, a, b, c, d, chunk=)`` scans a batch of sequences:
 x (B, T, H, P), dt (B, T, H), a (H,), b/c (B, T, N), d (H,) -> y
-(B, T, H, P) in x's dtype. ``ssm_scan`` is the single-sequence form of the
+(B, T, H, P) in x's dtype; with ``return_state=True`` also the state after
+the last step, h (B, H, N, P) float32, which the kernel's state warps store
+from their registers (y is bit for bit the launch's without it). ``ssm_scan`` is the single-sequence form of the
 reference (no batch axis). A CPU tensor runs the plain version (the
 per-step recurrence ``ref.ssm_scan`` on float32 copies of the streams, y
 cast back to x's dtype); a CUDA tensor launches ``csrc/ssm_scan.cu`` or
@@ -14,7 +16,8 @@ last chunk is shorter), where the reference's TPU kernel asserts
 ``T % chunk == 0``. The state may have up to 256 rows. A call is two
 kernels (the chunks' scores and slots, then the scan, in a float32
 workspace the wrapper allocates); the wrapper counts its calls in
-``ssd_scan.launches``. ``config`` reports the launch a call makes.
+``ssd_scan.launches``, and those that return the state also in
+``ssd_scan.state_launches``. ``config`` reports the launch a call makes.
 
 The workspace holds, for every chunk of every sequence, S's lower 16x16
 tiles and the chunk's c and b with its rows padded to a multiple of 16 and
@@ -39,17 +42,21 @@ MAX_CHUNK = 128
 MAX_STATE = 256
 
 
-def _plain(x, dt, a, b, c, d):
-    ys = [ref.ssm_scan(x[i].float(), dt[i].float(), a.float(), b[i].float(),
-                       c[i].float(), d.float()) for i in range(x.shape[0])]
-    return torch.stack(ys).to(x.dtype)
+def _plain(x, dt, a, b, c, d, return_state):
+    outs = [ref.ssm_scan(x[i].float(), dt[i].float(), a.float(),
+                         b[i].float(), c[i].float(), d.float(),
+                         return_state=True) for i in range(x.shape[0])]
+    y = torch.stack([o[0] for o in outs]).to(x.dtype)
+    if not return_state:
+        return y
+    return y, torch.stack([o[1] for o in outs])
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
+             chunk: int = 128, return_state: bool = False):
     """Batched SSD scan: x (B,T,H,P), dt (B,T,H), a (H,), b/c (B,T,N), d (H,)
-    -> y (B,T,H,P)."""
+    -> y (B,T,H,P), or (y, h (B,H,N,P) float32) with ``return_state``."""
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x must be (B, T, H, P), got "
                          f"{tuple(x.shape)}")
@@ -68,7 +75,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan: the CUDA kernel takes a state of at "
                          f"most {MAX_STATE}, got N = {n}")
     if _build.is_cpu(x, "ssd_scan"):
-        return _plain(x, dt, a, b, c, d)
+        return _plain(x, dt, a, b, c, d, return_state)
     if x.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError(f"ssd_scan: the CUDA kernel takes float32 or bf16 "
@@ -82,23 +89,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     a32, d32 = a.float().contiguous(), d.float().contiguous()
     y = torch.empty_like(x)
+    h_out = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                         device=x.device) if return_state else None)
     if x.numel() == 0:
-        return y
+        return (y, h_out) if return_state else y
     lib = _build.load("ssm_scan")
     with _build.on_device(x):
         ws = torch.empty(lib.ssm_scan_workspace_floats(bsz, t_len, n, ck),
                          dtype=torch.float32, device=x.device)
         err = lib.ssm_scan_launch(
             x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d32.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            c.data_ptr(), d32.data_ptr(), y.data_ptr(),
+            None if h_out is None else h_out.data_ptr(), ws.data_ptr(),
             bsz, t_len, h, p, n, ck, int(x.dtype == torch.bfloat16),
             _build.stream())
     _build.check(err, "ssm_scan_launch")
     ssd_scan.launches += 1
-    return y
+    if not return_state:
+        return y
+    ssd_scan.state_launches += 1
+    return y, h_out
 
 
 ssd_scan.launches = 0
+ssd_scan.state_launches = 0
 
 
 def config(bsz: int, t_len: int, h: int, p: int, n: int, chunk: int = 128,

@@ -4,7 +4,8 @@ engine, on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --requests 8 --new-tokens 32
 
-The weights are random, from seed 0.
+``--arch`` names a dense architecture, ``mamba2-780m`` (ssm) or
+``zamba2-1.2b`` (hybrid). The weights are random, from seed 0.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ token and can be captured into a CUDA graph.
 
 Multi-head latent attention (``cfg.mla``), mixture-of-experts MLPs
 (``cfg.moe``) and vision-prefix embeddings are not ported yet and raise
-``NotImplementedError`` (ROADMAP, Queue 1, item 8). Sharding constraints of
+``NotImplementedError`` (ROADMAP, Queue 1, item 6). Sharding constraints of
 the reference are no-ops on one device and are not kept.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ from repro_torch.nn.attention import chunked_attention, decode_attention
 from repro_torch.nn.param import ParamSpec, tree_map
 from repro_torch.nn.rope import rope_tables, rotate
 
-_TODO = "(ROADMAP, Queue 1, item 8: still to port)"
+_TODO = "(ROADMAP, Queue 1, item 6: still to port)"
 
 
 def _dense_only(cfg: ModelConfig) -> None:
@@ -149,10 +149,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens, vision_embeds=None):
     return x
 
 
-def _mlp(lp, cfg: ModelConfig, x):
+def _residual_mlp(lp, cfg: ModelConfig, x, h):
+    """The attention output ``h`` added to the residual ``x``, then the MLP
+    block."""
+    x = x + h.to(x.dtype)
     xm = apply_norm(cfg, lp["mlp_norm"], x)
-    return L.mlp(lp["mlp"], xm, act=cfg.act,
-                 compute_dtype=cfg.compute_dtype).to(x.dtype)
+    return x + L.mlp(lp["mlp"], xm, act=cfg.act,
+                     compute_dtype=cfg.compute_dtype).to(x.dtype)
 
 
 # -- prefill -------------------------------------------------------------------
@@ -171,31 +174,48 @@ def prefill(params, cfg: ModelConfig, tokens, vision_embeds=None,
     c = cache_len(cfg, total)
     keep = min(c, s)                 # the last `keep` prompt entries are cached
     x = embed_tokens(params, cfg, tokens, vision_embeds)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
+    positions, rope = prompt_rope(cfg, b, s, tokens.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        h, (k, v) = self_attention(lp["attn"], cfg,
-                                   apply_norm(cfg, lp["attn_norm"], x),
-                                   positions, collect_kv=True, rope=rope)
-        x = x + h.to(x.dtype)
-        x = x + _mlp(lp, cfg, x)
+        x, k, v = prefill_layer(layer_params(params, i), cfg, x, positions,
+                                rope)
         ks.append(k[:, s - keep:])
         vs.append(v[:, s - keep:])
     x = apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(params["embed"], x[:, -1], cfg.compute_dtype)
-
-    # the reference's dynamic_update_slice of the prompt entries at slot
-    # (s - keep) % c clamps the start to c - keep
-    start = min((s - keep) % c, c - keep)
-    shape = (cfg.n_layers, b, c, cfg.n_kv_heads, cfg.head_dim)
-    kbuf = torch.zeros(shape, dtype=ks[0].dtype, device=tokens.device)
-    vbuf = torch.zeros(shape, dtype=vs[0].dtype, device=tokens.device)
-    kbuf[:, :, start:start + keep] = torch.stack(ks)
-    vbuf[:, :, start:start + keep] = torch.stack(vs)
     pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
-    return logits, {"k": kbuf, "v": vbuf, "pos": pos}
+    return logits, {"k": place_ring(ks, c, s), "v": place_ring(vs, c, s),
+                    "pos": pos}
+
+
+def prompt_rope(cfg: ModelConfig, b: int, s: int, device):
+    """The prompt's positions (B, S) and their rotary tables."""
+    positions = torch.arange(s, device=device)[None, :].expand(b, s)
+    return positions, rope_tables(positions, cfg.head_dim,
+                                  theta=cfg.rope_theta)
+
+
+def prefill_layer(lp, cfg: ModelConfig, x, positions, rope):
+    """One attention + MLP layer over the prompt (the dense layer, and the
+    hybrid's shared block). Returns (x, k, v), k and v rotated."""
+    h, (k, v) = self_attention(lp["attn"], cfg,
+                               apply_norm(cfg, lp["attn_norm"], x),
+                               positions, collect_kv=True, rope=rope)
+    return _residual_mlp(lp, cfg, x, h), k, v
+
+
+def place_ring(entries, c: int, s: int):
+    """Stack the layers' last ``keep`` prompt entries (each (B, keep, Hkv,
+    D)) into a zeroed ring (n, B, c, Hkv, D). The reference's
+    dynamic_update_slice at slot (s - keep) % c clamps the start to
+    c - keep."""
+    keep = entries[0].shape[1]
+    start = min((s - keep) % c, c - keep)
+    first = entries[0]
+    buf = torch.zeros((len(entries), first.shape[0], c) + first.shape[2:],
+                      dtype=first.dtype, device=first.device)
+    buf[:, :, start:start + keep] = torch.stack(entries)
+    return buf
 
 
 # -- decode --------------------------------------------------------------------
@@ -231,28 +251,40 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     cache holds the same K/V tensors and a new ``pos``.
     """
     _dense_only(cfg)
-    b = tokens.shape[0]
-    cd = cfg.compute_dtype
     pos = cache["pos"]
     ks, vs = cache["k"], cache["v"]
-    c = ks.shape[2]
+    ring = ring_step(cfg, pos, ks.shape[2], tokens.shape[0])
+    x = embed_tokens(params, cfg, tokens[:, None])[:, 0]       # (B, d)
+    for i in range(cfg.n_layers):
+        x = decode_layer(layer_params(params, i), cfg, x, ks[i], vs[i], ring)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(params["embed"], x, cfg.compute_dtype)  # (B, V)
+    return logits, {"k": ks, "v": vs, "pos": pos + 1}
+
+
+def ring_step(cfg: ModelConfig, pos, c: int, b: int):
+    """What every attention layer of a decode step shares, from the device
+    tensor ``pos``: the ring slot pos % c, the valid length min(pos + 1, c)
+    per row, and the rotary tables of position pos."""
     slot = torch.remainder(pos, c).long().reshape(1)
     length = torch.clamp(pos + 1, max=c).to(torch.int32).expand(b).contiguous()
     rope = rope_tables(pos.expand(b, 1), cfg.head_dim, theta=cfg.rope_theta)
-    x = embed_tokens(params, cfg, tokens[:, None])[:, 0]       # (B, d)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        xa = apply_norm(cfg, lp["attn_norm"], x)[:, None, :]
-        q, k1, v1 = _qkv(lp["attn"], cfg, xa)
-        q = rotate(q, *rope)[:, 0]
-        k1 = rotate(k1, *rope)
-        kc, vc = ks[i], vs[i]
-        kc.index_copy_(1, slot, k1)
-        vc.index_copy_(1, slot, v1)
-        att = decode_attention(q, kc, vc, length=length)
-        h = att.reshape(b, -1) @ lp["attn"]["wo"].to(cd)
-        x = x + h.to(x.dtype)
-        x = x + _mlp(lp, cfg, x)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed(params["embed"], x, cd)                 # (B, V)
-    return logits, {"k": ks, "v": vs, "pos": pos + 1}
+    return slot, length, rope
+
+
+def decode_layer(lp, cfg: ModelConfig, x, kc, vc, ring):
+    """One attention + MLP layer of a decode step (the dense layer, and the
+    hybrid's shared block): its K/V written in place into the ring ``kc``/
+    ``vc`` (B, c, Hkv, D) at the slot, attention through
+    ``decode_attention``. x (B, d) -> x."""
+    slot, length, rope = ring
+    b = x.shape[0]
+    xa = apply_norm(cfg, lp["attn_norm"], x)[:, None, :]
+    q, k1, v1 = _qkv(lp["attn"], cfg, xa)
+    q = rotate(q, *rope)[:, 0]
+    k1 = rotate(k1, *rope)
+    kc.index_copy_(1, slot, k1)
+    vc.index_copy_(1, slot, v1)
+    att = decode_attention(q, kc, vc, length=length)
+    h = att.reshape(b, -1) @ lp["attn"]["wo"].to(cfg.compute_dtype)
+    return _residual_mlp(lp, cfg, x, h)

@@ -1377,6 +1377,104 @@ def test_cuda_ssm_tiers_match_oracle(cuda):
     perks.clear_graphs()
 
 
+# -- the SSM and hybrid families: the scan's final state, prefill and decode --
+
+# (H, P, N): mamba2-780m's and zamba2-1.2b's SSD widths
+SSD_MODEL_WIDTHS = {"mamba2": (48, 64, 128), "zamba2": (64, 64, 64)}
+
+
+@pytest.mark.parametrize("t", [256, 200])
+@pytest.mark.parametrize("widths", sorted(SSD_MODEL_WIDTHS))
+def test_cuda_ssd_scan_final_state(widths, t, cuda):
+    """ssd_scan(return_state=True) at both models' SSD widths (float32
+    streams, B = 2, chunk 128; T = 200 leaves a ragged last chunk): y and the
+    final state against the plain version, y bit for bit the launch's
+    without the state."""
+    h, p, n = SSD_MODEL_WIDTHS[widths]
+    x, dt, a, b, c, d = _ssd_inputs(2, t, h, p, n, torch.float32, cuda,
+                                    seed=t + n)
+    before = ops.launch_counts()
+    y, hf = ops.ssd_scan(x, dt, a, b, c, d, chunk=128, return_state=True)
+    y0 = ops.ssd_scan(x, dt, a, b, c, d, chunk=128)
+    after = ops.launch_counts()
+    assert after["ssm_scan"] - before["ssm_scan"] == 2
+    assert after["ssm_scan_state"] - before["ssm_scan_state"] == 1
+    assert torch.equal(y, y0)
+    assert hf.shape == (2, h, n, p) and hf.dtype == torch.float32
+    wy, wh = ops.ssd_scan(*(v.cpu() for v in (x, dt, a, b, c, d)),
+                          chunk=128, return_state=True)
+    tol = SSM_TOL[torch.float32]
+    np.testing.assert_allclose(y.cpu().numpy(), wy.numpy(), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(hf.cpu().numpy(), wh.numpy(), rtol=tol,
+                               atol=tol)
+
+
+def _smoke_pair(arch, cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import Model
+    from repro_torch.nn.param import tree_map
+    model = Model(dataclasses.replace(get_smoke_config(arch),
+                                      compute_dtype=torch.float32))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    return model, params, tree_map(torch.Tensor.cpu, params)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_cuda_ssm_model_prefill_and_decode_match_cpu(arch, cuda):
+    """The smoke config in float32 on the card (the scan kernel on its
+    prefill, decode attention on the hybrid's) against the CPU run on the
+    same weights: logits and every cache leaf, then three decode steps."""
+    model, params, cparams = _smoke_pair(arch, cuda)
+    # 64: a multiple of the smoke configs' chunk (16) and q_chunk (32)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, (2, 64)).astype(np.int32))
+    before = ops.launch_counts()["ssm_scan_state"]
+    lg, cache = model.prefill(params, {"tokens": prompts.to(cuda)},
+                              cache_seq=68)
+    assert ops.launch_counts()["ssm_scan_state"] - before == (
+        model.cfg.n_layers)
+    lh, cache_h = model.prefill(cparams, {"tokens": prompts}, cache_seq=68)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lg.cpu().numpy(), lh.numpy(), **tol)
+    for key in cache_h:
+        np.testing.assert_allclose(cache[key].cpu().numpy(),
+                                   cache_h[key].numpy(), err_msg=key, **tol)
+    tok = torch.argmax(lh, -1).to(torch.int32)
+    for _ in range(3):
+        lg, cache = model.decode_step(params, cache, tok.to(cuda))
+        lh, cache_h = model.decode_step(cparams, cache_h, tok)
+        np.testing.assert_allclose(lg.cpu().numpy(), lh.numpy(), **tol)
+        tok = torch.argmax(lh, -1).to(torch.int32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_cuda_ssm_decode_tiers_token_identical(arch, cuda):
+    """DecodeAttentionProblem on every tier: the kept graph advances the
+    conv windows and states in place from its own copy (its capture's
+    warm-up step on another copy), so every tier gives the oracle's tokens
+    and final cache, and the problem's cache is never written."""
+    from repro_torch.exec import DecodeAttentionProblem
+    model, params, _ = _smoke_pair(arch, cuda)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, model.cfg.vocab, (2, 32)).astype(np.int32)).to(cuda)
+    logits, cache = model.prefill(params, {"tokens": prompts}, cache_seq=40)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    prob = DecodeAttentionProblem(model=model, params=params, cache=cache,
+                                  first_tokens=first, n_steps=7)
+    before = {k: t.clone() for k, t in cache.items()}
+    want, wcache = prob.oracle()
+    for tier in ("host_loop", "device_loop", "device_loop", "resident",
+                 "resident"):
+        toks, got = execute(prob, Plan(tier=tier))
+        assert torch.equal(toks, want), tier
+        for key in wcache:
+            assert torch.equal(got[key], wcache[key]), (tier, key)
+    for key, t in before.items():
+        assert torch.equal(prob.cache[key], t), key
+    perks.clear_graphs()
+
+
 # -- batched launches: B instances in one launch ---------------------------------------
 
 

@@ -288,7 +288,8 @@ def test_configs_match_reference(arch):
                 jnp.dtype(jc.pop(key)).name
         assert tc == jc
     cfg = tconfigs.get_config(arch)
-    if cfg.family == "dense" and cfg.mla is None and cfg.moe is None:
+    if (cfg.family in ("dense", "ssm", "hybrid") and cfg.mla is None
+            and cfg.moe is None):
         assert cfg.n_params() == jreg.get_config(arch).n_params()
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -376,7 +377,7 @@ def test_prefill_and_decode_step_match_reference(arch, dtype):
 
 
 def test_unported_model_parts_raise_naming_the_roadmap():
-    for arch in ("mamba2-780m", "zamba2-1.2b", "whisper-base"):
+    for arch in ("whisper-base",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(tconfigs.get_smoke_config(arch))
     for arch in ("minicpm3-4b", "qwen3-moe-235b-a22b"):
